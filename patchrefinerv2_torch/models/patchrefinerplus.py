@@ -1,0 +1,223 @@
+"""PatchRefinerPlus (the V2 flagship) tiled inference, the port of
+``patchrefinerv2_tpu/models/patchrefinerplus.py`` (``ZoeDepthBEiT`` :64,
+``PRPlusNet.coarse_forward``/``_roi``/``refine``/``infer_chunk``
+:200-294, ``PatchRefinerPlus.infer`` :559-705) for ``cai_mode`` m1 and m2.
+
+Per frame: the coarse branch once at the coarse resolution, then for every
+chunk of patches: crop + resize (K2), roi_align of the six coarse levels and
+the coarse depth (K1), the EfficientNet-B5 refiner and BiDirectionalFusion
+(cuDNN convolutions, K2 upsamples, K6 LayerNorms), and blending into the
+canvases (K7). ``lax.scan`` over chunks becomes a Python loop.
+
+The module tree keeps the reference's torch state-dict names
+(``coarse_branch``, ``refiner_fine_branch``, ``refiner_fusion_model``), so
+``utils/jax_weights.load_jax_params`` can load the JAX package's variables.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from patchrefinerv2_torch import resolve_device
+from patchrefinerv2_torch.config import ConfigDict
+from patchrefinerv2_torch.models.backbones.zoedepth import ZoeDepthBEiT
+from patchrefinerv2_torch.models.blocks.convs import to_nchw, to_nhwc
+from patchrefinerv2_torch.models.blocks.fusion import BiDirectionalFusion
+from patchrefinerv2_torch.models.blocks.refiner import LightWeightRefiner
+from patchrefinerv2_torch.models.tiling import (
+    _BATCH_GRANULE, TileCfg, merge_all_passes, regular_pass,
+)
+from patchrefinerv2_torch.ops.blend import TileBlender
+from patchrefinerv2_torch.ops.masks import generate_blend_mask
+from patchrefinerv2_torch.ops.resize import crop_resize
+from patchrefinerv2_torch.ops.roi_align import roi_align
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def build_coarse_branch(cfg, min_depth: float, max_depth: float, img_size) -> ZoeDepthBEiT:
+    if cfg["type"] != "ZoeDepth":
+        raise NotImplementedError(f"coarse branch {cfg['type']!r} is not ported (ZoeDepth is)")
+    trunk = cfg.get("trunk", {})  # test-size overrides; default BEiT-L/16
+    return ZoeDepthBEiT(
+        img_size=tuple(img_size),
+        embed_dim=trunk.get("embed_dim", 1024),
+        depth=trunk.get("depth", 24),
+        num_heads=trunk.get("num_heads", 16),
+        taps=tuple(trunk.get("taps", (5, 11, 17, 23))),
+        features=trunk.get("features", 256),
+        out_channels=tuple(trunk.get("out_channels", (256, 512, 1024, 1024))),
+        n_bins=cfg.get("n_bins", 64),
+        bin_centers_type=cfg.get("bin_centers_type", "softplus"),
+        bin_embedding_dim=cfg.get("bin_embedding_dim", 128),
+        min_depth=min_depth,
+        max_depth=max_depth,
+        n_attractors=tuple(cfg.get("n_attractors", [16, 8, 4, 1])),
+        attractor_kind=cfg.get("attractor_kind", "mean"),
+        attractor_type=cfg.get("attractor_type", "inv"),
+        min_temp=cfg.get("min_temp", 0.0212),
+        max_temp=cfg.get("max_temp", 50.0),
+    )
+
+
+class PRPlusNet(nn.Module):
+    """The compute graph; the tiling orchestration lives in PatchRefinerPlus."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.min_depth, self.max_depth = cfg.min_depth, cfg.max_depth
+        self.patch_process_shape = tuple(cfg.patch_process_shape)
+        self.strategy_refiner_target = cfg.get("strategy_refiner_target", "offset_coarse")
+        self.fusion_feat_level = cfg.get("fusion_feat_level", 6)
+        self.coarse_branch = build_coarse_branch(
+            cfg.coarse_branch, self.min_depth, self.max_depth, self.patch_process_shape)
+        fine = dict(cfg.refiner.fine_branch)
+        if fine.pop("type") != "LightWeightRefiner":
+            raise NotImplementedError("the port's refiner is LightWeightRefiner")
+        self.refiner_fine_branch = LightWeightRefiner(
+            encoder_name=fine.get("encoder_name", "tf_efficientnet_b5_ap"),
+            coarse_condition=fine.get("coarse_condition", True),
+            with_decoder=fine.get("with_decoder", False))
+        fus = dict(cfg.refiner.fusion_model)
+        if fus.pop("type") != "BiDirectionalFusion":
+            raise NotImplementedError("the port's fusion model is BiDirectionalFusion")
+        cb = self.coarse_branch
+        feat = cb.core.core.scratch.layer1_rn.out_channels
+        coarse_chl = [32] + [feat] * 5  # midas out_conv, 4 decoder levels, x_d0
+        self.refiner_fusion_model = BiDirectionalFusion(
+            coarse_chl=coarse_chl,
+            fine_chl=self.refiner_fine_branch.channels,
+            temp_chl=tuple(fus.get("temp_chl", (32, 64, 64, 128, 256, 512))),
+            dec_chl=tuple(fus.get("dec_chl", (512, 256, 128, 64, 32))),
+            coarse2fine=fus.get("coarse2fine", True),
+            coarse2fine_type=fus.get("coarse2fine_type", "coarse-gated"),
+            glb_att=fus.get("glb_att", False),
+            c2f_features=fus.get("c2f_features", 256),
+            head2_features=list(fus.get("coarse_chl", [32]))[0],
+        )
+
+    def coarse_forward(self, image_lr):
+        """image_lr NHWC -> (6 coarse levels, coarse depth), NCHW channels_last."""
+        out = self.coarse_branch(to_nchw(image_lr))
+        return out["coarse_features"], out["metric_depth"]
+
+    def _roi(self, coarse_pred, coarse_feats, bboxes, box_idx):
+        pph = self.patch_process_shape[0]
+        rois = []
+        for f in list(coarse_feats) + [coarse_pred]:
+            h, w = f.shape[2:]
+            rois.append(to_nchw(roi_align(to_nhwc(f), bboxes, box_idx, (h, w), h / pph)))
+        return rois[:-1], rois[-1]
+
+    def refine(self, imgs_crop, coarse_feat_rois, coarse_pred_roi):
+        """Refiner + fusion on a batch of NCHW patches."""
+        cdt = imgs_crop.dtype
+        coarse_pred_roi = coarse_pred_roi.to(cdt)
+        coarse_feat_rois = [f.to(cdt) for f in coarse_feat_rois]
+        r_feats, r_depth = self.refiner_fine_branch(imgs_crop, coarse_pred_roi)
+        update_base = {"offset_fine": r_depth, "offset_coarse": coarse_pred_roi}.get(
+            self.strategy_refiner_target)
+        L = self.fusion_feat_level
+        depth = self.refiner_fusion_model(
+            list(coarse_feat_rois)[-L:][::-1], list(r_feats)[-L:][::-1], coarse_pred_roi, r_depth,
+            update_base=update_base)
+        if self.strategy_refiner_target == "direct":
+            depth = torch.sigmoid(depth) * self.max_depth
+        return depth
+
+    def infer_chunk(self, imgs_crop, coarse_pred, coarse_feats, bboxes):
+        """imgs_crop NHWC (N, h, w, 3) -> depth (N, 1, h, w)."""
+        idx = torch.zeros(bboxes.shape[0], dtype=torch.int32, device=bboxes.device)
+        feat_rois, pred_roi = self._roi(coarse_pred, coarse_feats, bboxes, idx)
+        return self.refine(to_nchw(imgs_crop), feat_rois, pred_roi)
+
+
+def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights from ``generator``: every conv and linear weight
+    uniform in +-1/sqrt(fan_in) and its bias zero; norms, layer scales, the
+    cls token, q/v biases and the relative-position tables keep their
+    initial values (ones, 1e-5 and zeros, as the JAX package initialises)."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                bound = m.weight[0].numel() ** -0.5
+                m.weight.copy_(torch.rand(m.weight.shape, generator=generator) * (2 * bound) - bound)
+                if m.bias is not None:
+                    m.bias.zero_()
+    return module
+
+
+class PatchRefinerPlus:
+    """Config-built orchestrator for tiled inference on one device.
+
+    ``device=None`` means the card, and raises when there is none."""
+
+    def __init__(self, config: dict, device=None, seed: int = 0):
+        self.device = resolve_device(device)
+        cfg = ConfigDict._wrap(dict(config))
+        self.config = cfg
+        self.patch_process_shape = tuple(cfg.patch_process_shape)
+        self.tile_cfg = TileCfg(tuple(cfg.image_raw_shape), tuple(cfg.patch_split_num),
+                                self.patch_process_shape)
+        if cfg.get("pretrain_stage", False):
+            raise NotImplementedError("the pretrain stage is not ported")
+        self.infer_dtype = _DTYPES[cfg.get("infer_dtype", "float32")]
+        net = PRPlusNet(cfg)
+        init_random_(net, torch.Generator().manual_seed(seed))
+        self.net = net.to(self.device, memory_format=torch.channels_last).eval()
+        if self.infer_dtype != torch.float32:
+            self.net.to(self.infer_dtype)
+
+    def set_infer_dtype(self, dtype: torch.dtype) -> None:
+        """Cast the parameters (in place) and run inference in ``dtype``."""
+        self.infer_dtype = dtype
+        self.net.to(dtype)
+
+    def _plan(self, cai_mode: str, process_num: int):
+        """(patch stream, per-patch init flags or None, chunk) of the mode: m1
+        is one init pass in chunks of ``process_num``; m2 merges the init
+        pass and the three shifted passes into one stream in chunks of
+        ``min(process_num, 8)``."""
+        tc = self.tile_cfg
+        if cai_mode == "m1":
+            return regular_pass(tc, (0, 0), process_num), None, process_num
+        if cai_mode == "m2":
+            chunk = min(process_num, _BATCH_GRANULE)
+            stream, initv = merge_all_passes(
+                [regular_pass(tc, off, process_num) for off in ((0, 0), (0, 1), (1, 0), (1, 1))],
+                chunk)
+            return stream, initv, chunk
+        raise NotImplementedError(f"cai_mode {cai_mode!r} is not ported (m1, m2)")
+
+    @torch.inference_mode()
+    def infer(self, image_lr, image_hr, cai_mode: str = "m1", process_num: int = 4):
+        """Tiled inference. ``image_lr`` (1, h, w, 3), ``image_hr`` (1, H, W, 3)
+        NHWC in [0, 1] (tensors or arrays). Returns (depth (H', W') float32 on
+        the reensemble canvas, coarse depth (1, h, w, 1))."""
+        dev, dt = self.device, self.infer_dtype
+        image_lr = torch.as_tensor(image_lr).to(dev, dt).contiguous()
+        image_hr = torch.as_tensor(image_hr).to(dev, dt).contiguous()
+        pph, ppw = self.patch_process_shape
+        prh, prw = self.tile_cfg.patch_raw_shape
+        stream, initv, chunk = self._plan(cai_mode, process_num)
+        n = stream.starts_raw.shape[0]
+        ends = stream.starts_raw + np.array([prh, prw])
+        if stream.starts_raw.min() < 0 or (ends > np.array(image_hr.shape[1:3])).any():
+            raise ValueError(f"the tile plan reaches outside the {tuple(image_hr.shape[1:3])} frame")
+        blur = torch.from_numpy(generate_blend_mask((pph, ppw), border=0.15)).to(dev)
+        s_raw = torch.from_numpy(stream.starts_raw).to(dev)
+        s_place = torch.from_numpy(stream.starts_process).to(dev)
+        boxes = torch.from_numpy(stream.bboxes).to(dev)
+        valid = torch.from_numpy((np.arange(n) < stream.n_valid).astype(np.float32)).to(dev)
+        iv = None if initv is None else torch.from_numpy(initv).to(dev)
+        coarse_feats, coarse_pred = self.net.coarse_forward(image_lr)
+        state = TileBlender.init(self.tile_cfg.patch_reensemble_shape, dev)
+        for lo in range(0, n, chunk):
+            sl = slice(lo, lo + chunk)
+            imgs = crop_resize(image_hr[0], s_raw[sl], (prh, prw), (pph, ppw))
+            preds = self.net.infer_chunk(imgs, coarse_pred, coarse_feats, boxes[sl])[:, 0]
+            TileBlender.add_pass(state, preds, blur, s_place[sl], init_pass=iv is None,
+                                 valid=valid[sl], initv=None if iv is None else iv[sl])
+        return TileBlender.finalize(state), to_nhwc(coarse_pred)

@@ -1,0 +1,41 @@
+"""Ops of the port: each hand-written Hopper kernel beside its plain PyTorch
+version. ``KERNELS`` lists every kernel wrapper with its source and the
+TPU-side function it replaces; ``reset_launches``/``launch_counts`` read the
+wrappers' launch counters."""
+
+from __future__ import annotations
+
+from patchrefinerv2_torch.ops.blend import TileBlender
+from patchrefinerv2_torch.ops.layer_norm import layer_norm
+from patchrefinerv2_torch.ops.resize import crop_resize, resize
+from patchrefinerv2_torch.ops.roi_align import roi_align
+
+KERNELS = {
+    "roi_align": dict(wrapper=roi_align, route="cuda",
+                      source="patchrefinerv2_torch/csrc/roi_align.cu",
+                      replaces="patchrefinerv2_tpu/ops/roi_align.py:86"),
+    "resize": dict(wrapper=resize, route="cuda",
+                   source="patchrefinerv2_torch/csrc/resize.cu",
+                   replaces="patchrefinerv2_tpu/ops/resize.py:214"),
+    "crop_resize": dict(wrapper=crop_resize, route="cuda",
+                        source="patchrefinerv2_torch/csrc/resize.cu",
+                        replaces="patchrefinerv2_tpu/models/tiling.py:229"),
+    "layer_norm": dict(wrapper=layer_norm, route="triton",
+                       source="patchrefinerv2_torch/ops/layer_norm.py",
+                       replaces="patchrefinerv2_tpu/models/blocks/convs.py:18"),
+    "blend_add_pass": dict(wrapper=TileBlender.add_pass, route="cuda",
+                           source="patchrefinerv2_torch/csrc/blend.cu",
+                           replaces="patchrefinerv2_tpu/ops/blend.py:54"),
+    "blend_finalize": dict(wrapper=TileBlender.finalize, route="cuda",
+                           source="patchrefinerv2_torch/csrc/blend.cu",
+                           replaces="patchrefinerv2_tpu/ops/blend.py:113"),
+}
+
+
+def reset_launches() -> None:
+    for k in KERNELS.values():
+        k["wrapper"].launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: k["wrapper"].launches for name, k in KERNELS.items()}

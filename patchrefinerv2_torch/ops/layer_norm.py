@@ -1,0 +1,101 @@
+"""K6: row LayerNorm over the last axis with float32 statistics.
+
+Counterpart of three JAX forms that compute the same function:
+``DotLayerNorm`` (``patchrefinerv2_tpu/models/blocks/convs.py:18``, the
+channel LN written as dot products with a ones vector to keep the TPU conv
+layout), ``_layer_norm`` (``blocks/dpt.py:84``) and the BEiT
+``nn.LayerNorm`` (``backbones/beit.py:168,171``). All use the fast-variance
+formula ``var = max(E[x^2] - mean^2, 0)`` and
+``y = (x - mean) * (rsqrt(var + eps) * scale) + bias``; the output keeps the
+input's dtype.
+
+On Hopper a channel LN over NHWC (channels_last) activations is a plain
+row reduction over contiguous channels. The Triton kernel (built at first
+use; ``triton`` is imported only inside the launcher) loads a block of
+rows, reduces each row in float32 registers and writes the affine result,
+optionally followed by ReLU (``GatedConvUnit`` applies one right after). It
+is bound by bytes: each element is read once and written once. On a CPU
+tensor :func:`layer_norm` runs :func:`layer_norm_plain`.
+``layer_norm.launches`` counts the kernel launches.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from patchrefinerv2_torch.ops import _cuda
+
+__all__ = ["layer_norm", "layer_norm_plain"]
+
+
+def layer_norm_plain(x, weight, bias, eps: float = 1e-6, relu: bool = False):
+    """Plain PyTorch version of :func:`layer_norm` (any device)."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
+    y = (xf - mean) * (torch.rsqrt(var + eps) * weight.float()) + bias.float()
+    if relu:
+        y = torch.relu(y)
+    return y.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def ln_rows(X, Wt, B, Y, M, C, eps, BLOCK_M: tl.constexpr, BLOCK_C: tl.constexpr,
+                RELU: tl.constexpr):
+        rows = tl.program_id(0) * BLOCK_M + tl.arange(0, BLOCK_M)
+        cols = tl.arange(0, BLOCK_C)
+        cmask = cols < C
+        mask = (rows < M)[:, None] & cmask[None, :]
+        offs = rows.to(tl.int64)[:, None] * C + cols[None, :]
+        x = tl.load(X + offs, mask=mask, other=0.0).to(tl.float32)
+        mean = tl.sum(x, axis=1) / C
+        var = tl.maximum(tl.sum(x * x, axis=1) / C - mean * mean, 0.0)
+        rstd = 1.0 / tl.sqrt(var + eps)
+        w = tl.load(Wt + cols, mask=cmask, other=0.0).to(tl.float32)
+        b = tl.load(B + cols, mask=cmask, other=0.0).to(tl.float32)
+        y = (x - mean[:, None]) * (rstd[:, None] * w[None, :]) + b[None, :]
+        if RELU:
+            y = tl.maximum(y, 0.0)
+        tl.store(Y + offs, y.to(Y.dtype.element_ty), mask=mask)
+
+    return triton, ln_rows
+
+
+def _blocks(c: int):
+    block_c = 1 << max(0, (c - 1).bit_length())
+    block_m = max(1, min(128, 4096 // block_c))
+    num_warps = 4 if block_c * block_m <= 4096 else 8
+    return block_m, block_c, num_warps
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6, relu: bool = False) -> torch.Tensor:
+    """LayerNorm over the last axis of ``x`` (any leading shape)."""
+    if _cuda.on_cpu(x):
+        return layer_norm_plain(x, weight, bias, eps, relu)
+    c = x.shape[-1]
+    if tuple(weight.shape) != (c,) or tuple(bias.shape) != (c,):
+        raise ValueError(f"expected ({c},) weight and bias, got {tuple(weight.shape)}, {tuple(bias.shape)}")
+    _cuda.require_cuda(x, weight, bias)
+    _cuda.dtype_code(x.dtype)
+    if c > 8192:
+        raise ValueError(f"layer_norm kernel takes rows of at most 8192 channels, got {c}")
+    m = x.numel() // c
+    y = torch.empty_like(x)
+    triton, kern = _kernel()
+    block_m, block_c, num_warps = _blocks(c)
+    kern[(triton.cdiv(m, block_m),)](
+        x, weight, bias, y, m, c, float(eps),
+        BLOCK_M=block_m, BLOCK_C=block_c, RELU=bool(relu), num_warps=num_warps)
+    layer_norm.launches += 1
+    return y
+
+
+layer_norm.launches = 0

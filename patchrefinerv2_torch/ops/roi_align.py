@@ -1,0 +1,86 @@
+"""K1: torchvision-exact ``roi_align(aligned=True)``, NHWC.
+
+Counterpart of ``patchrefinerv2_tpu/ops/roi_align.py`` (``roi_align``
+:179, ``roi_align_mxu`` :86, ``roi_align_gather`` :129). Features are
+(B, H, W, C), boxes (N, 4) ``[x1, y1, x2, y2]`` with a separate (N,)
+``box_idx``. Only ``sampling_ratio=1`` is ported: it is every call site
+(the roi never exceeds the feature map and the output size is the feature
+size), so other ratios raise.
+
+On a CUDA tensor :func:`roi_align` launches ``csrc/roi_align.cu`` (or
+raises); on a CPU tensor it runs :func:`roi_align_plain`.
+``roi_align.launches`` counts the kernel launches. A box index outside
+the batch raises on the CPU and gives zeros from the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from patchrefinerv2_torch.ops import _cuda
+
+__all__ = ["roi_align", "roi_align_plain"]
+
+
+def _axis_taps(lo, hi, out_size: int, in_size: int):
+    """Per-box taps along one axis: (i0, i1, w0, w1), each (N, out_size)."""
+    i = torch.arange(out_size, dtype=torch.float32, device=lo.device)
+    bins = (hi - lo) / out_size
+    v = lo[:, None] + (i[None, :] + 0.5) * bins[:, None]
+    valid = ((v >= -1.0) & (v <= in_size)).float()
+    vc = v.clamp(0.0, in_size - 1.0)
+    fl = torch.floor(vc)
+    fr = vc - fl
+    i0 = fl.long()
+    i1 = torch.clamp(i0 + 1, max=in_size - 1)
+    return i0, i1, (1.0 - fr) * valid, fr * valid
+
+
+def roi_align_plain(features, boxes, box_idx, output_size, spatial_scale=1.0):
+    """Plain PyTorch version of :func:`roi_align` (any device)."""
+    b, h, w, c = features.shape
+    oh, ow = int(output_size[0]), int(output_size[1])
+    bx = boxes.float() * spatial_scale - 0.5
+    yi0, yi1, ay0, ay1 = _axis_taps(bx[:, 1], bx[:, 3], oh, h)
+    xi0, xi1, ax0, ax1 = _axis_taps(bx[:, 0], bx[:, 2], ow, w)
+    f = features.float()[box_idx.long()]  # (N, H, W, C)
+    n = f.shape[0]
+    rows = torch.arange(n, device=f.device)[:, None]
+    # H taps first, then W taps (the reference's contraction order)
+    t = f[rows, yi0] * ay0[..., None, None] + f[rows, yi1] * ay1[..., None, None]  # (N, oh, W, C)
+    gx0 = xi0[:, None, :, None].expand(n, oh, ow, c)
+    gx1 = xi1[:, None, :, None].expand(n, oh, ow, c)
+    out = (torch.gather(t, 2, gx0) * ax0[:, None, :, None]
+           + torch.gather(t, 2, gx1) * ax1[:, None, :, None])
+    return out.to(features.dtype)
+
+
+def roi_align(features, boxes, box_idx, output_size, spatial_scale: float = 1.0,
+              sampling_ratio: int = 1):
+    """Aligned RoI-Align of NHWC ``features`` -> (N, out_h, out_w, C) in the
+    features' dtype (float32 or bfloat16)."""
+    if sampling_ratio != 1:
+        raise NotImplementedError("roi_align is ported for sampling_ratio=1 (every call site)")
+    if features.ndim != 4 or boxes.ndim != 2 or boxes.shape[1] != 4 or \
+            tuple(box_idx.shape) != (boxes.shape[0],):
+        raise ValueError(f"expected NHWC features, (N, 4) boxes and (N,) box indices, got "
+                         f"{tuple(features.shape)}, {tuple(boxes.shape)}, {tuple(box_idx.shape)}")
+    if _cuda.on_cpu(features):
+        return roi_align_plain(features, boxes, box_idx, output_size, spatial_scale)
+    boxes = boxes.to(device=features.device, dtype=torch.float32).contiguous()
+    box_idx = box_idx.to(device=features.device, dtype=torch.int32).contiguous()
+    _cuda.require_cuda(features, boxes, box_idx)
+    dt = _cuda.dtype_code(features.dtype)
+    b, h, w, c = features.shape
+    n = boxes.shape[0]
+    oh, ow = int(output_size[0]), int(output_size[1])
+    out = torch.empty((n, oh, ow, c), dtype=features.dtype, device=features.device)
+    fn = _cuda.bind("roi_align", "prv2_roi_align", 4, 7, 1)
+    rc = fn(_cuda.ptr(features), _cuda.ptr(boxes), _cuda.ptr(box_idx), _cuda.ptr(out),
+            n, b, h, w, c, oh, ow, float(spatial_scale), dt, _cuda.stream_of(features))
+    _cuda.check(rc, "roi_align")
+    roi_align.launches += 1
+    return out
+
+
+roi_align.launches = 0
