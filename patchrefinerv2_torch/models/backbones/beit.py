@@ -11,14 +11,13 @@ gamma_2}``), the readouts under ``pretrained.act_postprocess{1..4}``
 (``0.project.0`` readout linear, ``3`` 1x1 project, ``4`` resize) and the
 decoder under ``scratch``.
 
-K3 (attention with the relative-position bias) is plain PyTorch in this
-port for now: ``torch.matmul`` with float32 logits and softmax, the bias
-gathered from the table through the timm relative-position index.
+K3 (attention with the relative-position bias) runs through
+``ops/attention.attention``, which builds the bias from the table inside
+the kernel.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -27,28 +26,14 @@ from patchrefinerv2_torch.models.blocks.convs import (
     ChannelLayerNorm, gelu, interp, to_nchw,
 )
 from patchrefinerv2_torch.models.blocks.dpt import FeatureFusionBlock
-
-
-def relative_position_index(h: int, w: int) -> np.ndarray:
-    """timm BEiT relative_position_index for an h*w window plus the cls token."""
-    coords = np.stack(np.meshgrid(np.arange(h), np.arange(w), indexing="ij")).reshape(2, -1)
-    rel = (coords[:, :, None] - coords[:, None, :]).transpose(1, 2, 0).astype(np.int64)
-    rel[:, :, 0] += h - 1
-    rel[:, :, 1] += w - 1
-    rel[:, :, 0] *= 2 * w - 1
-    num_rel = (2 * h - 1) * (2 * w - 1)
-    idx = np.zeros((h * w + 1, h * w + 1), dtype=np.int64)
-    idx[1:, 1:] = rel.sum(-1)
-    idx[0, 0:] = num_rel
-    idx[0:, 0] = num_rel + 1
-    idx[0, 0] = num_rel + 2
-    return idx
+from patchrefinerv2_torch.ops.attention import attention
 
 
 class BeitAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, grid: tuple[int, int]):
         super().__init__()
         self.num_heads = num_heads
+        self.grid = tuple(grid)
         gh, gw = grid
         self.qkv = nn.Linear(dim, dim * 3, bias=False)
         self.q_bias = nn.Parameter(torch.zeros(dim))
@@ -56,13 +41,6 @@ class BeitAttention(nn.Module):
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * gh - 1) * (2 * gw - 1) + 3, num_heads))
         self.proj = nn.Linear(dim, dim)
-        self.register_buffer("relative_position_index",
-                             torch.from_numpy(relative_position_index(gh, gw)), persistent=False)
-
-    def relative_position_bias(self) -> torch.Tensor:
-        s = self.relative_position_index.shape[0]
-        rel = self.relative_position_bias_table[self.relative_position_index.view(-1)]
-        return rel.view(s, s, -1).permute(2, 0, 1)  # (heads, S, S)
 
     def forward(self, x):
         b, s, d = x.shape
@@ -70,9 +48,7 @@ class BeitAttention(nn.Module):
         bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
         qkv = F.linear(x, self.qkv.weight, bias).reshape(b, s, 3, self.num_heads, hd)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
-        att = torch.matmul((q * hd ** -0.5).float(), k.float().transpose(-2, -1))
-        att = torch.softmax(att + self.relative_position_bias().float()[None], dim=-1)
-        o = torch.matmul(att.to(v.dtype), v)
+        o = attention(q, k, v, hd ** -0.5, self.relative_position_bias_table, self.grid)
         return self.proj(o.transpose(1, 2).reshape(b, s, d))
 
 

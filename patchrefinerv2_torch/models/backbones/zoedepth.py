@@ -7,9 +7,10 @@ Names follow zoedepth_v1.py: ``conv2``, ``seed_bin_regressor._net``,
 ``seed_projector._net``, ``projectors.{i}._net``, ``attractors.{i}._net``,
 ``conditional_log_binomial.mlp``, with the core under ``core.core``.
 
-K8 (the bins-head elementwise math) is plain PyTorch in this port for now.
-Reference quirk kept: the attractor layers compute with alpha 300 and gamma
-2 whatever the config says (the reference never forwards them).
+K8 (the bins-head per-pixel math: the attractor shifts and the
+log-binomial depth) runs through ``ops/bins``, which keeps the reference
+quirk: the attractor layers compute with alpha 300 and gamma 2 whatever the
+config says (the reference never forwards them).
 """
 
 from __future__ import annotations
@@ -19,24 +20,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from patchrefinerv2_torch.models.backbones.beit import MidasDPTBEiT
-from patchrefinerv2_torch.models.blocks.convs import interp
-
-# ImageNet statistics of the DINOv2 / Depth-Anything cores
-# (patchrefinerv2_tpu/models/backbones/dpt.py); the BEiT core normalises
-# with 0.5 / 0.5 instead
-IMAGENET_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_STD = (0.229, 0.224, 0.225)
-
-_ATTRACTOR_ALPHA = 300.0
-_ATTRACTOR_GAMMA = 2
-
-
-def inv_attractor(dx, alpha: float = _ATTRACTOR_ALPHA, gamma: int = _ATTRACTOR_GAMMA):
-    return dx / (1 + alpha * dx ** gamma)
-
-
-def exp_attractor(dx, alpha: float = _ATTRACTOR_ALPHA, gamma: int = _ATTRACTOR_GAMMA):
-    return torch.exp(-alpha * torch.abs(dx) ** gamma) * dx
+from patchrefinerv2_torch.models.blocks.convs import interp, to_nchw, to_nhwc
+from patchrefinerv2_torch.ops.bins import attractor_update, log_binomial_depth
 
 
 def _mlp(cin: int, hidden: int, out: int, final: nn.Module | None) -> nn.Sequential:
@@ -63,10 +48,9 @@ class AttractorLayer(nn.Module):
                  max_depth: float, kind: str = "mean", attractor_type: str = "inv",
                  mlp_dim: int = 128):
         super().__init__()
-        self.normed, self.kind = normed, kind
+        self.normed, self.kind, self.attractor_type = normed, kind, attractor_type
         self.n_attractors = n_attractors
         self.min_depth, self.max_depth = min_depth, max_depth
-        self.dist = inv_attractor if attractor_type == "inv" else exp_attractor
         out = n_attractors * 2 if normed else n_attractors
         self._net = _mlp(in_features, mlp_dim, out, nn.ReLU() if normed else nn.Softplus())
 
@@ -79,47 +63,30 @@ class AttractorLayer(nn.Module):
             b, _, h, w = a.shape
             a = (a + 1e-3).reshape(b, self.n_attractors, 2, h, w)[:, :, 0]
         b_centers = interp(b_prev, x.shape[2:])
-        dx = a[:, :, None] - b_centers[:, None]  # (B, na, nb, H, W)
-        delta = self.dist(dx)
-        delta = delta.mean(1) if self.kind == "mean" else delta.sum(1)
-        b_new = b_centers + delta
-        if not self.normed:
-            return b_new, b_new
-        centers = (self.max_depth - self.min_depth) * b_new + self.min_depth
-        centers = torch.sort(centers, dim=1).values.clamp(self.min_depth, self.max_depth)
-        return b_new, centers
-
-
-def log_binom(n, k, eps: float = 1e-7):
-    """Stirling log(n choose k) (dist_layers.py:25-33)."""
-    n = n + eps
-    k = k + eps
-    return torch.xlogy(n, n) - torch.xlogy(k, k) - torch.xlogy(n - k, n - k + eps)
+        b_new, centers = attractor_update(to_nhwc(a), to_nhwc(b_centers), self.kind,
+                                          self.attractor_type, self.normed, self.min_depth,
+                                          self.max_depth)
+        return to_nchw(b_new), to_nchw(centers)
 
 
 class ConditionalLogBinomial(nn.Module):
+    """The log-binomial MLP (dist_layers.py:78-155) and the depth it gives:
+    forward returns the expectation of the bin centres."""
+
     def __init__(self, in_features: int, n_classes: int, bottleneck: int, min_temp: float,
-                 max_temp: float, p_eps: float = 1e-4):
+                 max_temp: float):
         super().__init__()
         self.n_classes = n_classes
-        self.min_temp, self.max_temp, self.p_eps = min_temp, max_temp, p_eps
+        self.min_temp, self.max_temp = min_temp, max_temp
         self.mlp = nn.Sequential(nn.Conv2d(in_features, bottleneck, 1), nn.GELU(),
                                  nn.Conv2d(bottleneck, 4, 1), nn.Softplus())
 
-    def forward(self, x, cond):
+    def forward(self, x, cond, b_centers):
         h = F.gelu(self.mlp[0](torch.cat([x, cond], dim=1)))
         pt = F.softplus(self.mlp[2](h))
-        p, t = pt[:, :2] + self.p_eps, pt[:, 2:] + self.p_eps
-        p = p[:, :1] / (p[:, :1] + p[:, 1:2])
-        t = t[:, :1] / (t[:, :1] + t[:, 1:2])
-        t = (self.max_temp - self.min_temp) * t + self.min_temp
-        K = self.n_classes
-        k_idx = torch.arange(K, dtype=torch.float32, device=x.device).view(1, K, 1, 1)
-        p = torch.clamp(p, 1e-4, 1.0)
-        one_minus_p = torch.clamp(1.0 - p, 1e-4, 1.0)
-        y = (log_binom(torch.tensor(K - 1, dtype=torch.float32, device=x.device), k_idx)
-             + k_idx * torch.log(p) + (K - 1 - k_idx) * torch.log(one_minus_p))
-        return torch.softmax(y / t, dim=1)
+        depth = log_binomial_depth(to_nhwc(pt), to_nhwc(b_centers), self.n_classes,
+                                   self.min_temp, self.max_temp)
+        return to_nchw(depth)
 
 
 class ZoeDepthHead(nn.Module):
@@ -173,9 +140,8 @@ class ZoeDepthHead(nn.Module):
         last = out_conv
         size = last.shape[2:]
         last_cat = torch.cat([last, interp(rel_depth, size)], dim=1)
-        probs = self.conditional_log_binomial(last_cat, interp(b_embedding, size))
-        b_centers_up = interp(b_centers, probs.shape[2:])
-        depth = torch.sum(probs * b_centers_up, dim=1, keepdim=True).to(last.dtype)
+        depth = self.conditional_log_binomial(last_cat, interp(b_embedding, size),
+                                              interp(b_centers, size))
         return {"metric_depth": depth, "coarse_features": [x_d0, *x_blocks, last]}
 
 
@@ -187,6 +153,9 @@ class ZoeDepthBEiT(ZoeDepthHead):
                  num_heads: int = 16, taps=(5, 11, 17, 23), features: int = 256,
                  out_channels=(256, 512, 1024, 1024), **head_kw):
         super().__init__(btl_ch=features, block_chs=[features] * 4, **head_kw)
+        # channels of the 6 coarse levels, highest resolution first: the
+        # MiDaS 32-channel out_conv, then 4 decoder levels and x_d0
+        self.coarse_chl = [32] + [features] * 5
         self.core = nn.Module()
         self.core.core = MidasDPTBEiT(img_size, features, out_channels, embed_dim, depth,
                                       num_heads, taps)

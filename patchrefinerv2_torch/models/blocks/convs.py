@@ -55,10 +55,10 @@ class ChannelLayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
         self.eps = eps
 
-    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.ndim == 4:
-            return to_nchw(layer_norm(to_nhwc(x), self.weight, self.bias, self.eps, relu))
-        return layer_norm(x, self.weight, self.bias, self.eps, relu)
+            return to_nchw(layer_norm(to_nhwc(x), self.weight, self.bias, self.eps))
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class SingleConvCNNLN(nn.Module):

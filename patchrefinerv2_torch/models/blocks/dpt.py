@@ -17,8 +17,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from patchrefinerv2_torch.models.blocks.convs import (
-    ChannelLayerNorm, ResidualConvUnit, conv3, interp,
+    ChannelLayerNorm, ResidualConvUnit, conv3, interp, to_nchw, to_nhwc,
 )
+from patchrefinerv2_torch.ops.gated import gate_tail
 
 
 def upsample_bilinear_ac(x: torch.Tensor, size=None, scale: int = 2) -> torch.Tensor:
@@ -28,8 +29,9 @@ def upsample_bilinear_ac(x: torch.Tensor, size=None, scale: int = 2) -> torch.Te
 
 class GatedConvUnit(nn.Module):
     """out = x + conv(relu x); with fusion: f = 1x1(relu(LN(conv(cat(out, c)))));
-    gate => out * sigmoid(f), else f. The LN and the ReLU after it run as one
-    K6 launch; the convolutions go to cuDNN."""
+    gate => out * sigmoid(f), else f. The 3x3 convolutions go to cuDNN; the
+    tail after the fusion conv (LN, ReLU, the 1x1, the gate) is one K5
+    launch."""
 
     def __init__(self, features: int, coarse_ch: int, gate: bool = True, fusion: bool = True):
         super().__init__()
@@ -45,9 +47,10 @@ class GatedConvUnit(nn.Module):
         if not self.fusion:
             return out
         fc = self.fusion_conv
-        fused = fc[1](fc[0](torch.cat([out, c_feat], dim=1)), relu=True)
-        fused = fc[3](fused)
-        return out * torch.sigmoid(fused) if self.gate else fused
+        f = fc[0](torch.cat([out, c_feat], dim=1))
+        y = gate_tail(to_nhwc(f), to_nhwc(out) if self.gate else None, fc[3].weight,
+                      fc[1].weight, fc[1].bias, fc[1].eps)
+        return to_nchw(y)
 
 
 class GatedFusionBlock(nn.Module):

@@ -1,13 +1,17 @@
 """PatchRefinerPlus (the V2 flagship) tiled inference, the port of
 ``patchrefinerv2_tpu/models/patchrefinerplus.py`` (``ZoeDepthBEiT`` :64,
-``PRPlusNet.coarse_forward``/``_roi``/``refine``/``infer_chunk``
-:200-294, ``PatchRefinerPlus.infer`` :559-705) for ``cai_mode`` m1 and m2.
+``build_coarse_branch`` :117, ``PRPlusNet.coarse_forward``/``_roi``/
+``refine``/``infer_chunk`` :200-294, ``PatchRefinerPlus.infer`` :559-705)
+for ``cai_mode`` m1 and m2, with a ZoeDepth (BEiT) or a Depth-Anything-V2
+(DINOv2) coarse branch.
 
 Per frame: the coarse branch once at the coarse resolution, then for every
 chunk of patches: crop + resize (K2), roi_align of the six coarse levels and
 the coarse depth (K1), the EfficientNet-B5 refiner and BiDirectionalFusion
-(cuDNN convolutions, K2 upsamples, K6 LayerNorms), and blending into the
-canvases (K7). ``lax.scan`` over chunks becomes a Python loop.
+(cuDNN convolutions, K2 upsamples, K6 LayerNorms, K5 gate tails), and
+blending into the canvases (K7). The coarse branch runs K3 (BEiT) or K4
+(DINOv2) attention and, for ZoeDepth, the K8 bins head. ``lax.scan`` over
+chunks becomes a Python loop.
 
 The module tree keeps the reference's torch state-dict names
 (``coarse_branch``, ``refiner_fine_branch``, ``refiner_fusion_model``), so
@@ -22,6 +26,8 @@ import torch.nn as nn
 
 from patchrefinerv2_torch import resolve_device
 from patchrefinerv2_torch.config import ConfigDict
+from patchrefinerv2_torch.models.backbones.dpt import DepthAnythingV2
+from patchrefinerv2_torch.models.backbones.vit import DinoViT
 from patchrefinerv2_torch.models.backbones.zoedepth import ZoeDepthBEiT
 from patchrefinerv2_torch.models.blocks.convs import to_nchw, to_nhwc
 from patchrefinerv2_torch.models.blocks.fusion import BiDirectionalFusion
@@ -37,9 +43,15 @@ from patchrefinerv2_torch.ops.roi_align import roi_align
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def build_coarse_branch(cfg, min_depth: float, max_depth: float, img_size) -> ZoeDepthBEiT:
+def build_coarse_branch(cfg, min_depth: float, max_depth: float, img_size):
+    """The coarse branch of the config: ``ZoeDepth`` (BEiT MiDaS core + bins
+    head) or ``DA2`` (Depth-Anything-V2, patchrefinerplus.py:169-178)."""
+    if cfg["type"] == "DA2":
+        mc = cfg.get("model_cfg", {})
+        return DepthAnythingV2(encoder=mc.get("encoder", "vitl"), features=mc.get("features", 256),
+                               max_depth=max_depth)
     if cfg["type"] != "ZoeDepth":
-        raise NotImplementedError(f"coarse branch {cfg['type']!r} is not ported (ZoeDepth is)")
+        raise NotImplementedError(f"coarse branch {cfg['type']!r} is not ported (ZoeDepth, DA2 are)")
     trunk = cfg.get("trunk", {})  # test-size overrides; default BEiT-L/16
     return ZoeDepthBEiT(
         img_size=tuple(img_size),
@@ -83,11 +95,8 @@ class PRPlusNet(nn.Module):
         fus = dict(cfg.refiner.fusion_model)
         if fus.pop("type") != "BiDirectionalFusion":
             raise NotImplementedError("the port's fusion model is BiDirectionalFusion")
-        cb = self.coarse_branch
-        feat = cb.core.core.scratch.layer1_rn.out_channels
-        coarse_chl = [32] + [feat] * 5  # midas out_conv, 4 decoder levels, x_d0
         self.refiner_fusion_model = BiDirectionalFusion(
-            coarse_chl=coarse_chl,
+            coarse_chl=self.coarse_branch.coarse_chl,
             fine_chl=self.refiner_fine_branch.channels,
             temp_chl=tuple(fus.get("temp_chl", (32, 64, 64, 128, 256, 512))),
             dec_chl=tuple(fus.get("dec_chl", (512, 256, 128, 64, 32))),
@@ -136,9 +145,10 @@ class PRPlusNet(nn.Module):
 
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights from ``generator``: every conv and linear weight
-    uniform in +-1/sqrt(fan_in) and its bias zero; norms, layer scales, the
-    cls token, q/v biases and the relative-position tables keep their
-    initial values (ones, 1e-5 and zeros, as the JAX package initialises)."""
+    uniform in +-1/sqrt(fan_in) and its bias zero, a DINOv2 position
+    embedding normal with std 0.02 (as the JAX package initialises it);
+    norms, layer scales, the cls token, q/v biases and the relative-position
+    tables keep their initial values (ones, 1e-5 or 1, and zeros)."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
@@ -146,6 +156,8 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.weight.copy_(torch.rand(m.weight.shape, generator=generator) * (2 * bound) - bound)
                 if m.bias is not None:
                     m.bias.zero_()
+            if isinstance(m, DinoViT):
+                m.pos_embed.copy_(torch.randn(m.pos_embed.shape, generator=generator) * 0.02)
     return module
 
 

@@ -5,7 +5,10 @@ wrappers' launch counters."""
 
 from __future__ import annotations
 
+from patchrefinerv2_torch.ops.attention import attention
+from patchrefinerv2_torch.ops.bins import attractor_update, log_binomial_depth
 from patchrefinerv2_torch.ops.blend import TileBlender
+from patchrefinerv2_torch.ops.gated import gate_tail
 from patchrefinerv2_torch.ops.layer_norm import layer_norm
 from patchrefinerv2_torch.ops.resize import crop_resize, resize
 from patchrefinerv2_torch.ops.roi_align import roi_align
@@ -29,6 +32,19 @@ KERNELS = {
     "blend_finalize": dict(wrapper=TileBlender.finalize, route="cuda",
                            source="patchrefinerv2_torch/csrc/blend.cu",
                            replaces="patchrefinerv2_tpu/ops/blend.py:113"),
+    "attention": dict(wrapper=attention, route="cuda",
+                      source="patchrefinerv2_torch/csrc/attention.cu",
+                      replaces="patchrefinerv2_tpu/models/backbones/beit.py:46 (K3), "
+                               "patchrefinerv2_tpu/ops/attention.py:44 (K4)"),
+    "gate_tail": dict(wrapper=gate_tail, route="cuda",
+                      source="patchrefinerv2_torch/csrc/gated_conv.cu",
+                      replaces="patchrefinerv2_tpu/models/blocks/dpt.py:96"),
+    "attractor_update": dict(wrapper=attractor_update, route="triton",
+                             source="patchrefinerv2_torch/ops/bins.py",
+                             replaces="patchrefinerv2_tpu/models/backbones/zoedepth.py:117"),
+    "log_binomial_depth": dict(wrapper=log_binomial_depth, route="triton",
+                               source="patchrefinerv2_torch/ops/bins.py",
+                               replaces="patchrefinerv2_tpu/models/backbones/zoedepth.py:186"),
 }
 
 

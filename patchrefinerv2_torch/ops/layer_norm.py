@@ -12,9 +12,8 @@ input's dtype.
 On Hopper a channel LN over NHWC (channels_last) activations is a plain
 row reduction over contiguous channels. The Triton kernel (built at first
 use; ``triton`` is imported only inside the launcher) loads a block of
-rows, reduces each row in float32 registers and writes the affine result,
-optionally followed by ReLU (``GatedConvUnit`` applies one right after). It
-is bound by bytes: each element is read once and written once. On a CPU
+rows, reduces each row in float32 registers and writes the affine result.
+It is bound by bytes: each element is read once and written once. On a CPU
 tensor :func:`layer_norm` runs :func:`layer_norm_plain`.
 ``layer_norm.launches`` counts the kernel launches.
 """
@@ -30,14 +29,12 @@ from patchrefinerv2_torch.ops import _cuda
 __all__ = ["layer_norm", "layer_norm_plain"]
 
 
-def layer_norm_plain(x, weight, bias, eps: float = 1e-6, relu: bool = False):
+def layer_norm_plain(x, weight, bias, eps: float = 1e-6):
     """Plain PyTorch version of :func:`layer_norm` (any device)."""
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
     y = (xf - mean) * (torch.rsqrt(var + eps) * weight.float()) + bias.float()
-    if relu:
-        y = torch.relu(y)
     return y.to(x.dtype)
 
 
@@ -47,8 +44,7 @@ def _kernel():
     import triton.language as tl
 
     @triton.jit
-    def ln_rows(X, Wt, B, Y, M, C, eps, BLOCK_M: tl.constexpr, BLOCK_C: tl.constexpr,
-                RELU: tl.constexpr):
+    def ln_rows(X, Wt, B, Y, M, C, eps, BLOCK_M: tl.constexpr, BLOCK_C: tl.constexpr):
         rows = tl.program_id(0) * BLOCK_M + tl.arange(0, BLOCK_M)
         cols = tl.arange(0, BLOCK_C)
         cmask = cols < C
@@ -61,8 +57,6 @@ def _kernel():
         w = tl.load(Wt + cols, mask=cmask, other=0.0).to(tl.float32)
         b = tl.load(B + cols, mask=cmask, other=0.0).to(tl.float32)
         y = (x - mean[:, None]) * (rstd[:, None] * w[None, :]) + b[None, :]
-        if RELU:
-            y = tl.maximum(y, 0.0)
         tl.store(Y + offs, y.to(Y.dtype.element_ty), mask=mask)
 
     return triton, ln_rows
@@ -76,10 +70,10 @@ def _blocks(c: int):
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-6, relu: bool = False) -> torch.Tensor:
+               eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm over the last axis of ``x`` (any leading shape)."""
     if _cuda.on_cpu(x):
-        return layer_norm_plain(x, weight, bias, eps, relu)
+        return layer_norm_plain(x, weight, bias, eps)
     c = x.shape[-1]
     if tuple(weight.shape) != (c,) or tuple(bias.shape) != (c,):
         raise ValueError(f"expected ({c},) weight and bias, got {tuple(weight.shape)}, {tuple(bias.shape)}")
@@ -93,7 +87,7 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     block_m, block_c, num_warps = _blocks(c)
     kern[(triton.cdiv(m, block_m),)](
         x, weight, bias, y, m, c, float(eps),
-        BLOCK_M=block_m, BLOCK_C=block_c, RELU=bool(relu), num_warps=num_warps)
+        BLOCK_M=block_m, BLOCK_C=block_c, num_warps=num_warps)
     layer_norm.launches += 1
     return y
 

@@ -4,9 +4,10 @@ Counterpart of ``patchrefinerv2_tpu/ops/resize.py`` (``resize`` :214,
 ``resize_matrix`` :106) and ``models/tiling.py:229``
 (``crop_resize_patches``). The TPU version contracts dense interpolation
 matrices on the MXU; here each axis becomes its taps (two source indices
-and two weights per output index, one tap for nearest), computed on the
-host in float32 exactly as ``_resize_matrix_np`` does, and the CUDA kernel
-``csrc/resize.cu`` gathers them. Layout: NHWC at every public function.
+and two weights per output index for bilinear and nearest, four for
+bicubic), computed on the host in float32 exactly as ``_resize_matrix_np``
+does, and the CUDA kernel ``csrc/resize.cu`` gathers them. Layout: NHWC at
+every public function.
 
 On a CUDA tensor the functions launch the kernel (or raise); on a CPU
 tensor they run the plain PyTorch version, which applies the same taps
@@ -26,17 +27,29 @@ from patchrefinerv2_torch.ops import _cuda
 __all__ = ["axis_taps", "resize", "resize_plain", "crop_resize", "crop_resize_plain"]
 
 
+def _cubic(t: np.ndarray) -> np.ndarray:
+    """Cubic convolution with A = -0.75 (torch's bicubic)."""
+    a = -0.75
+    at = np.abs(t)
+    return np.where(at <= 1.0, ((a + 2.0) * at - (a + 3.0)) * at * at + 1.0,
+                    np.where(at < 2.0, (((at - 5.0) * at + 8.0) * at - 4.0) * a, 0.0))
+
+
 @functools.lru_cache(maxsize=None)
-def axis_taps(in_size: int, out_size: int, mode: str, align_corners: bool):
-    """(idx (2, out) int32, w (2, out) float32): output i = w[0,i]*x[idx[0,i]]
-    + w[1,i]*x[idx[1,i]]. Source coordinates in float32 as torch computes
-    them (the reference's ``_resize_matrix_np``, resize.py:29-104)."""
-    if mode not in ("bilinear", "nearest"):
-        raise NotImplementedError(f"resize mode {mode!r} is not ported (bilinear, nearest)")
-    idx = np.zeros((2, out_size), np.int32)
-    w = np.zeros((2, out_size), np.float32)
+def axis_taps(in_size: int, out_size: int, mode: str, align_corners: bool, scale=None):
+    """(idx (T, out) int32, w (T, out) float32) with T = 4 taps for bicubic
+    and 2 otherwise: output i = sum_t w[t, i] * x[idx[t, i]], indices in
+    ascending order. Source coordinates in float32 as torch computes them;
+    ``scale`` is an explicit ``scale_factor`` (torch then uses 1 / scale in
+    place of in / out, align_corners off). The reference's
+    ``_resize_matrix_np`` (resize.py:29-104)."""
+    if mode not in ("bilinear", "nearest", "bicubic"):
+        raise NotImplementedError(f"resize mode {mode!r} is not ported (bilinear, nearest, bicubic)")
+    n_taps = 4 if mode == "bicubic" else 2
+    idx = np.zeros((n_taps, out_size), np.int32)
+    w = np.zeros((n_taps, out_size), np.float32)
     if in_size == out_size and mode != "nearest":
-        idx[0] = idx[1] = np.arange(out_size)
+        idx[:] = np.arange(out_size)
         w[0] = 1.0
         return idx, w
     dst = np.arange(out_size, dtype=np.float32)
@@ -47,13 +60,21 @@ def axis_taps(in_size: int, out_size: int, mode: str, align_corners: bool):
         w[0] = 1.0
         return idx, w
     if align_corners:
-        scale = np.float32((in_size - 1) / (out_size - 1)) if out_size > 1 else np.float32(0.0)
-        src = (dst * scale).astype(np.float32)
+        step = np.float32((in_size - 1) / (out_size - 1)) if out_size > 1 else np.float32(0.0)
+        src = (dst * step).astype(np.float32)
     else:
-        scale = np.float32(in_size / out_size)
-        src = ((dst + np.float32(0.5)) * scale - np.float32(0.5)).astype(np.float32)
-        src = np.maximum(src, np.float32(0.0))
+        step = np.float32(1.0 / scale) if scale else np.float32(in_size / out_size)
+        src = ((dst + np.float32(0.5)) * step - np.float32(0.5)).astype(np.float32)
+        if mode != "bicubic":  # torch clamps the source index at 0 for linear modes only
+            src = np.maximum(src, np.float32(0.0))
     src = src.astype(np.float64)
+    if mode == "bicubic":
+        base = np.floor(src).astype(np.int64)
+        frac = src - base
+        for t in range(4):
+            idx[t] = np.clip(base + t - 1, 0, in_size - 1)
+            w[t] = _cubic(t - 1 - frac).astype(np.float32)
+        return idx, w
     lo = np.clip(np.floor(src).astype(np.int64), 0, in_size - 1)
     hi = np.minimum(lo + 1, in_size - 1)
     frac = src - lo
@@ -63,54 +84,66 @@ def axis_taps(in_size: int, out_size: int, mode: str, align_corners: bool):
 
 
 @functools.lru_cache(maxsize=256)
-def _taps_on(in_size, out_size, mode, align_corners, device):
-    idx, w = axis_taps(in_size, out_size, mode, align_corners)
+def _taps_on(in_size, out_size, mode, align_corners, scale, device):
+    idx, w = axis_taps(in_size, out_size, mode, align_corners, scale)
     return torch.from_numpy(idx).to(device), torch.from_numpy(w).to(device)
 
 
 def _apply_axis(x, axis, idx, w):
-    """Combine the two taps along ``axis`` of a float32 tensor."""
+    """Combine the taps along ``axis`` of a float32 tensor."""
     shape = [1] * x.ndim
     shape[axis] = -1
-    a = x.index_select(axis, idx[0].long()) * w[0].view(shape)
-    return a + x.index_select(axis, idx[1].long()) * w[1].view(shape)
+    out = x.index_select(axis, idx[0].long()) * w[0].view(shape)
+    for t in range(1, idx.shape[0]):
+        out = out + x.index_select(axis, idx[t].long()) * w[t].view(shape)
+    return out
 
 
-def resize_plain(x, size, mode="bilinear", align_corners=False):
+def _scales(scale_override):
+    return (None, None) if scale_override is None else (float(scale_override[0]), float(scale_override[1]))
+
+
+def resize_plain(x, size, mode="bilinear", align_corners=False, scale_override=None):
     """Plain PyTorch version of :func:`resize` (any device)."""
     n, h, w, c = x.shape
     oh, ow = int(size[0]), int(size[1])
+    sh, sw = _scales(scale_override)
     dev = x.device
-    iy, wy = _taps_on(h, oh, mode, bool(align_corners), dev)
-    ix, wx = _taps_on(w, ow, mode, bool(align_corners), dev)
+    iy, wy = _taps_on(h, oh, mode, bool(align_corners), sh, dev)
+    ix, wx = _taps_on(w, ow, mode, bool(align_corners), sw, dev)
     y = _apply_axis(x.float(), 1, iy, wy)
     y = _apply_axis(y, 2, ix, wx)
     return y.to(x.dtype)
 
 
-def resize(x: torch.Tensor, size, mode: str = "bilinear", align_corners: bool = False):
+def resize(x: torch.Tensor, size, mode: str = "bilinear", align_corners: bool = False,
+           scale_override=None):
     """Resize NHWC ``x`` (or HWC) to ``size=(H, W)`` as
-    ``F.interpolate(x_nchw, size, mode, align_corners)`` does. Bicubic and
-    ``scale_override`` are not ported."""
+    ``F.interpolate(x_nchw, size, mode, align_corners)`` does, or, with
+    ``scale_override=(sh, sw)``, as ``F.interpolate(x_nchw,
+    scale_factor=(sh, sw), mode=mode)`` does when it gives ``size`` (the
+    DINOv2 position-embedding interpolation, vit.py:136-145)."""
     if x.ndim == 3:
-        return resize(x[None], size, mode, align_corners)[0]
+        return resize(x[None], size, mode, align_corners, scale_override)[0]
     if x.ndim != 4:
         raise ValueError(f"expected NHWC, got shape {tuple(x.shape)}")
     n, h, w, c = x.shape
     oh, ow = int(size[0]), int(size[1])
-    axis_taps(h, oh, mode, bool(align_corners))  # validates the mode
+    sh, sw = _scales(scale_override)
+    axis_taps(h, oh, mode, bool(align_corners), sh)  # validates the mode
     if (h, w) == (oh, ow) and mode != "nearest":
         return x
     if _cuda.on_cpu(x):
-        return resize_plain(x, size, mode, align_corners)
+        return resize_plain(x, size, mode, align_corners, scale_override)
     _cuda.require_cuda(x)
     dt = _cuda.dtype_code(x.dtype)
-    iy, wy = _taps_on(h, oh, mode, bool(align_corners), x.device)
-    ix, wx = _taps_on(w, ow, mode, bool(align_corners), x.device)
+    iy, wy = _taps_on(h, oh, mode, bool(align_corners), sh, x.device)
+    ix, wx = _taps_on(w, ow, mode, bool(align_corners), sw, x.device)
     y = torch.empty((n, oh, ow, c), dtype=x.dtype, device=x.device)
-    fn = _cuda.bind("resize", "prv2_resize", 7, 7)
+    fn = _cuda.bind("resize", "prv2_resize", 7, 8)
     rc = fn(_cuda.ptr(x), _cuda.ptr(y), _cuda.ptr(iy), _cuda.ptr(wy), _cuda.ptr(ix),
-            _cuda.ptr(wx), _cuda.ptr(None), n, h, w, c, oh, ow, h * w * c, dt, _cuda.stream_of(x))
+            _cuda.ptr(wx), _cuda.ptr(None), n, h, w, c, oh, ow, h * w * c, iy.shape[0], dt,
+            _cuda.stream_of(x))
     _cuda.check(rc, "resize")
     resize.launches += 1
     return y
@@ -146,12 +179,13 @@ def crop_resize(image: torch.Tensor, starts: torch.Tensor, patch_raw_shape, out_
     dt = _cuda.dtype_code(image.dtype)
     h, w, c = image.shape
     n = starts.shape[0]
-    iy, wy = _taps_on(prh, oh, "bilinear", True, image.device)
-    ix, wx = _taps_on(prw, ow, "bilinear", True, image.device)
+    iy, wy = _taps_on(prh, oh, "bilinear", True, None, image.device)
+    ix, wx = _taps_on(prw, ow, "bilinear", True, None, image.device)
     y = torch.empty((n, oh, ow, c), dtype=image.dtype, device=image.device)
-    fn = _cuda.bind("resize", "prv2_resize", 7, 7)
+    fn = _cuda.bind("resize", "prv2_resize", 7, 8)
     rc = fn(_cuda.ptr(image), _cuda.ptr(y), _cuda.ptr(iy), _cuda.ptr(wy), _cuda.ptr(ix),
-            _cuda.ptr(wx), _cuda.ptr(starts), n, h, w, c, oh, ow, 0, dt, _cuda.stream_of(image))
+            _cuda.ptr(wx), _cuda.ptr(starts), n, h, w, c, oh, ow, 0, 2, dt,
+            _cuda.stream_of(image))
     _cuda.check(rc, "crop_resize")
     crop_resize.launches += 1
     return y

@@ -25,7 +25,10 @@ __all__ = ["roi_align", "roi_align_plain"]
 def _axis_taps(lo, hi, out_size: int, in_size: int):
     """Per-box taps along one axis: (i0, i1, w0, w1), each (N, out_size)."""
     i = torch.arange(out_size, dtype=torch.float32, device=lo.device)
-    bins = (hi - lo) / out_size
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
+    # by its reciprocal, one ulp off the quotient the kernel (and the JAX
+    # package) computes, which at boxes such as 111.99999 moves the samples
+    bins = (hi - lo) / torch.full_like(hi, float(out_size))
     v = lo[:, None] + (i[None, :] + 0.5) * bins[:, None]
     valid = ((v >= -1.0) & (v <= in_size)).float()
     vc = v.clamp(0.0, in_size - 1.0)

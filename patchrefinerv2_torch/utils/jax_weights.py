@@ -50,6 +50,20 @@ class _SD(dict):
         self[key + ".running_var"] = _a(stats["BatchNorm_0"]["var"])
 
 
+def _dpt_scratch(sd: _SD, s: str, P) -> None:
+    """layer{k}_rn and the FeatureFusionBlocks refinenet{k} of a 4-level DPT
+    decoder; refinenet4 has one input, so only its second unit."""
+    for k in range(1, 5):
+        sd.conv(f"{s}layer{k}_rn", P[f"layer{k}_rn"])
+        node, base = P[f"refinenet{k}"], f"{s}refinenet{k}"
+        units = ("resConfUnit2",) if k == 4 else ("resConfUnit1", "resConfUnit2")
+        for ui, unit in enumerate(units):
+            rcu = node[f"ResidualConvUnit_{ui}"]
+            sd.conv(f"{base}.{unit}.conv1", rcu["Conv_0"])
+            sd.conv(f"{base}.{unit}.conv2", rcu["Conv_1"])
+        sd.conv(base + ".out_conv", node["Conv_0"])
+
+
 def _beit_midas(sd: _SD, p: str, P) -> None:
     t = p + "pretrained.model."
     tr = P["pretrained"]
@@ -77,18 +91,47 @@ def _beit_midas(sd: _SD, p: str, P) -> None:
     sd.conv_t(p + "pretrained.act_postprocess1.4", P["resize0"])
     sd.conv_t(p + "pretrained.act_postprocess2.4", P["resize1"])
     sd.conv(p + "pretrained.act_postprocess4.4", P["resize3"])
-    for k in range(1, 5):
-        sd.conv(f"{p}scratch.layer{k}_rn", P[f"layer{k}_rn"])
-        node, base = P[f"refinenet{k}"], f"{p}scratch.refinenet{k}"
-        units = ("resConfUnit2",) if k == 4 else ("resConfUnit1", "resConfUnit2")
-        for ui, unit in enumerate(units):
-            rcu = node[f"ResidualConvUnit_{ui}"]
-            sd.conv(f"{base}.{unit}.conv1", rcu["Conv_0"])
-            sd.conv(f"{base}.{unit}.conv2", rcu["Conv_1"])
-        sd.conv(base + ".out_conv", node["Conv_0"])
+    _dpt_scratch(sd, p + "scratch.", P)
     sd.conv(p + "scratch.output_conv.0", P["output_conv1"])
     sd.conv(p + "scratch.output_conv.2", P["output_conv2_0"])
     sd.conv(p + "scratch.output_conv.4", P["output_conv2_1"])
+
+
+def _dino_vit(sd: _SD, p: str, P) -> None:
+    sd[p + "cls_token"] = _a(P["cls_token"])
+    sd[p + "pos_embed"] = _a(P["pos_embed"])
+    sd.conv(p + "patch_embed.proj", P["patch_embed"])
+    for name, blk in P.items():
+        m = re.fullmatch(r"block(\d+)", name)
+        if not m:
+            continue
+        b = f"{p}blocks.{m.group(1)}."
+        sd.norm(b + "norm1", blk["norm1"])
+        sd.norm(b + "norm2", blk["norm2"])
+        sd.linear(b + "attn.qkv", blk["attn"]["qkv"])
+        sd.linear(b + "attn.proj", blk["attn"]["proj"])
+        sd[b + "ls1.gamma"] = _a(blk["ls1"]["gamma"])
+        sd[b + "ls2.gamma"] = _a(blk["ls2"]["gamma"])
+        sd.linear(b + "mlp.fc1", blk["mlp"]["fc1"])
+        sd.linear(b + "mlp.fc2", blk["mlp"]["fc2"])
+    sd.norm(p + "norm", P["norm"])
+
+
+def _da2_head(sd: _SD, p: str, P) -> None:
+    for i in range(4):
+        sd.conv(f"{p}projects.{i}", P[f"project{i}"])
+    sd.conv_t(p + "resize_layers.0", P["resize0"])
+    sd.conv_t(p + "resize_layers.1", P["resize1"])
+    sd.conv(p + "resize_layers.3", P["resize3"])
+    _dpt_scratch(sd, p + "scratch.", P)
+    sd.conv(p + "scratch.output_conv1", P["output_conv1"])
+    sd.conv(p + "scratch.output_conv2.0", P["output_conv2_0"])
+    sd.conv(p + "scratch.output_conv2.2", P["output_conv2_1"])
+
+
+def _da2(sd: _SD, p: str, P) -> None:
+    _dino_vit(sd, p + "pretrained.", P["pretrained"])
+    _da2_head(sd, p + "depth_head.", P["depth_head"])
 
 
 def _zoe_head(sd: _SD, p: str, P) -> None:
@@ -177,8 +220,11 @@ def _fusion(sd: _SD, p: str, P) -> None:
 
 
 def _prplusnet(sd: _SD, P, S) -> None:
-    _beit_midas(sd, "coarse_branch.core.core.", P["coarse"]["core"])
-    _zoe_head(sd, "coarse_branch.", P["coarse"]["head"])
+    if "depth_head" in P["coarse"]:  # a DepthAnythingV2 coarse branch
+        _da2(sd, "coarse_branch.", P["coarse"])
+    else:  # ZoeDepth: the BEiT MiDaS core and the bins head
+        _beit_midas(sd, "coarse_branch.core.core.", P["coarse"]["core"])
+        _zoe_head(sd, "coarse_branch.", P["coarse"]["head"])
     _effnet(sd, "refiner_fine_branch.refiner_encoder.", P["fine"]["refiner_encoder"],
             S["fine"]["refiner_encoder"])
     _fusion(sd, "refiner_fusion_model.", P["fusion"])
@@ -190,6 +236,8 @@ PARTS = {
     "PRPlusNet": _prplusnet,
     "MidasDPTBEiT": lambda sd, P, S: _beit_midas(sd, "", P),
     "ZoeDepthHead": lambda sd, P, S: _zoe_head(sd, "", P),
+    "DinoViT": lambda sd, P, S: _dino_vit(sd, "", P),
+    "DepthAnythingV2": lambda sd, P, S: _da2(sd, "", P),
     "EfficientNetB5Features": lambda sd, P, S: _effnet(sd, "", P, S),
     "LightWeightRefiner": lambda sd, P, S: _effnet(
         sd, "refiner_encoder.", P["refiner_encoder"], S["refiner_encoder"]),

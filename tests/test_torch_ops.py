@@ -26,7 +26,7 @@ from patchrefinerv2_torch.models import tiling as ttiling
 from patchrefinerv2_torch.ops.blend import TileBlender
 from patchrefinerv2_torch.ops.layer_norm import layer_norm
 from patchrefinerv2_torch.ops.masks import generate_blend_mask
-from patchrefinerv2_torch.ops.resize import crop_resize, resize
+from patchrefinerv2_torch.ops.resize import axis_taps, crop_resize, resize
 from patchrefinerv2_torch.ops.roi_align import roi_align
 
 T = torch.from_numpy
@@ -103,8 +103,27 @@ def test_resize_matches_jax(mode, ac, in_hw, out_hw):
 
 
 def test_resize_rejects_bicubic():
+    """Bicubic is ported (four taps per axis); modes the JAX package does not
+    have still raise."""
+    idx, w = axis_taps(4, 8, "bicubic", False)
+    assert idx.shape == w.shape == (4, 8)
+    np.testing.assert_allclose(w.sum(0), 1.0, rtol=1e-6)
     with pytest.raises(NotImplementedError):
-        resize(torch.zeros(1, 4, 4, 1), (8, 8), "bicubic")
+        resize(torch.zeros(1, 4, 4, 1), (8, 8), "area")
+
+
+@pytest.mark.parametrize("in_hw,out_hw,scale", [
+    ((37, 37), (32, 32), ((32 + 0.1) / 37, (32 + 0.1) / 37)),  # the DINOv2 pos-embed quirk
+    ((37, 37), (24, 32), ((24 + 0.1) / 37, (32 + 0.1) / 37)),
+    ((7, 9), (16, 20), None),
+    ((13, 17), (6, 40), None),
+])
+def test_bicubic_resize_matches_jax(in_hw, out_hw, scale):
+    rng = np.random.RandomState(9)
+    x = rng.randn(1, *in_hw, 5).astype(np.float32)
+    ref = np.asarray(j_resize(jnp.asarray(x), out_hw, "bicubic", False, scale_override=scale))
+    got = resize(T(x), out_hw, "bicubic", False, scale_override=scale).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("raw,split,proc", [((96, 128), (2, 2), (40, 56)),
@@ -134,8 +153,6 @@ def test_layer_norm_matches_dot_layer_norm_and_layer_norm(shape):
     got = layer_norm(T(x), T(scale), T(bias), 1e-6).numpy()
     np.testing.assert_allclose(got, dot, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got, lnf, rtol=1e-5, atol=1e-5)
-    relu = layer_norm(T(x), T(scale), T(bias), 1e-6, relu=True).numpy()
-    np.testing.assert_allclose(relu, np.maximum(lnf, 0), rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------- K7

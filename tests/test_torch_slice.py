@@ -74,6 +74,7 @@ def assert_rel(got, ref, what):
     got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
     assert got.shape == ref.shape, (what, got.shape, ref.shape)
     rel = np.abs(got - ref) / np.maximum(np.abs(ref), 1e-3)
+    print(f"{what}: max rel {rel.max():.3g}, mean rel {rel.mean():.3g}")  # shown with pytest -s
     assert rel.max() < 1e-4 and rel.mean() < 1e-5, (what, rel.max(), rel.mean())
 
 
