@@ -1,17 +1,19 @@
 """PatchRefinerPlus (the V2 flagship) tiled inference, the port of
 ``patchrefinerv2_tpu/models/patchrefinerplus.py`` (``ZoeDepthBEiT`` :64,
 ``build_coarse_branch`` :117, ``PRPlusNet.coarse_forward``/``_roi``/
-``refine``/``infer_chunk`` :200-294, ``PatchRefinerPlus.infer`` :559-705)
-for ``cai_mode`` m1 and m2, with a ZoeDepth (BEiT) or a Depth-Anything-V2
-(DINOv2) coarse branch.
+``refine``/``infer_chunk`` :200-294, ``PatchRefinerPlus.infer`` :559-768)
+for ``cai_mode`` m1, m2 and rN, with a ZoeDepth (BEiT) or a
+Depth-Anything-V2 (DINOv2) coarse branch.
 
 Per frame: the coarse branch once at the coarse resolution, then for every
 chunk of patches: crop + resize (K2), roi_align of the six coarse levels and
 the coarse depth (K1), the EfficientNet-B5 refiner and BiDirectionalFusion
 (cuDNN convolutions, K2 upsamples, K6 LayerNorms, K5 gate tails), and
-blending into the canvases (K7). The coarse branch runs K3 (BEiT) or K4
-(DINOv2) attention and, for ZoeDepth, the K8 bins head. ``lax.scan`` over
-chunks becomes a Python loop.
+blending into the canvases (K7); rN then moves the canvases to the raw
+resolution (K2, K7 finalize) and blends random chunks there, each
+prediction resized back to its raw patch with nearest K2. The coarse
+branch runs K3 (BEiT) or K4 (DINOv2) attention and, for ZoeDepth, the K8
+bins head. ``lax.scan`` over chunks becomes a Python loop.
 
 The module tree keeps the reference's torch state-dict names
 (``coarse_branch``, ``refiner_fine_branch``, ``refiner_fusion_model``), so
@@ -19,6 +21,8 @@ The module tree keeps the reference's torch state-dict names
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -33,11 +37,11 @@ from patchrefinerv2_torch.models.blocks.convs import to_nchw, to_nhwc
 from patchrefinerv2_torch.models.blocks.fusion import BiDirectionalFusion
 from patchrefinerv2_torch.models.blocks.refiner import LightWeightRefiner
 from patchrefinerv2_torch.models.tiling import (
-    _BATCH_GRANULE, TileCfg, merge_all_passes, regular_pass,
+    _BATCH_GRANULE, TileCfg, merge_all_passes, random_pass_boxes, random_pass_starts, regular_pass,
 )
 from patchrefinerv2_torch.ops.blend import TileBlender
 from patchrefinerv2_torch.ops.masks import generate_blend_mask
-from patchrefinerv2_torch.ops.resize import crop_resize
+from patchrefinerv2_torch.ops.resize import crop_resize, resize
 from patchrefinerv2_torch.ops.roi_align import roi_align
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -187,37 +191,57 @@ class PatchRefinerPlus:
         self.infer_dtype = dtype
         self.net.to(dtype)
 
-    def _plan(self, cai_mode: str, process_num: int):
-        """(patch stream, per-patch init flags or None, chunk) of the mode: m1
-        is one init pass in chunks of ``process_num``; m2 merges the init
-        pass and the three shifted passes into one stream in chunks of
-        ``min(process_num, 8)``."""
-        tc = self.tile_cfg
+    def _plan(self, tc: TileCfg, cai_mode: str, process_num: int):
+        """(patch stream, per-patch init flags or None, chunk, random
+        iterations) of the mode: m1 is one init pass in chunks of
+        ``process_num``; m2 and rN merge the init pass and the three shifted
+        passes into one stream in chunks of ``min(process_num, 8)``; rN then
+        runs ``N // process_num`` random chunks of ``process_num`` patches."""
         if cai_mode == "m1":
-            return regular_pass(tc, (0, 0), process_num), None, process_num
-        if cai_mode == "m2":
-            chunk = min(process_num, _BATCH_GRANULE)
-            stream, initv = merge_all_passes(
-                [regular_pass(tc, off, process_num) for off in ((0, 0), (0, 1), (1, 0), (1, 1))],
-                chunk)
-            return stream, initv, chunk
-        raise NotImplementedError(f"cai_mode {cai_mode!r} is not ported (m1, m2)")
+            return regular_pass(tc, (0, 0), process_num), None, process_num, 0
+        rn = re.fullmatch(r"r(\d+)", cai_mode)
+        if cai_mode != "m2" and rn is None:
+            raise NotImplementedError(f"cai_mode {cai_mode!r} is not ported (m1, m2, rN)")
+        chunk = min(process_num, _BATCH_GRANULE)
+        stream, initv = merge_all_passes(
+            [regular_pass(tc, off, process_num) for off in ((0, 0), (0, 1), (1, 0), (1, 1))], chunk)
+        return stream, initv, chunk, (int(rn.group(1)) // process_num if rn else 0)
 
     @torch.inference_mode()
-    def infer(self, image_lr, image_hr, cai_mode: str = "m1", process_num: int = 4):
+    def infer(self, image_lr, image_hr, cai_mode: str = "m1", process_num: int = 4,
+              tile_cfg: dict | None = None, generator: torch.Generator | None = None,
+              random_starts=None):
         """Tiled inference. ``image_lr`` (1, h, w, 3), ``image_hr`` (1, H, W, 3)
-        NHWC in [0, 1] (tensors or arrays). Returns (depth (H', W') float32 on
-        the reensemble canvas, coarse depth (1, h, w, 1))."""
+        NHWC in [0, 1] (tensors or arrays). ``tile_cfg`` ({"image_raw_shape",
+        "patch_split_num"}) overrides the config's tiling. rN draws its random
+        starts from the CPU ``generator`` (default: seed 0), or takes them
+        from ``random_starts`` ((N // process_num, process_num, 2) int [h, w]).
+        Returns (depth float32 on the reensemble canvas (H', W') for m1 and
+        m2, on the raw (H, W) canvas for rN; coarse depth (1, h, w, 1))."""
         dev, dt = self.device, self.infer_dtype
+        tc = self.tile_cfg if tile_cfg is None else TileCfg(
+            tuple(tile_cfg["image_raw_shape"]), tuple(tile_cfg["patch_split_num"]),
+            self.patch_process_shape)
         image_lr = torch.as_tensor(image_lr).to(dev, dt).contiguous()
         image_hr = torch.as_tensor(image_hr).to(dev, dt).contiguous()
         pph, ppw = self.patch_process_shape
-        prh, prw = self.tile_cfg.patch_raw_shape
-        stream, initv, chunk = self._plan(cai_mode, process_num)
-        n = stream.starts_raw.shape[0]
-        ends = stream.starts_raw + np.array([prh, prw])
-        if stream.starts_raw.min() < 0 or (ends > np.array(image_hr.shape[1:3])).any():
+        prh, prw = tc.patch_raw_shape
+        stream, initv, chunk, n_random = self._plan(tc, cai_mode, process_num)
+        if n_random:
+            if random_starts is None:
+                gen = generator if generator is not None else torch.Generator().manual_seed(0)
+                random_starts = np.stack([random_pass_starts(gen, tc, process_num)
+                                          for _ in range(n_random)])
+            random_starts = np.asarray(random_starts, np.int32)
+            if random_starts.shape != (n_random, process_num, 2):
+                raise ValueError(f"{cai_mode} with process_num {process_num} takes random starts "
+                                 f"of shape {(n_random, process_num, 2)}, got {random_starts.shape}")
+        starts = stream.starts_raw
+        if n_random:
+            starts = np.concatenate([starts, random_starts.reshape(-1, 2)])
+        if starts.min() < 0 or (starts + np.array([prh, prw]) > np.array(image_hr.shape[1:3])).any():
             raise ValueError(f"the tile plan reaches outside the {tuple(image_hr.shape[1:3])} frame")
+        n = stream.starts_raw.shape[0]
         blur = torch.from_numpy(generate_blend_mask((pph, ppw), border=0.15)).to(dev)
         s_raw = torch.from_numpy(stream.starts_raw).to(dev)
         s_place = torch.from_numpy(stream.starts_process).to(dev)
@@ -225,11 +249,24 @@ class PatchRefinerPlus:
         valid = torch.from_numpy((np.arange(n) < stream.n_valid).astype(np.float32)).to(dev)
         iv = None if initv is None else torch.from_numpy(initv).to(dev)
         coarse_feats, coarse_pred = self.net.coarse_forward(image_lr)
-        state = TileBlender.init(self.tile_cfg.patch_reensemble_shape, dev)
+        state = TileBlender.init(tc.patch_reensemble_shape, dev)
         for lo in range(0, n, chunk):
             sl = slice(lo, lo + chunk)
             imgs = crop_resize(image_hr[0], s_raw[sl], (prh, prw), (pph, ppw))
             preds = self.net.infer_chunk(imgs, coarse_pred, coarse_feats, boxes[sl])[:, 0]
             TileBlender.add_pass(state, preds, blur, s_place[sl], init_pass=iv is None,
                                  valid=valid[sl], initv=None if iv is None else iv[sl])
+        if n_random:
+            # rN (patchrefinerplus.py:683-700): collapse onto the raw canvas,
+            # then blend each random chunk's predictions, resized back to the
+            # raw patch with nearest, under the raw-size mask
+            state = TileBlender.resize(state, tc.image_raw_shape)
+            blur_raw = torch.from_numpy(generate_blend_mask((prh, prw), border=0.15) + 1e-3).to(dev)
+            for rs in random_starts:
+                s = torch.from_numpy(rs).to(dev)
+                b = torch.from_numpy(random_pass_boxes(tc, rs)).to(dev)
+                imgs = crop_resize(image_hr[0], s, (prh, prw), (pph, ppw))
+                preds = self.net.infer_chunk(imgs, coarse_pred, coarse_feats, b)[:, 0]
+                preds = resize(preds[..., None], (prh, prw), mode="nearest")[..., 0]
+                TileBlender.add_pass(state, preds, blur_raw, s)
         return TileBlender.finalize(state), to_nhwc(coarse_pred)

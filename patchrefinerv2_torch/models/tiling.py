@@ -1,10 +1,12 @@
 """Static tile planning, the port of ``patchrefinerv2_tpu/models/tiling.py``
 (``TileCfg`` :28, ``regular_pass`` :65, ``_BATCH_GRANULE`` :107,
-``merge_all_passes`` :171). Its ``crop_resize_patches`` (:229) is
-``patchrefinerv2_torch.ops.resize.crop_resize`` (K2, one launch).
+``merge_all_passes`` :171, ``random_pass_starts`` :205). Its
+``crop_resize_patches`` (:229) is ``patchrefinerv2_torch.ops.resize.crop_resize``
+(K2, one launch).
 
 The plan is host-side numpy: raw-space crop starts, reensemble-canvas
-placement starts and bboxes pre-normalized to the patch-process frame.
+placement starts and bboxes pre-normalized to the patch-process frame. The
+rN random starts come from a CPU ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 # the regular stream's chunk is min(process_num, _BATCH_GRANULE), as in the
 # reference's merged m2 stream
@@ -92,4 +95,24 @@ def merge_all_passes(passes: list[RegularPass], chunk: int) -> tuple[RegularPass
     stream = RegularPass(np.ascontiguousarray(sr, np.int32), np.ascontiguousarray(sp, np.int32),
                          np.ascontiguousarray(bb, np.float32), n)
     return stream, initv
+
+
+def random_pass_boxes(tile_cfg: TileCfg, starts: np.ndarray) -> np.ndarray:
+    """(N, 4) float32 bboxes in process coords of raw patches at ``starts``
+    (N, 2) [h, w]."""
+    prh, prw = tile_cfg.patch_raw_shape
+    h, w = starts[:, 0], starts[:, 1]
+    return np.stack([w, h, w + prw, h + prh], axis=-1).astype(np.float32) * bbox_normalize_factor(tile_cfg)
+
+
+def random_pass_starts(generator: torch.Generator, tile_cfg: TileCfg, process_num: int) -> np.ndarray:
+    """Random crop origins (process_num, 2) int32 [h, w] of one rN iteration
+    (tiling.py:205-226; their boxes are ``random_pass_boxes``). The h starts
+    are drawn in ``[0, irh - prh)``; one w start is shared by every patch of
+    the call (the reference quirk, baseline_pretrain.py:160-161)."""
+    prh, prw = tile_cfg.patch_raw_shape
+    irh, irw = tile_cfg.image_raw_shape
+    h = torch.randint(0, irh - prh, (process_num,), generator=generator)
+    w = torch.randint(0, irw - prw, (1,), generator=generator).expand(process_num)
+    return torch.stack([h, w], dim=-1).numpy().astype(np.int32)
 

@@ -8,6 +8,7 @@ from __future__ import annotations
 from patchrefinerv2_torch.ops.attention import attention
 from patchrefinerv2_torch.ops.bins import attractor_update, log_binomial_depth
 from patchrefinerv2_torch.ops.blend import TileBlender
+from patchrefinerv2_torch.ops.canny import canny_nms
 from patchrefinerv2_torch.ops.gated import gate_tail
 from patchrefinerv2_torch.ops.layer_norm import layer_norm
 from patchrefinerv2_torch.ops.resize import crop_resize, resize
@@ -45,6 +46,9 @@ KERNELS = {
     "log_binomial_depth": dict(wrapper=log_binomial_depth, route="triton",
                                source="patchrefinerv2_torch/ops/bins.py",
                                replaces="patchrefinerv2_tpu/models/backbones/zoedepth.py:186"),
+    "canny_nms": dict(wrapper=canny_nms, route="cuda",
+                      source="patchrefinerv2_torch/csrc/canny.cu",
+                      replaces="patchrefinerv2_tpu/ops/canny.py:14"),
 }
 
 

@@ -71,7 +71,7 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     """A tensor on any device other than the CPU or a card raises in every
     wrapper instead of running the plain version."""
     from patchrefinerv2_torch.ops import (
-        TileBlender, attention, attractor_update, crop_resize, gate_tail, layer_norm,
+        TileBlender, attention, attractor_update, canny_nms, crop_resize, gate_tail, layer_norm,
         log_binomial_depth, resize, roi_align,
     )
 
@@ -91,6 +91,7 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
         lambda: attractor_update(m, m),
         lambda: log_binomial_depth(torch.empty((3, 4), device="meta"),
                                    torch.empty((3, 8), device="meta"), 8, 0.1, 50.0),
+        lambda: canny_nms(m[0, :, :, 0], m[0, :, :, 0], m[0, :, :, 0]),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="unsupported device"):

@@ -98,6 +98,8 @@ def test_weights_round_trip(both):
 
 
 def test_unported_modes_raise(both):
+    """m1, m2 and rN are ported (rN: tests/test_torch_eval.py); other modes raise."""
     _, _, port, lr, hr = both
-    with pytest.raises(NotImplementedError):
-        port.infer(lr, hr, "r8", process_num=4)
+    for mode in ("m3", "r", "rx8"):
+        with pytest.raises(NotImplementedError):
+            port.infer(lr, hr, mode, process_num=4)
