@@ -17,9 +17,11 @@ Phases (each prints one or more lines; any failure exits non-zero):
    patch, the blend of 16 raw patches and finalize at raw size); the
    metrics' float32 prediction resizes to the gt shape; canny_nms at the
    evaluation's (1, 1024, 2048) in float64, where the masks must be equal,
-   and float32; each with the tolerance stated, and time the kernel, the
-   plain version and, where one PyTorch call computes the same function,
-   that call; then, in
+   and float32; K9 ``tail_conv`` at each of its 9 sites in the 16- and
+   8-patch chunks of every path (``check_tail_conv``) and its edge cases in
+   float32 and bfloat16; each with the tolerance stated, and time the
+   kernel, the plain version and, where one PyTorch call computes the same
+   function, that call; then, in
    float32 at small shapes, the kernels' paths the main paths do not reach
    (roi_align border bands, the other resize modes, padded and
    per-patch-init blends, ragged attention lengths and other head dims, the
@@ -33,7 +35,8 @@ Phases (each prints one or more lines; any failure exits non-zero):
    bfloat16 mode (device time by layer and its 15 costliest kernels,
    device busy share). The launch counters are set to 0 just before each
    first frame and read just after; every kernel but canny_nms must have
-   launched. Outputs must be finite maps of the reensemble canvas
+   launched, and K9 9 times a chunk (7 roi_align launches a chunk count
+   the chunks). Outputs must be finite maps of the reensemble canvas
    (1536, 2048), or of the raw frame (2160, 3840) for r32;
 5. the Depth-Anything-V2 path (``configs/patchrefinerv2_dav2/plus_eff_u4k.py``:
    DINOv2 ViT-L/14 24 blocks + DPT head at 448x448, the same refiner and
@@ -77,7 +80,7 @@ import time
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, the float32
 # rate outside the tensor cores (CUDA-core math, and every float32 kernel
 # here) and the dense bfloat16 tensor-core rate (the bfloat16 products of
-# the attention and gate_tail kernels)
+# the attention, gate_tail and tail_conv kernels)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_TENSOR_FLOPS = 989e12
@@ -540,6 +543,130 @@ def check_new_kernels(chk: Checks, dev) -> None:
                 x.numel() * es + ref.numel() * es, 2 * 8 * ref.numel())
 
 
+# K9's sites in one chunk of a path's frame, in the order the head runs them:
+# (name, input part widths, kernel size, Cout, epilogue). ``h2`` is the
+# config's head2_features = coarse_chl[0] (32 in the flagship and the
+# Cityscapes network, 128 in DA2); fusion1_0 reads (coarse level 0, last_feat)
+# and fusion2_0 (its own output, pred1, pred2); f2r_agg_4's second conv reads
+# the stage's 98 channels.
+def tail_sites(h2: int) -> list:
+    return [
+        ("output_conv2", (128,), 3, h2, dict(bias=True, act="relu")),
+        ("gcu_conv", (h2,), 3, h2, dict(bias=True, residual="x", relu_in=True)),
+        ("gcu_fusion_conv", (h2, h2), 3, h2, dict(bias=True)),
+        ("out_conv", (h2,), 1, h2, dict(bias=True)),
+        ("output_conv3", (h2,), 1, 1, dict(bias=True)),
+        ("fusion1_0", (h2, h2), 3, 32, dict(ln=True, act="gelu")),
+        ("fusion2_0", (32, 1, 1), 3, 32, dict(ln=True, act="gelu")),
+        ("f2r_agg_4_conv2", (98,), 3, 32, dict(act="gelu")),
+        ("final_conv", (32,), 3, 1, dict(residual="map", act="relu")),
+    ]
+
+
+def tail_case(g, dev, dt, shape, widths, k, cout, ep):
+    """Seeded inputs of one K9 call: (parts, kwargs of ``tail_conv``). The
+    depth parts and the update_base are positive maps (depths), the rest
+    normal; weights ~ N(0, 1/fan_in)."""
+    import torch
+
+    def randn(*s, scale=1.0):
+        return (torch.randn(s, generator=g, device=dev) * scale).to(dt)
+
+    parts = [(torch.rand((*shape, c), generator=g, device=dev) * 10).to(dt) if c == 1
+             else randn(*shape, c) for c in widths]
+    cin = sum(widths)
+    kw = dict(weight=randn(cout, cin, k, k, scale=(k * k * cin) ** -0.5), act=ep.get("act", "none"),
+              relu_in=ep.get("relu_in", False))
+    if ep.get("bias"):
+        kw["bias"] = randn(cout, scale=0.1)
+    if ep.get("residual") == "x":
+        kw["residual"] = parts[0]
+    elif ep.get("residual") == "map":
+        kw["residual"] = (torch.rand((*shape, cout), generator=g, device=dev) * 10).to(dt)
+    if ep.get("ln"):
+        kw["ln"] = ((torch.rand((cout,), generator=g, device=dev) + 0.5).to(dt), randn(cout, scale=0.1))
+    return parts, kw
+
+
+def check_tail_conv(chk: Checks, dev) -> None:
+    """K9 at every site of the fusion head's full-resolution tail, at the
+    shapes of each path's chunks: 16 patches (m1, and r32's random chunks)
+    and 8 (m2's chunks) at the process shape, in float32 (TF32 off) and
+    bfloat16 as ``PATHS`` lists them. The 16-patch chunk is recorded; the
+    8-patch one is checked and logged. Tolerance: float32 1e-5 of the
+    output's magnitude (the same float32 sums in another order); bfloat16
+    1e-2 of it (both sides round the same float32 result once, and a sum in
+    another order can cross a rounding boundary). Bound: each input read
+    once (the GatedConvUnit's residual is its input), the weights, the
+    output written once; operations 2 * P * k^2 * Cin * Cout, bf16 on the
+    tensor cores. The library call is one ``F.conv2d`` (with its bias) on
+    the input concatenated beforehand; the ``torch.cat`` is timed beside
+    it. Then the edge cases in both dtypes (not timed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from patchrefinerv2_torch.ops.tail_conv import tail_conv, tail_conv_plain
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    for path, geo in PATHS.items():
+        h2 = geo["levels"][-2][2]
+        for dt in (getattr(torch, d) for d in geo["dtypes"]):
+            es = torch.finfo(dt).bits // 8
+            peak = BF16_TENSOR_FLOPS if dt == torch.bfloat16 else F32_FLOPS
+            for batch in (16, 8):
+                shape = (batch, *geo["process"])
+                npx = batch * geo["process"][0] * geo["process"][1]
+                for name, widths, k, cout, ep in tail_sites(h2):
+                    parts, kw = tail_case(g, dev, dt, shape, widths, k, cout, ep)
+                    ref = tail_conv_plain(parts, **kw)
+                    err = err_of(tail_conv(parts, **kw), ref)
+                    xc = torch.cat(parts, dim=-1).permute(0, 3, 1, 2)
+                    wt, b = kw["weight"], kw.get("bias")
+                    lib = time_ms(lambda: F.conv2d(xc, wt, b, padding=k // 2))
+                    cat_ms = time_ms(lambda: torch.cat(parts, dim=-1))
+                    cin = sum(widths)
+                    nbytes = (npx * (cin + cout + (cout if ep.get("residual") == "map" else 0))
+                              + wt.numel() + 3 * cout) * es
+                    chk.add("tail_conv", path, dt, err, tol_of(ref, dt),
+                            time_ms(lambda: tail_conv(parts, **kw)),
+                            time_ms(lambda: tail_conv_plain(parts, **kw)), lib, nbytes,
+                            2 * npx * k * k * cin * cout, peak, main=batch == 16)
+                    log({"tail_conv_site": name, "path": path, "dtype": str(dt)[6:], "batch": batch,
+                         "in": list(widths), "k": k, "out": cout, "cat_ms": cat_ms})
+                    del parts, kw, ref, xc
+    tail_edge_cases(dev, g)
+
+
+def tail_edge_cases(dev, g) -> None:
+    """K9 where the frames do not take it, in float32 and bfloat16 (same
+    tolerances): tiles cut by the map's edge (H, W not multiples of the
+    16 x 16 tile, or of 8 x 16 at Cout 128),
+    batch 1, Cout 1 and Cout 16 (a partial output tile), 1-channel parts,
+    98 channels, four parts of odd widths, a 1x1 conv with LayerNorm, and
+    maps smaller than one tile."""
+    import torch
+
+    from patchrefinerv2_torch.ops.tail_conv import tail_conv, tail_conv_plain
+
+    cases = [((1, 13, 21), (32, 1, 1), 3, 32, dict(ln=True, act="gelu")),
+             ((2, 9, 17), (98,), 3, 32, dict(act="gelu")),
+             ((1, 5, 7), (32,), 3, 1, dict(residual="map", act="relu")),
+             ((1, 10, 33), (32,), 3, 32, dict(bias=True, residual="x", relu_in=True)),
+             ((3, 11, 19), (128, 128), 3, 128, dict(bias=True)),
+             ((2, 7, 30), (16,), 1, 16, dict(bias=True, ln=True, act="relu")),
+             ((2, 6, 9), (8, 8, 3, 5), 3, 20, dict(bias=True, act="gelu")),
+             ((1, 3, 2), (128,), 3, 1, dict(bias=True))]
+    for dt in (torch.float32, torch.bfloat16):
+        for shape, widths, k, cout, ep in cases:
+            parts, kw = tail_case(g, dev, dt, shape, widths, k, cout, ep)
+            ref = tail_conv_plain(parts, **kw)
+            err, tol = err_of(tail_conv(parts, **kw), ref), tol_of(ref, dt)
+            name = f"tail_conv {shape} in {list(widths)} k{k} out {cout} {sorted(ep)}"
+            log({"check": name, "dtype": str(dt)[6:], "max_abs_err": err, "tol": tol, "ok": err <= tol})
+            if not err <= tol:
+                raise AssertionError(f"{name} ({dt}): kernel and plain version disagree: {err} > {tol}")
+
+
 def check_canny(chk: Checks, dev) -> None:
     """K11 at the evaluation's shape, one (1, 1024, 2048) Cityscapes frame:
     the Sobel gradients of a seeded random smooth map, in float64 (the
@@ -708,6 +835,7 @@ def canny_edge_cases(dev, g) -> list:
 KERNEL_GROUPS = (
     ("K3/K4 attention", ("attention_kernel",)),
     ("K5 gate_tail", ("gate_tail",)),
+    ("K9 tail_conv", ("tail_conv_kernel",)),
     ("K8 bins", ("attractor_kernel", "log_binomial_kernel")),
     ("K1 roi_align", ("roi_align_kernel",)),
     ("K2 resize", ("resize_kernel",)),
@@ -755,6 +883,17 @@ def profile_frame(fn, frame_ms: float, label: str) -> None:
 FRAME_IDLE_OK = ("canny_nms",)
 
 
+def check_tail_per_chunk(label, counts) -> None:
+    """K9 runs once at each of its 9 sites in every chunk, and roi_align 7
+    times (the six coarse levels and the coarse depth): their counts must
+    agree, chunk for chunk."""
+    chunks = counts["roi_align"] / 7
+    log({"phase": f"{label}_tail_conv_per_chunk", "chunks": chunks, "tail_conv": counts["tail_conv"]})
+    if chunks < 1 or counts["tail_conv"] != 9 * chunks:
+        raise AssertionError(f"{label}: {counts['tail_conv']} tail_conv launches for {chunks} chunks, "
+                             "not 9 a chunk")
+
+
 class Frames:
     """Runs one model's tiled inference on a fixed random 2160x3840 frame."""
 
@@ -795,6 +934,7 @@ class Frames:
         idle = [k for k, v in counts.items() if v == 0 and k not in idle_ok]
         if idle:
             raise AssertionError(f"{label}: kernels never launched on the main path: {idle}")
+        check_tail_per_chunk(label, counts)
         return depth, counts
 
     def timed(self, mode, label, n):
@@ -1036,6 +1176,7 @@ def cityscapes_eval(dev) -> dict:
         idle = [k for k, v in c.items() if v == 0]
         if idle:
             raise AssertionError(f"cityscapes eval {mode}: kernels never launched: {idle}")
+        check_tail_per_chunk(f"cityscapes_eval_{mode}", c)
     return counts
 
 
@@ -1133,6 +1274,7 @@ def main() -> int:
     chk = Checks()
     check_kernels(chk, dev)
     check_new_kernels(chk, dev)
+    check_tail_conv(chk, dev)
     check_canny(chk, dev)
     check_edge_cases(dev)
     counts = {**flagship(dev), **depth_anything_v2(dev), **cityscapes_eval(dev)}

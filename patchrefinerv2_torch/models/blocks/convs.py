@@ -4,7 +4,10 @@
 
 Modules carry NCHW tensors in ``torch.channels_last`` memory format
 (physically NHWC); the ops take NHWC, so :func:`to_nhwc` is a free view.
-Parameter names follow the reference's torch state dicts.
+Parameter names follow the reference's torch state dicts. ``tail=True``
+marks the fusion head's full-resolution instances, which the JAX package
+runs in space-to-depth form (``s2d_split`` / ``s2d_out``): there the conv
+and its epilogue are one K9 launch (``ops/tail_conv.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch.nn.functional as F
 
 from patchrefinerv2_torch.ops.layer_norm import layer_norm
 from patchrefinerv2_torch.ops.resize import resize
+from patchrefinerv2_torch.ops.tail_conv import tail_conv
 
 
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -62,28 +66,41 @@ class ChannelLayerNorm(nn.Module):
 
 
 class SingleConvCNNLN(nn.Module):
-    """conv (no bias) -> channel LN -> GELU (reference convs.py:65-76)."""
+    """conv (no bias) -> channel LN -> GELU (reference convs.py:65-76) over
+    the channel concatenation of its inputs. ``tail``: one K9 launch that
+    reads the inputs in place."""
 
-    def __init__(self, cin: int, features: int, kernel_size: int = 3):
+    def __init__(self, cin: int, features: int, kernel_size: int = 3, tail: bool = False):
         super().__init__()
+        self.tail = tail
         self.single_conv = nn.Sequential(
             conv3(cin, features, bias=False, k=kernel_size), ChannelLayerNorm(features), nn.GELU())
 
-    def forward(self, x):
-        return gelu(self.single_conv[1](self.single_conv[0](x)))
+    def forward(self, *parts):
+        conv, ln = self.single_conv[0], self.single_conv[1]
+        if self.tail:
+            return to_nchw(tail_conv([to_nhwc(p) for p in parts], conv.weight,
+                                     ln=(ln.weight, ln.bias), act="gelu", eps=ln.eps))
+        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        return gelu(ln(conv(x)))
 
 
 class DoubleConv(nn.Module):
-    """(conv3x3 no-bias -> GELU) x 2 (reference convs.py:31-45)."""
+    """(conv3x3 no-bias -> GELU) x 2 (reference convs.py:31-45). ``tail``:
+    the second conv and its GELU are one K9 launch."""
 
-    def __init__(self, cin: int, features: int, mid: int | None = None):
+    def __init__(self, cin: int, features: int, mid: int | None = None, tail: bool = False):
         super().__init__()
         mid = mid or features
+        self.tail = tail
         self.double_conv = nn.Sequential(
             conv3(cin, mid, bias=False), nn.GELU(), conv3(mid, features, bias=False), nn.GELU())
 
     def forward(self, x):
-        return gelu(self.double_conv[2](gelu(self.double_conv[0](x))))
+        h = gelu(self.double_conv[0](x))
+        if self.tail:
+            return to_nchw(tail_conv([to_nhwc(h)], self.double_conv[2].weight, act="gelu"))
+        return gelu(self.double_conv[2](h))
 
 
 class ResidualConvUnit(nn.Module):

@@ -1,7 +1,11 @@
 """DPT-style decoder blocks, the port of
 ``patchrefinerv2_tpu/models/blocks/dpt.py`` (``upsample_bilinear_ac`` :29,
 ``GatedConvUnit`` :96, ``GatedFusionBlock`` :196, ``FeatureFusionBlock``
-:235, ``C2FModule`` :302), plain layout only (no space-to-depth tail).
+:235, ``C2FModule`` :302). ``tail=True`` marks the full-resolution head
+instance, which the JAX package runs in space-to-depth form
+(``s2d``/``s2d_tail``): there every convolution is a K9 launch
+(``ops/tail_conv.py``) with its epilogue fused and its concatenated inputs
+read in place.
 
 Names follow the reference's torch modules
 (bi_directional_fusion_model.py: ``GateresConfUnit1/2`` with ``conv`` and
@@ -20,6 +24,7 @@ from patchrefinerv2_torch.models.blocks.convs import (
     ChannelLayerNorm, ResidualConvUnit, conv3, interp, to_nchw, to_nhwc,
 )
 from patchrefinerv2_torch.ops.gated import gate_tail
+from patchrefinerv2_torch.ops.tail_conv import tail_conv
 
 
 def upsample_bilinear_ac(x: torch.Tensor, size=None, scale: int = 2) -> torch.Tensor:
@@ -29,13 +34,15 @@ def upsample_bilinear_ac(x: torch.Tensor, size=None, scale: int = 2) -> torch.Te
 
 class GatedConvUnit(nn.Module):
     """out = x + conv(relu x); with fusion: f = 1x1(relu(LN(conv(cat(out, c)))));
-    gate => out * sigmoid(f), else f. The 3x3 convolutions go to cuDNN; the
-    tail after the fusion conv (LN, ReLU, the 1x1, the gate) is one K5
-    launch."""
+    gate => out * sigmoid(f), else f. The 3x3 convolutions go to cuDNN, or
+    with ``tail`` each to one K9 launch (``conv(relu x) + x``, and the fusion
+    conv reading ``out`` and ``c`` in place); the rest after the fusion conv
+    (LN, ReLU, the 1x1, the gate) is one K5 launch."""
 
-    def __init__(self, features: int, coarse_ch: int, gate: bool = True, fusion: bool = True):
+    def __init__(self, features: int, coarse_ch: int, gate: bool = True, fusion: bool = True,
+                 tail: bool = False):
         super().__init__()
-        self.gate, self.fusion = gate, fusion
+        self.gate, self.fusion, self.tail = gate, fusion, tail
         self.conv = conv3(features, features)
         if fusion:
             self.fusion_conv = nn.Sequential(
@@ -43,23 +50,35 @@ class GatedConvUnit(nn.Module):
                 nn.Conv2d(features, features, 1, bias=False))
 
     def forward(self, x, c_feat=None):
-        out = self.conv(F.relu(x)) + x
-        if not self.fusion:
-            return out
-        fc = self.fusion_conv
-        f = fc[0](torch.cat([out, c_feat], dim=1))
-        y = gate_tail(to_nhwc(f), to_nhwc(out) if self.gate else None, fc[3].weight,
-                      fc[1].weight, fc[1].bias, fc[1].eps)
+        fc = self.fusion_conv if self.fusion else None
+        if self.tail:
+            xh = to_nhwc(x)
+            out = tail_conv([xh], self.conv.weight, self.conv.bias, residual=xh, relu_in=True)
+            if not self.fusion:
+                return to_nchw(out)
+            f = tail_conv([out, to_nhwc(c_feat)], fc[0].weight, fc[0].bias)
+        else:
+            out = self.conv(F.relu(x)) + x
+            if not self.fusion:
+                return out
+            f = to_nhwc(fc[0](torch.cat([out, c_feat], dim=1)))
+            out = to_nhwc(out)
+        y = gate_tail(f, out if self.gate else None, fc[3].weight, fc[1].weight, fc[1].bias,
+                      fc[1].eps)
         return to_nchw(y)
 
 
 class GatedFusionBlock(nn.Module):
+    """Gated units, then an optional x2 upsample and the 1x1 ``out_conv``
+    (K9 with ``tail``)."""
+
     def __init__(self, features: int, coarse_ch: int, skip: bool, gate: bool = True,
-                 fusion: bool = True):
+                 fusion: bool = True, tail: bool = False):
         super().__init__()
+        self.tail = tail
         if skip:
-            self.GateresConfUnit1 = GatedConvUnit(features, coarse_ch, gate, fusion)
-        self.GateresConfUnit2 = GatedConvUnit(features, coarse_ch, gate, fusion)
+            self.GateresConfUnit1 = GatedConvUnit(features, coarse_ch, gate, fusion, tail)
+        self.GateresConfUnit2 = GatedConvUnit(features, coarse_ch, gate, fusion, tail)
         self.out_conv = nn.Conv2d(features, features, 1)
 
     def forward(self, x, skip=None, size=None, coarse_feat=None, upscale: bool = True):
@@ -69,6 +88,8 @@ class GatedFusionBlock(nn.Module):
         out = self.GateresConfUnit2(out, coarse_feat)
         if upscale:
             out = upsample_bilinear_ac(out, size=size)
+        if self.tail:
+            return to_nchw(tail_conv([to_nhwc(out)], self.out_conv.weight, self.out_conv.bias))
         return self.out_conv(out)
 
 
@@ -94,7 +115,10 @@ class C2FModule(nn.Module):
     """Coarse-to-fine DPT decoder over the refiner's 5 encoder levels (high
     to low resolution) with a coarse level injected at every refinenet.
     ``coarse_chl``: channels of the 6 coarse levels, highest resolution
-    first. Returns (feats [l5_rn, p5, p4, p3, p2, last_feat], out)."""
+    first. The full-resolution head (``output_conv2``, its gated block and
+    ``output_conv3``) runs on K9, where the JAX module's ``s2d_tail`` runs
+    it in space-to-depth form. Returns (feats [l5_rn, p5, p4, p3, p2,
+    last_feat], out)."""
 
     def __init__(self, fine_chl, coarse_chl, features: int = 256, head2_features: int = 32,
                  gate: bool = True, fusion: bool = True):
@@ -108,7 +132,7 @@ class C2FModule(nn.Module):
         s.output_conv1 = conv3(features, features // 2)
         s.output_conv2 = nn.Sequential(conv3(features // 2, head2_features), nn.ReLU())
         s.output_conv2_fusion = GatedFusionBlock(head2_features, coarse_chl[0], skip=False,
-                                                 gate=gate, fusion=fusion)
+                                                 gate=gate, fusion=fusion, tail=True)
         s.output_conv3 = nn.Sequential(nn.Conv2d(head2_features, 1, 1))
         self.scratch = s
 
@@ -121,7 +145,8 @@ class C2FModule(nn.Module):
         p2 = s.refinenet2(p3, l2, size=l1.shape[2:], coarse_feat=coarse_features[2])
         p1 = s.refinenet1(p2, l1, coarse_feat=coarse_features[1])
         out = s.output_conv1(p1)
-        last_feat = F.relu(s.output_conv2[0](out))
+        oc2, oc3 = s.output_conv2[0], s.output_conv3[0]
+        last_feat = to_nchw(tail_conv([to_nhwc(out)], oc2.weight, oc2.bias, act="relu"))
         last_feat = s.output_conv2_fusion(last_feat, coarse_feat=coarse_features[0], upscale=False)
-        out = s.output_conv3[0](last_feat)
+        out = to_nchw(tail_conv([to_nhwc(last_feat)], oc3.weight, oc3.bias))
         return [l5, p5, p4, p3, p2, last_feat], out

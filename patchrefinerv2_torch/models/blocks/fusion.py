@@ -1,9 +1,11 @@
 """BiDirectionalFusion, the port of
 ``patchrefinerv2_tpu/models/blocks/fusion.py`` (``UpSample`` :35,
 ``BiDirectionalFusion`` :98) with the coarse-gated (or coarse-fusion) C2F
-module and the plain tail layout. The JAX default runs the full-resolution
-C=32 tail in space-to-depth form (``ops/s2d.py``), an exact relayout, so the
-plain layout agrees with it to within float32 summation order.
+module. The JAX default runs the full-resolution low-channel tail in
+space-to-depth form (``ops/s2d.py``), an exact re-layout; the port runs the
+same sites (the C2F head, ``fusion_layers_1/2[0]``, the last ``f2r_agg``
+stage's second conv and ``final_conv``) on K9 (``ops/tail_conv.py``) in the
+plain layout, which agrees with it to within float32 summation order.
 
 Names follow the reference's torch module (``c2f``, ``fusion_layers_1/2``,
 ``f2r_agg``, ``final_conv``).
@@ -14,16 +16,20 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from patchrefinerv2_torch.models.blocks.convs import DoubleConv, SingleConvCNNLN, interp
+from patchrefinerv2_torch.models.blocks.convs import (
+    DoubleConv, SingleConvCNNLN, interp, to_nchw, to_nhwc,
+)
 from patchrefinerv2_torch.models.blocks.dpt import C2FModule
+from patchrefinerv2_torch.ops.tail_conv import tail_conv
 
 
 class UpSample(nn.Module):
-    """Upscale-concat-DoubleConv decoder stage (fusion_model.py:7-35)."""
+    """Upscale-concat-DoubleConv decoder stage (fusion_model.py:7-35);
+    ``tail``: the DoubleConv's second conv on K9."""
 
-    def __init__(self, out_ch: int, mid_ch: int):
+    def __init__(self, out_ch: int, mid_ch: int, tail: bool = False):
         super().__init__()
-        self.conv = DoubleConv(mid_ch, out_ch, mid_ch)
+        self.conv = DoubleConv(mid_ch, out_ch, mid_ch, tail=tail)
 
     def forward(self, x1, x2, pred1, pred2):
         size = x2.shape[2:]
@@ -49,14 +55,15 @@ class BiDirectionalFusion(nn.Module):
                              gate=coarse2fine_type == "coarse-gated", fusion=True)
         f_after = [head2_features] + [c2f_features] * 5
         n = len(temp_chl)
+        # level 0 is the full-resolution one: its two fusion layers run on K9
         self.fusion_layers_1 = nn.ModuleList(
-            SingleConvCNNLN(coarse_chl[i] + f_after[i], temp_chl[i]) for i in range(n))
+            SingleConvCNNLN(coarse_chl[i] + f_after[i], temp_chl[i], tail=i == 0) for i in range(n))
         self.fusion_layers_2 = nn.ModuleList(
-            SingleConvCNNLN(temp_chl[i] + 2, temp_chl[i]) for i in range(n))
+            SingleConvCNNLN(temp_chl[i] + 2, temp_chl[i], tail=i == 0) for i in range(n))
         mids = list(temp_chl)[::-1]
         in_mid, aggs = mids[0], []
         for idx, dec_c in enumerate(dec_chl):
-            aggs.append(UpSample(dec_c, mids[idx + 1] + in_mid + 2))
+            aggs.append(UpSample(dec_c, mids[idx + 1] + in_mid + 2, tail=idx == len(dec_chl) - 1))
             in_mid = dec_c
         self.f2r_agg = nn.ModuleList(aggs)
         self.final_conv = nn.Conv2d(dec_chl[-1], 1, 3, 1, 1, bias=False)
@@ -67,15 +74,15 @@ class BiDirectionalFusion(nn.Module):
         f_feat = c2f_feats[::-1]
         temp = []
         for idx, (c, f) in enumerate(zip(c_feat, f_feat)):
-            h = self.fusion_layers_1[idx](torch.cat([c, f], dim=1))
+            h = self.fusion_layers_1[idx](c, f)
             size = h.shape[2:]
-            h = self.fusion_layers_2[idx](torch.cat([h, interp(pred1, size), interp(pred2, size)], dim=1))
+            h = self.fusion_layers_2[idx](h, interp(pred1, size), interp(pred2, size))
             temp.append(h)
         rev = temp[::-1]
         cur = rev[0]
         for idx, agg in enumerate(self.f2r_agg):
             cur = agg(cur, rev[1 + idx], pred1, pred2)
-        offset = self.final_conv(cur)
-        if update_base is None:
-            return offset
-        return torch.clamp(update_base + offset, min=0.0)
+        # K9: offset = final_conv(cur), or clamp(update_base + offset, 0)
+        res = None if update_base is None else to_nhwc(update_base)
+        return to_nchw(tail_conv([to_nhwc(cur)], self.final_conv.weight, residual=res,
+                                 act="none" if res is None else "relu"))

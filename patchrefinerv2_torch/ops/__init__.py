@@ -13,6 +13,7 @@ from patchrefinerv2_torch.ops.gated import gate_tail
 from patchrefinerv2_torch.ops.layer_norm import layer_norm
 from patchrefinerv2_torch.ops.resize import crop_resize, resize
 from patchrefinerv2_torch.ops.roi_align import roi_align
+from patchrefinerv2_torch.ops.tail_conv import tail_conv
 
 KERNELS = {
     "roi_align": dict(wrapper=roi_align, route="cuda",
@@ -49,6 +50,9 @@ KERNELS = {
     "canny_nms": dict(wrapper=canny_nms, route="cuda",
                       source="patchrefinerv2_torch/csrc/canny.cu",
                       replaces="patchrefinerv2_tpu/ops/canny.py:14"),
+    "tail_conv": dict(wrapper=tail_conv, route="cuda",
+                      source="patchrefinerv2_torch/csrc/tail_conv.cu",
+                      replaces="patchrefinerv2_tpu/ops/s2d.py:114,139,156,190,198"),
 }
 
 

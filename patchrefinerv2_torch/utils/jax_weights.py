@@ -183,21 +183,33 @@ def _gated_unit(sd: _SD, p: str, node) -> None:
     sd.conv(p + "fusion_conv.3", node["Conv_2"])
 
 
-def _gated_block(sd: _SD, key: str, node, single: bool) -> None:
-    units = ("GateresConfUnit2",) if single else ("GateresConfUnit1", "GateresConfUnit2")
+def _gated_block(sd: _SD, p: str, node) -> None:
+    """A GatedFusionBlock: two units with a skip input, else one."""
+    units = ("GateresConfUnit1", "GateresConfUnit2") if "GatedConvUnit_1" in node else (
+        "GateresConfUnit2",)
     for ui, unit in enumerate(units):
-        _gated_unit(sd, f"{key}.{unit}.", node[f"GatedConvUnit_{ui}"])
-    sd.conv(key + ".out_conv", node["Conv_0"])
+        _gated_unit(sd, f"{p}{unit}.", node[f"GatedConvUnit_{ui}"])
+    sd.conv(p + "out_conv", node["Conv_0"])
+
+
+def _single_conv(sd: _SD, p: str, node) -> None:
+    sd.conv(p + "single_conv.0", node["Conv_0"])
+    sd.norm(p + "single_conv.1", node["LayerNorm_0"])
+
+
+def _double_conv(sd: _SD, p: str, node) -> None:
+    sd.conv(p + "double_conv.0", node["Conv_0"])
+    sd.conv(p + "double_conv.2", node["Conv_1"])
 
 
 def _fusion_c2f(sd: _SD, p: str, c2f) -> None:
     s = p + "scratch."
     for k in range(1, 6):
         sd.conv(f"{s}layer{k}_rn", c2f["Scratch_0"][f"layer{k}_rn"])
-        _gated_block(sd, f"{s}refinenet{k}", c2f[f"refinenet{k}"], single=(k == 5))
+        _gated_block(sd, f"{s}refinenet{k}.", c2f[f"refinenet{k}"])
     sd.conv(s + "output_conv1", c2f["output_conv1"])
     sd.conv(s + "output_conv2.0", c2f["output_conv2"])
-    _gated_block(sd, s + "output_conv2_fusion", c2f["output_conv2_fusion"], single=True)
+    _gated_block(sd, s + "output_conv2_fusion.", c2f["output_conv2_fusion"])
     sd.conv(s + "output_conv3.0", c2f["output_conv3"])
 
 
@@ -206,15 +218,11 @@ def _fusion(sd: _SD, p: str, P) -> None:
     i = 0
     while f"fusion1_{i}" in P:
         for j in (1, 2):
-            node, key = P[f"fusion{j}_{i}"], f"{p}fusion_layers_{j}.{i}.single_conv"
-            sd.conv(key + ".0", node["Conv_0"])
-            sd.norm(key + ".1", node["LayerNorm_0"])
+            _single_conv(sd, f"{p}fusion_layers_{j}.{i}.", P[f"fusion{j}_{i}"])
         i += 1
     i = 0
     while f"f2r_agg_{i}" in P:
-        dc = P[f"f2r_agg_{i}"]["DoubleConv_0"]
-        sd.conv(f"{p}f2r_agg.{i}.conv.double_conv.0", dc["Conv_0"])
-        sd.conv(f"{p}f2r_agg.{i}.conv.double_conv.2", dc["Conv_1"])
+        _double_conv(sd, f"{p}f2r_agg.{i}.conv.", P[f"f2r_agg_{i}"]["DoubleConv_0"])
         i += 1
     sd.conv(p + "final_conv", P["final_conv"])
 
@@ -244,6 +252,9 @@ PARTS = {
     "BiDirectionalFusion": lambda sd, P, S: _fusion(sd, "", P),
     "C2FModule": lambda sd, P, S: _fusion_c2f(sd, "", P),
     "GatedConvUnit": lambda sd, P, S: _gated_unit(sd, "", P),
+    "GatedFusionBlock": lambda sd, P, S: _gated_block(sd, "", P),
+    "SingleConvCNNLN": lambda sd, P, S: _single_conv(sd, "", P),
+    "DoubleConv": lambda sd, P, S: _double_conv(sd, "", P),
 }
 
 
