@@ -9,7 +9,11 @@ blocks (``conv_dw``, ``bn1``, ``se``, ``conv_pw``, ``bn2``), the others
 inverted residuals (``conv_pw``, ``bn1``, ``conv_dw``, ``bn2``, ``se``,
 ``conv_pwl``, ``bn3``). TF-SAME padding (asymmetric for stride 2), SiLU,
 squeeze-excite over a quarter of the block input, eval-mode BatchNorm with
-eps 1e-3. ``in_ch=4`` is the coarse-depth-conditioned stem.
+eps 1e-3. ``in_ch=4`` is the coarse-depth-conditioned stem. The 1x1 convs
+that the reference routes through its int8 dispatcher (``pconv``,
+encoders.py:122-146) are int8 sites (``models/int8.py``): ``conv_pw`` and
+``conv_pwl`` of an inverted residual, ``conv_pw`` of a depthwise-separable
+block (the reference's ``conv_pwl`` of an expand-1 MBConv).
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from patchrefinerv2_torch.models.int8 import int8_conv, mark_site
 
 # (kernel, stride, expand, out_ch, repeats): B0 scaled by width 1.6 / depth 2.2
 EFFB5_STAGES = [
@@ -45,6 +51,12 @@ class Conv2dSame(nn.Conv2d):
         return F.conv2d(x, self.weight, self.bias, self.stride, 0, self.dilation, self.groups)
 
 
+def _pconv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A 1x1 int8 site: the int8 conv where it is served, else the exact one."""
+    y = int8_conv(conv, [x])
+    return conv(x) if y is None else y
+
+
 def _bn(c: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(c, eps=1e-3)
 
@@ -70,10 +82,11 @@ class DepthwiseSeparable(nn.Module):
         self.conv_pw = nn.Conv2d(cin, cout, 1, bias=False)
         self.bn2 = _bn(cout)
         self.has_skip = stride == 1 and cin == cout
+        mark_site(self.conv_pw, "qamax_0")
 
     def forward(self, x):
         h = self.se(F.silu(self.bn1(self.conv_dw(x))))
-        h = self.bn2(self.conv_pw(h))
+        h = self.bn2(_pconv(self.conv_pw, h))
         return h + x if self.has_skip else h
 
 
@@ -88,11 +101,13 @@ class InvertedResidual(nn.Module):
         self.conv_pwl = nn.Conv2d(mid, cout, 1, bias=False)
         self.bn3 = _bn(cout)
         self.has_skip = stride == 1 and cin == cout
+        mark_site(self.conv_pw, "qamax_0")
+        mark_site(self.conv_pwl, "qamax_1")
 
     def forward(self, x):
-        h = F.silu(self.bn1(self.conv_pw(x)))
+        h = F.silu(self.bn1(_pconv(self.conv_pw, x)))
         h = self.se(F.silu(self.bn2(self.conv_dw(h))))
-        h = self.bn3(self.conv_pwl(h))
+        h = self.bn3(_pconv(self.conv_pwl, h))
         return h + x if self.has_skip else h
 
 

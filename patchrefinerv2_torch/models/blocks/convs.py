@@ -7,7 +7,9 @@ Modules carry NCHW tensors in ``torch.channels_last`` memory format
 Parameter names follow the reference's torch state dicts. ``tail=True``
 marks the fusion head's full-resolution instances, which the JAX package
 runs in space-to-depth form (``s2d_split`` / ``s2d_out``): there the conv
-and its epilogue are one K9 launch (``ops/tail_conv.py``).
+and its epilogue are one K9 launch (``ops/tail_conv.py``). The convolutions
+that the reference routes through its int8 dispatcher outside that tail are
+int8 sites (``models/int8.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from patchrefinerv2_torch.models.int8 import int8_conv, mark_site
 from patchrefinerv2_torch.ops.layer_norm import layer_norm
 from patchrefinerv2_torch.ops.resize import resize
 from patchrefinerv2_torch.ops.tail_conv import tail_conv
@@ -75,14 +78,18 @@ class SingleConvCNNLN(nn.Module):
         self.tail = tail
         self.single_conv = nn.Sequential(
             conv3(cin, features, bias=False, k=kernel_size), ChannelLayerNorm(features), nn.GELU())
+        if not tail:
+            mark_site(self.single_conv[0], "qamax_0")
 
     def forward(self, *parts):
         conv, ln = self.single_conv[0], self.single_conv[1]
         if self.tail:
             return to_nchw(tail_conv([to_nhwc(p) for p in parts], conv.weight,
                                      ln=(ln.weight, ln.bias), act="gelu", eps=ln.eps))
-        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-        return gelu(ln(conv(x)))
+        y = int8_conv(conv, parts)
+        if y is None:
+            y = conv(parts[0] if len(parts) == 1 else torch.cat(parts, dim=1))
+        return gelu(ln(y))
 
 
 class DoubleConv(nn.Module):
@@ -95,12 +102,18 @@ class DoubleConv(nn.Module):
         self.tail = tail
         self.double_conv = nn.Sequential(
             conv3(cin, mid, bias=False), nn.GELU(), conv3(mid, features, bias=False), nn.GELU())
+        mark_site(self.double_conv[0], "qamax_0")
+        if not tail:
+            mark_site(self.double_conv[2], "qamax_1")
 
     def forward(self, x):
-        h = gelu(self.double_conv[0](x))
+        c0, c1 = self.double_conv[0], self.double_conv[2]
+        h = int8_conv(c0, [x])
+        h = gelu(c0(x) if h is None else h)
         if self.tail:
-            return to_nchw(tail_conv([to_nhwc(h)], self.double_conv[2].weight, act="gelu"))
-        return gelu(self.double_conv[2](h))
+            return to_nchw(tail_conv([to_nhwc(h)], c1.weight, act="gelu"))
+        y = int8_conv(c1, [h])
+        return gelu(c1(h) if y is None else y)
 
 
 class ResidualConvUnit(nn.Module):

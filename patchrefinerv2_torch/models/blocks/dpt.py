@@ -12,6 +12,11 @@ Names follow the reference's torch modules
 ``fusion_conv``; depth_anything blocks: ``resConfUnit1/2``, ``out_conv``).
 A block called with one input has no first unit: the reference's unit there
 is dead weight, which the JAX converter drops too.
+
+The convolutions that the reference routes through its int8 dispatcher
+outside the head are int8 sites (``models/int8.py``): a GatedConvUnit's
+``conv`` and ``fusion_conv[0]`` (its 1x1 inside K5 raises if selected) and
+the C2F ``output_conv1``.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch.nn.functional as F
 from patchrefinerv2_torch.models.blocks.convs import (
     ChannelLayerNorm, ResidualConvUnit, conv3, interp, to_nchw, to_nhwc,
 )
+from patchrefinerv2_torch.models.int8 import int8_conv, mark_site
 from patchrefinerv2_torch.ops.gated import gate_tail
 from patchrefinerv2_torch.ops.tail_conv import tail_conv
 
@@ -48,6 +54,10 @@ class GatedConvUnit(nn.Module):
             self.fusion_conv = nn.Sequential(
                 conv3(features + coarse_ch, features), ChannelLayerNorm(features), nn.ReLU(),
                 nn.Conv2d(features, features, 1, bias=False))
+            if not tail:  # the reference's dispatcher sites (a unit without fusion has none)
+                mark_site(self.conv, "qamax_0")
+                mark_site(self.fusion_conv[0], "qamax_1")
+                mark_site(self.fusion_conv[3], "qamax_2", unported=True)
 
     def forward(self, x, c_feat=None):
         fc = self.fusion_conv if self.fusion else None
@@ -57,12 +67,17 @@ class GatedConvUnit(nn.Module):
             if not self.fusion:
                 return to_nchw(out)
             f = tail_conv([out, to_nhwc(c_feat)], fc[0].weight, fc[0].bias)
+        elif not self.fusion:
+            return self.conv(F.relu(x)) + x
         else:
-            out = self.conv(F.relu(x)) + x
-            if not self.fusion:
-                return out
-            f = to_nhwc(fc[0](torch.cat([out, c_feat], dim=1)))
-            out = to_nhwc(out)
+            out = int8_conv(self.conv, [x], relu_in=True, residual=x)
+            if out is None:
+                out = self.conv(F.relu(x)) + x
+            f = int8_conv(fc[0], [out, c_feat])
+            if f is None:
+                f = fc[0](torch.cat([out, c_feat], dim=1))
+            int8_conv(fc[3], [f])  # K5's 1x1: raises where the gate would select it
+            f, out = to_nhwc(f), to_nhwc(out)
         y = gate_tail(f, out if self.gate else None, fc[3].weight, fc[1].weight, fc[1].bias,
                       fc[1].eps)
         return to_nchw(y)
@@ -130,6 +145,7 @@ class C2FModule(nn.Module):
             setattr(s, f"refinenet{k}",
                     GatedFusionBlock(features, coarse_chl[k], skip=(k != 5), gate=gate, fusion=fusion))
         s.output_conv1 = conv3(features, features // 2)
+        mark_site(s.output_conv1, "qamax_0")
         s.output_conv2 = nn.Sequential(conv3(features // 2, head2_features), nn.ReLU())
         s.output_conv2_fusion = GatedFusionBlock(head2_features, coarse_chl[0], skip=False,
                                                  gate=gate, fusion=fusion, tail=True)
@@ -144,7 +160,9 @@ class C2FModule(nn.Module):
         p3 = s.refinenet3(p4, l3, size=l2.shape[2:], coarse_feat=coarse_features[3])
         p2 = s.refinenet2(p3, l2, size=l1.shape[2:], coarse_feat=coarse_features[2])
         p1 = s.refinenet1(p2, l1, coarse_feat=coarse_features[1])
-        out = s.output_conv1(p1)
+        out = int8_conv(s.output_conv1, [p1])
+        if out is None:
+            out = s.output_conv1(p1)
         oc2, oc3 = s.output_conv2[0], s.output_conv3[0]
         last_feat = to_nchw(tail_conv([to_nhwc(out)], oc2.weight, oc2.bias, act="relu"))
         last_feat = s.output_conv2_fusion(last_feat, coarse_feat=coarse_features[0], upscale=False)

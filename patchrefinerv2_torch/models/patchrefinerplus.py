@@ -18,6 +18,10 @@ bins head. ``lax.scan`` over chunks becomes a Python loop.
 The module tree keeps the reference's torch state-dict names
 (``coarse_branch``, ``refiner_fine_branch``, ``refiner_fusion_model``), so
 ``utils/jax_weights.load_jax_params`` can load the JAX package's variables.
+
+The calibrated int8 serving mode (``calibrate_int8``, then ``set_int8``;
+``patchrefinerplus.py:770-867`` and ``ops/quant.py`` in the JAX package)
+routes the convolutions that the gate selects to K10 (``models/int8.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +40,9 @@ from patchrefinerv2_torch.models.backbones.zoedepth import ZoeDepthBEiT
 from patchrefinerv2_torch.models.blocks.convs import to_nchw, to_nhwc
 from patchrefinerv2_torch.models.blocks.fusion import BiDirectionalFusion
 from patchrefinerv2_torch.models.blocks.refiner import LightWeightRefiner
+from patchrefinerv2_torch.models.int8 import (
+    MIN_HW, MIN_KC, SCALES, Int8Calibration, calibration, record, serve,
+)
 from patchrefinerv2_torch.models.tiling import (
     _BATCH_GRANULE, TileCfg, merge_all_passes, random_pass_boxes, random_pass_starts, regular_pass,
 )
@@ -185,11 +192,80 @@ class PatchRefinerPlus:
         self.net = net.to(self.device, memory_format=torch.channels_last).eval()
         if self.infer_dtype != torch.float32:
             self.net.to(self.infer_dtype)
+        self._int8 = None  # (calibration, scales, force) while the int8 mode is set
 
     def set_infer_dtype(self, dtype: torch.dtype) -> None:
-        """Cast the parameters (in place) and run inference in ``dtype``."""
+        """Cast the parameters (in place) and run inference in ``dtype``. A
+        calibration made in another dtype is stale: serving with it raises
+        until ``calibrate_int8`` and ``set_int8`` run again."""
         self.infer_dtype = dtype
         self.net.to(dtype)
+        self._attach_int8()
+
+    def _tile(self, tile_cfg) -> TileCfg:
+        return self.tile_cfg if tile_cfg is None else TileCfg(
+            tuple(tile_cfg["image_raw_shape"]), tuple(tile_cfg["patch_split_num"]),
+            self.patch_process_shape)
+
+    def _inputs(self, image_lr, image_hr):
+        dev, dt = self.device, self.infer_dtype
+        return (torch.as_tensor(image_lr).to(dev, dt).contiguous(),
+                torch.as_tensor(image_hr).to(dev, dt).contiguous())
+
+    @torch.inference_mode()
+    def calibrate_int8(self, images, process_num: int = 16, tile_cfg: dict | None = None,
+                       min_kc: int = MIN_KC, min_hw: int = MIN_HW) -> Int8Calibration:
+        """Post-training calibration of the int8 serving mode
+        (``patchrefinerplus.py:770-867``): the exact network in the current
+        infer dtype over the m1 pass and the three shifted passes of every
+        ``(image_lr, image_hr)`` in ``images``, chunk by chunk, each int8
+        site taking the abs-max of its input per tensor and per input
+        channel; then each site's weights quantized per output channel, as
+        they are and with the per-channel scales folded in. Every site is
+        calibrated; ``min_kc`` and ``min_hw`` are the gates serving applies.
+        Returns the calibration, on the model's device."""
+        tc = self._tile(tile_cfg)
+        pph, ppw = self.patch_process_shape
+        prh, prw = tc.patch_raw_shape
+        recs = record(self.net)
+        try:
+            for image_lr, image_hr in images:
+                lr, hr = self._inputs(image_lr, image_hr)
+                coarse_feats, coarse_pred = self.net.coarse_forward(lr)
+                for off in ((0, 0), (0, 1), (1, 0), (1, 1)):
+                    p = regular_pass(tc, off, process_num)
+                    s_raw = torch.from_numpy(p.starts_raw).to(self.device)
+                    boxes = torch.from_numpy(p.bboxes).to(self.device)
+                    for lo in range(0, s_raw.shape[0], process_num):
+                        sl = slice(lo, lo + process_num)
+                        imgs = crop_resize(hr[0], s_raw[sl], (prh, prw), (pph, ppw))
+                        self.net.infer_chunk(imgs, coarse_pred, coarse_feats, boxes[sl])
+        finally:
+            self._attach_int8()
+        return calibration(self.net, recs, min_kc, min_hw)
+
+    def set_int8(self, calibration: Int8Calibration | None, scales: str = "perchan",
+                 force: bool = False) -> None:
+        """Serve the int8 sites that the calibration's gates select with K10,
+        with per-input-channel (``"perchan"``, the JAX bench's default) or
+        per-tensor (``"tensor"``) activation scales; ``None`` switches the
+        mode off. As in the reference (``quant.py:68-79``) the mode applies
+        only to a 2-byte infer dtype (bfloat16) unless ``force``, the
+        counterpart of ``PRV2_INT8_FORCE``."""
+        if scales not in SCALES:
+            raise ValueError(f"scales must be one of {SCALES}, got {scales!r}")
+        self._int8 = None if calibration is None else (calibration, scales, force)
+        self._attach_int8()
+
+    def _attach_int8(self) -> None:
+        """Serve the int8 sites from the calibration while the mode applies
+        (a 2-byte dtype or ``force``, and a calibration of this dtype), else
+        run them exact."""
+        cal, scales, force = self._int8 if self._int8 is not None else (None, None, False)
+        if cal is not None and not ((torch.finfo(self.infer_dtype).bits == 16 or force)
+                                    and cal.dtype == self.infer_dtype):
+            cal = None
+        serve(self.net, cal, scales)
 
     def _plan(self, tc: TileCfg, cai_mode: str, process_num: int):
         """(patch stream, per-patch init flags or None, chunk, random
@@ -218,12 +294,12 @@ class PatchRefinerPlus:
         from ``random_starts`` ((N // process_num, process_num, 2) int [h, w]).
         Returns (depth float32 on the reensemble canvas (H', W') for m1 and
         m2, on the raw (H, W) canvas for rN; coarse depth (1, h, w, 1))."""
-        dev, dt = self.device, self.infer_dtype
-        tc = self.tile_cfg if tile_cfg is None else TileCfg(
-            tuple(tile_cfg["image_raw_shape"]), tuple(tile_cfg["patch_split_num"]),
-            self.patch_process_shape)
-        image_lr = torch.as_tensor(image_lr).to(dev, dt).contiguous()
-        image_hr = torch.as_tensor(image_hr).to(dev, dt).contiguous()
+        if self._int8 is not None and self._int8[0].dtype != self.infer_dtype:
+            raise RuntimeError(f"the int8 calibration was made in {self._int8[0].dtype}, the model "
+                               f"now infers in {self.infer_dtype}: calibrate again")
+        dev = self.device
+        tc = self._tile(tile_cfg)
+        image_lr, image_hr = self._inputs(image_lr, image_hr)
         pph, ppw = self.patch_process_shape
         prh, prw = tc.patch_raw_shape
         stream, initv, chunk, n_random = self._plan(tc, cai_mode, process_num)

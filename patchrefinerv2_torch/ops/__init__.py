@@ -11,6 +11,7 @@ from patchrefinerv2_torch.ops.blend import TileBlender
 from patchrefinerv2_torch.ops.canny import canny_nms
 from patchrefinerv2_torch.ops.gated import gate_tail
 from patchrefinerv2_torch.ops.layer_norm import layer_norm
+from patchrefinerv2_torch.ops.quant import quant_conv
 from patchrefinerv2_torch.ops.resize import crop_resize, resize
 from patchrefinerv2_torch.ops.roi_align import roi_align
 from patchrefinerv2_torch.ops.tail_conv import tail_conv
@@ -53,6 +54,9 @@ KERNELS = {
     "tail_conv": dict(wrapper=tail_conv, route="cuda",
                       source="patchrefinerv2_torch/csrc/tail_conv.cu",
                       replaces="patchrefinerv2_tpu/ops/s2d.py:114,139,156,190,198"),
+    "quant_conv": dict(wrapper=quant_conv, route="cuda",
+                       source="patchrefinerv2_torch/csrc/quant_conv.cu",
+                       replaces="patchrefinerv2_tpu/ops/quant.py:130,154,218"),
 }
 
 

@@ -1,0 +1,195 @@
+"""K10: the int8 SAME convolution with static activation scales,
+``y = f32(conv_int32(q(relu?(cat(parts))), kq)) * scale + bias (+ residual)``
+over NHWC maps.
+
+Counterpart of ``patchrefinerv2_tpu/ops/quant.py``: ``quant_conv_same``
+(:130, one activation scale), ``quant_conv_same_perchan`` (:154, a scale per
+input channel, folded into the weights) and the serving branch of
+``conv_dispatch`` (:218). Both modes are one function here:
+
+1. ``q(x) = clip(round_half_even(f32(x) / sx[c]), -127, 127)`` as int8, with
+   ``sx`` a float32 scale per input channel (the per-tensor mode repeats its
+   one scale);
+2. the int32 sums of a 3x3 (SAME) or 1x1 convolution of ``q`` with the
+   int8 weights ``kq`` (Cout, Cin, k, k);
+3. ``y = f32(acc) * scale[o]`` (``scale = sx * sw`` formed first in the
+   per-tensor mode, ``swc`` in the per-channel mode), then ``+ f32(bias)``,
+   rounded to the input dtype;
+4. with ``residual``: ``y + residual`` rounded again to the input dtype, as
+   the reference's ``quant_conv(...) + x`` rounds it.
+
+``relu_in`` applies a ReLU to the inputs first (``GatedConvUnit``'s
+``conv(relu(x))``). The quantize helpers below are the reference's
+``_quantize_per_tensor``, ``_quantize_per_out_channel`` and
+``_fold_act_scales`` in the port's (Cout, Cin, k, k) weight layout.
+
+On a CUDA tensor :func:`quant_conv` launches the kernels of
+``csrc/quant_conv.cu`` (or raises): a quantize pass that reads the parts in
+place and writes int8 NHWC, then the int8 implicit-GEMM convolution on the
+tensor cores with the dequantize, bias and residual in its epilogue.
+``quant_conv.launches`` counts the calls that launch them. On a CPU tensor
+it runs :func:`quant_conv_plain`, whose int32 sums are exact (a float64
+convolution of integers: |acc| <= 127^2 * k^2 * Cin < 2^53).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from patchrefinerv2_torch.ops import _cuda
+
+__all__ = [
+    "quant_conv", "quant_conv_plain", "quantize", "act_scale", "quantize_per_out_channel",
+    "fold_act_scales", "int8_conv_sums", "site_selected", "format_weight",
+]
+
+MAX_PARTS = 4
+CHUNK = 32  # input channels per k-step of the kernel (one m16n8k32 depth)
+BLOCK_N = 128  # output channels per block of the kernel
+
+
+# The reference writes its scales as ``max(amax, 1e-8) / 127.0``; XLA compiles
+# a division by a constant to a product with the constant's float32
+# reciprocal, and every scale of the reference is computed inside ``jit``, so
+# the port takes that product too (a true division differs in the last bit
+# for ~4% of the scales). The quantize itself, ``x / sx``, is a true division
+# on both sides.
+RECIP_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)
+
+
+def act_scale(amax: torch.Tensor) -> torch.Tensor:
+    """``max(amax, 1e-8) / 127`` in float32 as the reference computes it:
+    the scale of an abs-max (a scalar, one per input channel, or one per
+    output channel of a weight)."""
+    return torch.clamp(amax.float(), min=1e-8) * RECIP_127.to(amax.device)
+
+
+def quantize(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    """``clip(round_half_even(f32(x) / sx), -127, 127)`` as int8; ``sx``
+    broadcasts over the last (channel) axis."""
+    return torch.clamp(torch.round(x.float() / sx), -127, 127).to(torch.int8)
+
+
+def quantize_per_out_channel(w: torch.Tensor):
+    """Symmetric int8 per output channel of a (Cout, Cin, k, k) weight:
+    (kq int8, sw float32 (Cout,))."""
+    wf = w.float()
+    sw = act_scale(wf.abs().amax(dim=(1, 2, 3)))
+    return quantize(wf, sw[:, None, None, None]), sw
+
+
+def fold_act_scales(w: torch.Tensor, amax_c: torch.Tensor):
+    """The per-input-channel activation scales folded into the weight:
+    (f32(w) * sx_c over the Cin axis, sx_c)."""
+    sx = act_scale(amax_c)
+    return w.float() * sx[None, :, None, None], sx
+
+
+def site_selected(weight_shape, hw: int, min_kc: int, min_hw: int) -> bool:
+    """The reference's serving gate (``quant.py:272-283``): a conv takes the
+    int8 path when kh * kw * Cout >= ``min_kc`` and its input has at least
+    ``min_hw`` pixels. ``weight_shape``: (Cout, Cin, kh, kw)."""
+    cout, _, kh, kw = weight_shape
+    return kh * kw * cout >= min_kc and hw >= min_hw
+
+
+def int8_conv_sums(xq: torch.Tensor, kq: torch.Tensor) -> torch.Tensor:
+    """The exact int32 sums of the SAME convolution of int8 NHWC ``xq`` with
+    int8 ``kq`` (Cout, Cin, k, k), as an NHWC int32 map: a float64
+    convolution, exact for these integers."""
+    k = kq.shape[-1]
+    acc = F.conv2d(xq.permute(0, 3, 1, 2).double(), kq.double(), padding=k // 2)
+    return acc.permute(0, 2, 3, 1).to(torch.int32)
+
+
+def quant_conv_plain(parts, kq, sx, scale, bias=None, relu_in: bool = False, residual=None):
+    """Plain PyTorch version of :func:`quant_conv` (any device). The sums
+    are exact; float64 -> float32 rounds them to nearest even, as the
+    int32 -> float32 conversion does."""
+    dt = parts[0].dtype
+    x = torch.cat(list(parts), dim=-1)
+    if relu_in:
+        x = torch.relu(x)
+    k = kq.shape[-1]
+    xq = quantize(x, sx).permute(0, 3, 1, 2).double()
+    acc = F.conv2d(xq, kq.double(), padding=k // 2).permute(0, 2, 3, 1)
+    y = acc.float() * scale
+    if bias is not None:
+        y = y + bias.float()
+    y = y.to(dt)
+    if residual is not None:
+        y = (y.float() + residual.float()).to(dt)
+    return y
+
+
+def format_weight(kq: torch.Tensor) -> torch.Tensor:
+    """(Cout, Cin, k, k) int8 -> the kernel's [Cin / 32][k * k][Cout_pad][32],
+    zero-padded to a multiple of 32 input and of 128 output channels."""
+    cout, cin, k, _ = kq.shape
+    nch, cp = -(-cin // CHUNK), -(-cout // BLOCK_N) * BLOCK_N
+    w = torch.zeros((k * k, cp, nch * CHUNK), dtype=torch.int8, device=kq.device)
+    w[:, :cout, :cin] = kq.permute(2, 3, 0, 1).reshape(k * k, cout, cin)
+    return w.reshape(k * k, cp, nch, CHUNK).permute(2, 0, 1, 3).contiguous()
+
+
+def quant_conv(parts, kq: torch.Tensor, sx: torch.Tensor, scale: torch.Tensor,
+               bias: torch.Tensor | None = None, relu_in: bool = False,
+               residual: torch.Tensor | None = None, wf: torch.Tensor | None = None) -> torch.Tensor:
+    """``parts``: 1-4 NHWC maps (N, H, W, C_i) of one size and dtype (float32
+    or bfloat16), concatenated along channels in this order; ``kq``: int8
+    (Cout, sum C_i, k, k) with k 3 (SAME) or 1; ``sx``: float32 (sum C_i,)
+    activation scales; ``scale``: float32 (Cout,) dequantize scales;
+    ``bias``: (Cout,) in the input dtype or None; ``residual``: (N, H, W,
+    Cout) or None; ``wf``: ``format_weight(kq)`` when the caller keeps it.
+    Returns (N, H, W, Cout) in the input dtype."""
+    parts = list(parts)
+    if _cuda.on_cpu(parts[0]):
+        return quant_conv_plain(parts, kq, sx, scale, bias, relu_in, residual)
+    if not 1 <= len(parts) <= MAX_PARTS:
+        raise ValueError(f"quant_conv takes 1 to {MAX_PARTS} input parts, got {len(parts)}")
+    n, h, w = parts[0].shape[:3]
+    if any(p.ndim != 4 or tuple(p.shape[:3]) != (n, h, w) for p in parts):
+        raise ValueError(f"quant_conv parts must be NHWC maps of one size, got "
+                         f"{[tuple(p.shape) for p in parts]}")
+    cin = sum(p.shape[3] for p in parts)
+    cout, k = kq.shape[0], kq.shape[-1]
+    if kq.dtype != torch.int8 or tuple(kq.shape) != (cout, cin, k, k) or k not in (1, 3):
+        raise ValueError(f"quant_conv takes an int8 (Cout, {cin}, k, k) weight with k 1 or 3, "
+                         f"got {kq.dtype} {tuple(kq.shape)}")
+    if sx.dtype != torch.float32 or tuple(sx.shape) != (cin,):
+        raise ValueError(f"sx must be float32 ({cin},), got {sx.dtype} {tuple(sx.shape)}")
+    if scale.dtype != torch.float32 or tuple(scale.shape) != (cout,):
+        raise ValueError(f"scale must be float32 ({cout},), got {scale.dtype} {tuple(scale.shape)}")
+    if bias is not None and tuple(bias.shape) != (cout,):
+        raise ValueError(f"bias must be ({cout},), got {tuple(bias.shape)}")
+    if residual is not None and tuple(residual.shape) != (n, h, w, cout):
+        raise ValueError(f"residual {tuple(residual.shape)} is not ({n}, {h}, {w}, {cout})")
+    if wf is None:
+        wf = format_weight(kq)
+    nch, cp = -(-cin // CHUNK), -(-cout // BLOCK_N) * BLOCK_N
+    if tuple(wf.shape) != (nch, k * k, cp, CHUNK) or wf.dtype != torch.int8:
+        raise ValueError(f"formatted weight {tuple(wf.shape)} is not {(nch, k * k, cp, CHUNK)} int8")
+    dt = parts[0].dtype
+    extra = [t for t in (bias, residual) if t is not None]
+    # require_cuda checks one device and the dense NHWC layout the kernels
+    # assume; it raises, it never copies
+    _cuda.require_cuda(*parts, *extra, sx, scale, wf)
+    if any(t.dtype != dt for t in parts + extra):
+        raise ValueError("quant_conv takes the parts, bias and residual in one dtype, got "
+                         f"{sorted({str(t.dtype) for t in parts + extra})}")
+    code = _cuda.dtype_code(dt)
+    xq = torch.empty((n, h, w, nch * CHUNK), dtype=torch.int8, device=parts[0].device)
+    y = torch.empty((n, h, w, cout), dtype=dt, device=parts[0].device)
+    ps = parts + [None] * (MAX_PARTS - len(parts))
+    cs = [p.shape[3] for p in parts] + [0] * (MAX_PARTS - len(parts))
+    fn = _cuda.bind("quant_conv", "prv2_quant_conv", 11, 10)
+    rc = fn(*(_cuda.ptr(p) for p in ps), _cuda.ptr(sx), _cuda.ptr(wf), _cuda.ptr(scale),
+            _cuda.ptr(bias), _cuda.ptr(residual), _cuda.ptr(xq), _cuda.ptr(y), n, h, w, *cs, cout,
+            k, int(relu_in), code, _cuda.stream_of(y))
+    _cuda.check(rc, "quant_conv")
+    quant_conv.launches += 1
+    return y
+
+
+quant_conv.launches = 0

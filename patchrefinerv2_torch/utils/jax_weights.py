@@ -9,16 +9,23 @@ keys. It is the inverse of the JAX package's checkpoint converter
 kernel is flipped back spatially to (I, O, kh, kw), LayerNorm/BatchNorm
 ``scale`` becomes ``weight`` and the BatchNorm ``mean``/``var`` statistics
 become ``running_mean``/``running_var``.
+
+``load_jax_int8(model, variables)`` turns the JAX calibration (the
+``quant_scales`` and ``quant_kq`` collections that the JAX
+``calibrate_int8`` adds) into the port's ``Int8Calibration``.
 """
 
 from __future__ import annotations
 
 import re
+from collections.abc import Mapping
 
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params", "jax_to_state_dict"]
+from patchrefinerv2_torch.models.int8 import MIN_HW, MIN_KC, Int8Calibration, sites_of
+
+__all__ = ["load_jax_params", "jax_to_state_dict", "load_jax_int8"]
 
 
 def _a(x) -> np.ndarray:
@@ -26,7 +33,15 @@ def _a(x) -> np.ndarray:
 
 
 class _SD(dict):
+    """The state dict being filled; ``nodes`` keeps the JAX params node of
+    each conv by its port module name."""
+
+    def __init__(self):
+        super().__init__()
+        self.nodes = {}
+
     def conv(self, key, node):
+        self.nodes[key] = node
         self[key + ".weight"] = np.transpose(_a(node["kernel"]), (3, 2, 0, 1))
         if "bias" in node:
             self[key + ".bias"] = _a(node["bias"])
@@ -159,21 +174,27 @@ def _effnet(sd: _SD, p: str, P, S) -> None:
         m = re.fullmatch(r"blocks_(\d+)_(\d+)", name)
         if not m:
             continue
-        b, st = f"{p}blocks.{m.group(1)}.{m.group(2)}.", S[name]
-        if "conv_pw" in node:  # inverted residual
-            sd.conv(b + "conv_pw", node["conv_pw"])
-            sd.bn(b + "bn1", node["bn1"], st["bn1"])
-            sd.conv(b + "conv_dw", node["conv_dw"])
-            sd.bn(b + "bn2", node["bn2"], st["bn2"])
-            sd.conv(b + "conv_pwl", node["conv_pwl"])
-            sd.bn(b + "bn3", node["bn3"], st["bn3"])
-        else:  # depthwise-separable (expansion 1)
-            sd.conv(b + "conv_dw", node["conv_dw"])
-            sd.bn(b + "bn1", node["bn2"], st["bn2"])
-            sd.conv(b + "conv_pw", node["conv_pwl"])
-            sd.bn(b + "bn2", node["bn3"], st["bn3"])
-        sd.conv(b + "se.conv_reduce", node["se"]["reduce"])
-        sd.conv(b + "se.conv_expand", node["se"]["expand"])
+        b = f"{p}blocks.{m.group(1)}.{m.group(2)}."
+        _mbconv(sd, b, node, S[name])
+
+
+def _mbconv(sd: _SD, b: str, node, st) -> None:
+    """An MBConv: the port's InvertedResidual, or DepthwiseSeparable when
+    it has no expansion (``conv_pw``)."""
+    if "conv_pw" in node:  # inverted residual
+        sd.conv(b + "conv_pw", node["conv_pw"])
+        sd.bn(b + "bn1", node["bn1"], st["bn1"])
+        sd.conv(b + "conv_dw", node["conv_dw"])
+        sd.bn(b + "bn2", node["bn2"], st["bn2"])
+        sd.conv(b + "conv_pwl", node["conv_pwl"])
+        sd.bn(b + "bn3", node["bn3"], st["bn3"])
+    else:  # depthwise-separable (expansion 1)
+        sd.conv(b + "conv_dw", node["conv_dw"])
+        sd.bn(b + "bn1", node["bn2"], st["bn2"])
+        sd.conv(b + "conv_pw", node["conv_pwl"])
+        sd.bn(b + "bn2", node["bn3"], st["bn3"])
+    sd.conv(b + "se.conv_reduce", node["se"]["reduce"])
+    sd.conv(b + "se.conv_expand", node["se"]["expand"])
 
 
 def _gated_unit(sd: _SD, p: str, node) -> None:
@@ -247,6 +268,7 @@ PARTS = {
     "DinoViT": lambda sd, P, S: _dino_vit(sd, "", P),
     "DepthAnythingV2": lambda sd, P, S: _da2(sd, "", P),
     "EfficientNetB5Features": lambda sd, P, S: _effnet(sd, "", P, S),
+    "MBConv": lambda sd, P, S: _mbconv(sd, "", P, S),
     "LightWeightRefiner": lambda sd, P, S: _effnet(
         sd, "refiner_encoder.", P["refiner_encoder"], S["refiner_encoder"]),
     "BiDirectionalFusion": lambda sd, P, S: _fusion(sd, "", P),
@@ -284,3 +306,56 @@ def load_jax_params(model, variables, part: str = "PRPlusNet") -> None:
             if tuple(t.shape) != v.shape:
                 raise ValueError(f"shape mismatch at {k}: port {tuple(t.shape)}, JAX {v.shape}")
             t.copy_(torch.from_numpy(np.ascontiguousarray(v)))
+
+
+def _node_paths(tree, path=()) -> dict[int, tuple]:
+    """id of every mapping in a JAX tree -> its key path."""
+    out = {id(tree): path}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_node_paths(v, path + (k,)))
+    return out
+
+
+def load_jax_int8(model, variables, part: str = "PRPlusNet", min_kc: int = MIN_KC,
+                  min_hw: int = MIN_HW) -> Int8Calibration:
+    """The calibration in the JAX variables (``quant_scales``: the
+    ``qamax_<i>`` per-tensor and ``qc_qamax_<i>`` per-channel abs-maxes;
+    ``quant_kq``: each site's ``kq``/``sw`` and ``kqc``/``swc``) as the
+    port's ``Int8Calibration`` for ``model`` (a ``PatchRefinerPlus`` or its
+    ``net`` by default, or the port's counterpart of the JAX module
+    ``part``, a key of :data:`PARTS`), in its weights' dtype, on their
+    device. A site's JAX scope is the module that holds the conv's params,
+    found through the weight loader's walk (``GatedConvUnit_0/1`` <->
+    ``GateresConfUnit1/2``, an expand-1 MBConv's ``conv_pwl`` <->
+    ``conv_pw``); its name is the port conv's ``int8_site``. The unported
+    K5 1x1 sites are left out."""
+    net = getattr(model, "net", model)
+    sd = _SD()
+    PARTS[part](sd, variables["params"], variables.get("batch_stats", {}))
+    paths = _node_paths(variables["params"])
+    dev = next(net.parameters()).device
+    hwio = (3, 2, 0, 1)
+
+    def t(x, dtype=None, perm=None):
+        a = np.asarray(x, dtype)
+        return torch.from_numpy(np.ascontiguousarray(a if perm is None else a.transpose(perm))).to(dev)
+
+    def at(tree, scope):
+        for k in scope:
+            tree = tree[k]
+        return tree
+
+    f32 = np.float32
+    cal = Int8Calibration(dtype=next(net.parameters()).dtype, min_kc=min_kc, min_hw=min_hw)
+    for name, conv in sites_of(net).items():
+        if conv.int8_unported:
+            continue
+        scope, site = paths[id(sd.nodes[name])][:-1], conv.int8_site
+        scales, kq = at(variables["quant_scales"], scope), at(variables["quant_kq"], scope)[site]
+        cal.sites[name] = dict(
+            amax=t(scales[site], f32), amax_c=t(scales["qc_" + site], f32),
+            kq=t(kq["kq"], perm=hwio), sw=t(kq["sw"], f32),
+            kqc=t(kq["kqc"], perm=hwio) if "kqc" in kq else None,
+            swc=t(kq["swc"], f32) if "swc" in kq else None, hw=None)
+    return cal
