@@ -19,11 +19,12 @@ Phases (each prints one or more lines; any failure exits non-zero):
    evaluation's (1, 1024, 2048) in float64, where the masks must be equal,
    and float32; K9 ``tail_conv`` at each of its 9 sites in the 16- and
    8-patch chunks of every path (``check_tail_conv``) and its edge cases in
-   float32 and bfloat16; K10 ``quant_conv`` at its 12 int8 sites in the
-   flagship's 16- and 8-patch chunks and DA2's 16-patch chunk, bfloat16 with
-   per-channel and per-tensor scales and float32 per-channel
-   (``check_quant_conv``), and its edge cases; each with the tolerance
-   stated, and time the
+   float32 and bfloat16; K10 ``quant_conv`` at its 15 int8 sites (the 3
+   head sites with K9's time beside) in the flagship's 16- and 8-patch
+   chunks and DA2's 16-patch chunk in bfloat16 and the flagship's 16-patch
+   chunk in float32, with per-channel (by pixel phase at the head unit),
+   per-tensor and dynamic scales (``check_quant_conv``), bit for bit, and
+   its edge cases; each with the tolerance stated, and time the
    kernel, the plain version and, where one PyTorch call computes the same
    function, that call; then, in
    float32 at small shapes, the kernels' paths the main paths do not reach
@@ -37,15 +38,16 @@ Phases (each prints one or more lines; any failure exits non-zero):
    process_num 16: m1 in float32, then m1, m2 and r32 in bfloat16, each a
    first frame and then timed warm frames, and one profiled frame of each
    bfloat16 mode (device time by layer and its 15 costliest kernels,
-   device busy share). Then the calibrated int8 serving mode: calibrate on
-   the frame (the 12 sites must be selected), then with per-channel scales
-   m1 and r32 (first, timed, profiled) and an m1 first frame with
-   per-tensor scales. The launch counters are set to 0 just before each
-   first frame and read just after; every kernel but canny_nms (and K10 in
-   the exact runs) must have launched, K9 9 times a chunk and K10 12 times
-   a chunk in the int8 runs, 0 in the others (7 roi_align launches a chunk
-   count the chunks). Outputs must be finite maps of the reensemble canvas
-   (1536, 2048), or of the raw frame (2160, 3840) for r32;
+   device busy share). Then the int8 serving mode: m1 in the dynamic mode
+   (first, timed, profiled); calibrate on the frame (the 15 sites must be
+   selected), then with per-channel scales m1 and r32 (first, timed,
+   profiled) and an m1 first frame with per-tensor scales. The launch
+   counters are set to 0 just before each first frame and read just after;
+   every kernel but canny_nms (and K10 in the exact runs) must have
+   launched, K10 15 times a chunk and K9 6 times in the int8 runs, K10 0
+   and K9 9 times in the others (7 roi_align launches a chunk count the
+   chunks). Outputs must be finite maps of the reensemble canvas (1536,
+   2048), or of the raw frame (2160, 3840) for r32;
 5. the Depth-Anything-V2 path (``configs/patchrefinerv2_dav2/plus_eff_u4k.py``:
    DINOv2 ViT-L/14 24 blocks + DPT head at 448x448, the same refiner and
    fusion, random weights from seed 0), m1 in bfloat16 on the same frame:
@@ -64,7 +66,8 @@ Phases (each prints one or more lines; any failure exits non-zero):
 7. the same graphs at a small size on the GPU (kernels) against the CPU
    (plain versions) in float32, with a tiny BEiT and a ``vitt`` DA2 coarse
    branch: m1, m2 and r8 depth must agree, and the flagship's m1 in int8
-   (float32, forced), calibrated on the CPU, within the composed int8 bar;
+   (float32, forced), calibrated on the CPU and dynamic, within the
+   composed int8 bars;
    and the Cityscapes metrics of one
    full-size frame whose prediction has edges on the card against the CPU,
    then the time of its ``get_metrics`` on the card and of each part.
@@ -679,32 +682,45 @@ def tail_edge_cases(dev, g) -> None:
                 raise AssertionError(f"{name} ({dt}): kernel and plain version disagree: {err} > {tol}")
 
 
-# K10's sites in one chunk of a path's frame, the 12 that the reference's
-# default gates select (kh * kw * Cout >= 1152, H * W >= 8192; the same on
-# both paths): (site, input part widths, Cout, the divisor of the process
-# shape, bias, relu_in + residual, how many sites of the chunk have this
-# shape: refinenet1 and 2 each run it in GateresConfUnit1 and 2)
-QUANT_SITES = [
-    ("refinenet2 GCU conv (+ x)", (256,), 256, 4, True, True, 2),
-    ("refinenet2 GCU fusion conv", (256, 256), 256, 4, True, False, 2),
-    ("refinenet1 GCU conv (+ x)", (256,), 256, 2, True, True, 2),
-    ("refinenet1 GCU fusion conv", (256, 256), 256, 2, True, False, 2),
-    ("output_conv1", (256,), 128, 1, True, False, 1),
-    ("f2r_agg_2 conv 1", (322,), 322, 4, False, False, 1),
-    ("f2r_agg_2 conv 2", (322,), 128, 4, False, False, 1),
-    ("f2r_agg_3 conv 1", (194,), 194, 2, False, False, 1),
-]
+# K10's sites in one chunk of a path's frame, the 15 that the reference's
+# default gates select (kh * kw * Cout >= 1152, H * W >= 8192, counted on the
+# space-to-depth shapes at the head sites; the same on both paths): (site,
+# input part widths, Cout, the divisor of the process shape, bias, relu_in +
+# residual, how many sites of the chunk have this shape (refinenet1 and 2
+# each run it in GateresConfUnit1 and 2), the layout the reference runs it
+# in, ReLU after). ``h2``: the head's width, coarse level 0's channels (32 in
+# the flagship, 128 in DA2).
+def quant_sites(h2: int) -> list:
+    return [
+        ("refinenet2 GCU conv (+ x)", (256,), 256, 4, True, True, 2, "plain", False),
+        ("refinenet2 GCU fusion conv", (256, 256), 256, 4, True, False, 2, "plain", False),
+        ("refinenet1 GCU conv (+ x)", (256,), 256, 2, True, True, 2, "plain", False),
+        ("refinenet1 GCU fusion conv", (256, 256), 256, 2, True, False, 2, "plain", False),
+        ("output_conv1", (256,), 128, 1, True, False, 1, "plain", False),
+        ("f2r_agg_2 conv 1", (322,), 322, 4, False, False, 1, "plain", False),
+        ("f2r_agg_2 conv 2", (322,), 128, 4, False, False, 1, "plain", False),
+        ("f2r_agg_3 conv 1", (194,), 194, 2, False, False, 1, "plain", False),
+        ("output_conv2 (qsd_0)", (128,), h2, 1, True, False, 1, "s2d_down", True),
+        ("head GCU conv (+ x)", (h2,), h2, 1, True, True, 1, "s2d", False),
+        ("head GCU fusion conv", (h2, h2), h2, 1, True, False, 1, "s2d", False),
+    ]
 
 
-def quant_case(g, dev, dt, shape, widths, cout, k, bias, relu_res, scales, ties=False, zero_ch=False):
-    """Seeded inputs of one K10 call: (parts, served site, kwargs of
+QUANT_SCALES = ("perchan", "tensor", "dynamic")
+
+
+def quant_case(g, dev, dt, shape, widths, cout, k, bias, relu_res, scales, ties=False, zero_ch=False,
+               layout="plain", relu_out=False, zero_phase=False):
+    """Seeded inputs of one K10 call: (parts, served site, weight, kwargs of
     ``quant_conv``). Channels of uneven ranges; the calibrated abs-max is
-    0.9 of the input's own (per channel and per tensor), so the clip is
-    reached; ``zero_ch`` calibrates channel 0 at abs-max 0 (the 1e-8 floor);
-    ``ties`` draws every input as (an integer + 0.5) / 8 under an abs-max
-    of 15.875 (the scale 1/8), so that every quantize is an exact tie (half
-    to even) and some lie beyond +-127.5. Weights ~ N(0, 1/fan_in) in
-    ``dt``, quantized as calibration quantizes them."""
+    0.9 of the input's own (per channel, by pixel phase at an ``s2d`` site,
+    and per tensor), so the clip is reached; ``zero_ch`` calibrates channel
+    0 at abs-max 0 (the 1e-8 floor), ``zero_phase`` channel 0 of phase 1;
+    ``ties`` draws every input as (an integer + 0.5) / 8 under an abs-max of
+    15.875 (the scale 1/8), so that every quantize is an exact tie (half to
+    even) and some lie beyond +-127.5. Weights ~ N(0, 1/fan_in) in ``dt``,
+    quantized as calibration quantizes them (``scales`` "dynamic": as the
+    dynamic mode does, with the live abs-max taken in the call)."""
     import torch
 
     from patchrefinerv2_torch.models.int8 import Int8Calibration, Served
@@ -718,80 +734,105 @@ def quant_case(g, dev, dt, shape, widths, cout, k, bias, relu_res, scales, ties=
                   * (0.25 + 2 * torch.rand((c,), generator=g, device=dev))).to(dt) for c in widths]
     x = torch.cat(parts, -1).float()
     x = x.clamp(min=0) if relu_res else x.abs()
-    amax_c = x.amax(dim=(0, 1, 2)) * 0.9 if not ties else torch.full((cin,), 15.875, device=dev)
+    if layout == "s2d":
+        amax_c = torch.stack([x[:, di::2, dj::2].amax(dim=(0, 1, 2)) for di in range(2) for dj in range(2)])
+    else:
+        amax_c = x.amax(dim=(0, 1, 2))
+    amax_c = amax_c * 0.9 if not ties else torch.full_like(amax_c, 15.875)
     if zero_ch:
-        amax_c[0] = 0.0
+        amax_c[..., 0] = 0.0
+    if zero_phase:
+        amax_c[1, 0] = 0.0
     w = (torch.randn((cout, cin, k, k), generator=g, device=dev) * (k * k * cin) ** -0.5).to(dt)
-    entry = Int8Calibration.entry(w, amax_c)
-    site = Served(entry, scales, 0, 0)
+    site = Served(Int8Calibration.entry(w, amax_c, layout=layout), scales, 0, 0)
     kw = dict(bias=(torch.randn((cout,), generator=g, device=dev) * 0.1).to(dt) if bias else None,
-              relu_in=relu_res, residual=parts[0] if relu_res else None)
+              relu_in=relu_res, residual=parts[0] if relu_res else None, relu_out=relu_out,
+              dynamic=site.dynamic)
     return parts, site, w, kw
 
 
+def k10(parts, site, kw, plain=False):
+    """One K10 call (or its plain version) at a served site."""
+    from patchrefinerv2_torch.ops.quant import quant_conv, quant_conv_plain
+
+    if plain:
+        return quant_conv_plain(parts, site.kq, site.sx, site.scale, **kw)
+    return quant_conv(parts, site.kq, site.sx, site.scale, wf=site.wf, **kw)
+
+
 def check_quant_conv(chk: Checks, dev) -> None:
-    """K10 at each of the 12 int8 sites of a chunk, at the shapes of the
+    """K10 at each of the 15 int8 sites of a chunk, at the shapes of the
     flagship's 16- and 8-patch chunks (m1 and r32's random chunks; m2's) and
-    DA2's 16-patch chunk, bfloat16 with per-channel (the serving default,
-    recorded for the path) and per-tensor scales, and float32 per-channel at
-    the flagship's 16-patch shapes. Bar: the int32 sums are exact and the
-    epilogue rounds as the plain version does, so the output must equal the
-    plain version's to within one output rounding (2^-8 of the magnitude in
-    bfloat16; 1e-6 in float32). The plain version runs its sums as a float64
-    convolution on the card (timed over one call). Bound: int8 operations
-    2 * P * k^2 * Cin * Cout at 1979 TOP/s against the bytes (the input
-    parts, the residual and the output once each, the int8 weights). The
-    library call is the ``F.conv2d`` of the site in the same dtype with its
-    bias, on the input concatenated beforehand (the ``torch.cat`` is timed
-    beside it). Then the edge cases."""
+    DA2's 16-patch chunk in bfloat16, and the flagship's 16-patch chunk in
+    float32, each with per-channel (the serving default, recorded for the
+    path in bfloat16; by pixel phase at the two ``s2d`` head sites),
+    per-tensor and dynamic scales. Bar: the int32 sums are exact and the
+    quantize and epilogue round as the plain version does, so the output
+    must equal the plain version's bit for bit. The plain version runs its
+    sums as a float64 convolution on the card (timed over one call). Bound:
+    int8 operations 2 * P * k^2 * Cin * Cout at 1979 TOP/s against the bytes
+    (the input parts, the residual and the output once each, the int8
+    weights, one set per phase where phased). The library call is the
+    ``F.conv2d`` of the site in the same dtype with its bias, on the input
+    concatenated beforehand (the ``torch.cat`` is timed beside it); at the
+    three head sites K9 (``tail_conv``, the kernel the exact runs take
+    there) is timed on the same inputs and weights in the same dtype. Then
+    the edge cases."""
     import torch
     import torch.nn.functional as F
 
-    from patchrefinerv2_torch.ops.quant import quant_conv, quant_conv_plain
+    from patchrefinerv2_torch.ops.tail_conv import tail_conv
 
     g = torch.Generator(device=dev).manual_seed(7)
-    runs = [("flagship", torch.bfloat16, b, sc) for b in (16, 8) for sc in ("perchan", "tensor")]
-    runs += [("da2", torch.bfloat16, 16, sc) for sc in ("perchan", "tensor")]
-    runs += [("flagship", torch.float32, 16, "perchan")]
+    runs = [("flagship", torch.bfloat16, b, sc) for b in (16, 8) for sc in QUANT_SCALES]
+    runs += [("da2", torch.bfloat16, 16, sc) for sc in QUANT_SCALES]
+    runs += [("flagship", torch.float32, 16, sc) for sc in QUANT_SCALES]
     for path, dt, batch, scales in runs:
         es = torch.finfo(dt).bits // 8
         ph, pw = PATHS[path]["process"]
-        for name, widths, cout, div, bias, relu_res, count in QUANT_SITES:
+        for name, widths, cout, div, bias, relu_res, count, layout, relu_out in quant_sites(
+                PATHS[path]["levels"][-2][2]):
             shape = (batch, ph // div, pw // div)
             npx = shape[0] * shape[1] * shape[2]
-            parts, site, w, kw = quant_case(g, dev, dt, shape, widths, cout, 3, bias, relu_res, scales)
-            args = (parts, site.kq, site.sx, site.scale)
-            ref = quant_conv_plain(*args, **kw)
-            err = err_of(quant_conv(*args, wf=site.wf, **kw), ref)
-            tol = (2 ** -8 if dt == torch.bfloat16 else 1e-6) * max(float(ref.float().abs().max()), 1e-30)
-            ms = time_ms(lambda: quant_conv(*args, wf=site.wf, **kw))
-            plain = time_ms(lambda: quant_conv_plain(*args, **kw), iters=1, warmup=0)
+            parts, site, w, kw = quant_case(g, dev, dt, shape, widths, cout, 3, bias, relu_res, scales,
+                                            layout=layout, relu_out=relu_out)
+            ref = k10(parts, site, kw, plain=True)
+            err = err_of(k10(parts, site, kw), ref)
+            ms = time_ms(lambda: k10(parts, site, kw))
+            plain = time_ms(lambda: k10(parts, site, kw, plain=True), iters=1, warmup=0)
             xc = torch.cat(parts, dim=-1).permute(0, 3, 1, 2)
             wl = w.contiguous(memory_format=torch.channels_last)
             lib = time_ms(lambda: F.conv2d(xc, wl, kw["bias"], padding=1))
             cat_ms = time_ms(lambda: torch.cat(parts, dim=-1)) if len(parts) > 1 else 0.0
+            k9_ms = None
+            if layout != "plain":
+                k9 = dict(bias=kw["bias"], act="relu" if relu_out else "none", relu_in=relu_res,
+                          residual=kw["residual"])
+                k9_ms = time_ms(lambda: tail_conv(parts, w, **k9))
             cin = sum(widths)
-            nbytes = npx * (cin + cout * (2 if relu_res else 1)) * es + 9 * cin * cout + 4 * (cin + cout)
+            nphase = site.kq.shape[0] if site.kq.ndim == 5 else 1
+            nbytes = (npx * (cin + cout * (2 if relu_res else 1)) * es + nphase * 9 * cin * cout
+                      + 4 * (cin + cout))
             for _ in range(count):
-                chk.add("quant_conv", path, dt, err, tol, ms, plain, lib, nbytes, 2 * npx * 9 * cin * cout,
+                chk.add("quant_conv", path, dt, err, 0.0, ms, plain, lib, nbytes, 2 * npx * 9 * cin * cout,
                         INT8_TENSOR_OPS, main=batch == 16 and scales == "perchan")
             log({"quant_conv_site": name, "path": path, "dtype": str(dt)[6:], "batch": batch,
-                 "scales": scales, "count": count, "in": list(widths), "out": cout,
-                 "hw": [shape[1], shape[2]], "cat_ms": cat_ms})
-            del parts, site, w, kw, ref, xc, wl, args
+                 "scales": scales, "layout": layout, "count": count, "in": list(widths), "out": cout,
+                 "hw": [shape[1], shape[2]], "cat_ms": cat_ms, "k9_ms": k9_ms})
+            del parts, site, w, kw, ref, xc, wl
     quant_edge_cases(dev, g)
 
 
 def quant_edge_cases(dev, g) -> None:
-    """K10 where the frames do not take it, float32 and bfloat16, both scale
-    modes (same bars): Cin 1, 33, 98, 1056 (a 1x1 of the encoder at lowered
-    gates), 2 and 4 parts; Cout 1, 8, 20, 322 (three 128-channel tiles);
-    batch 1, maps smaller than one 8 x 16 tile, 1 pixel wide or high; a
-    channel calibrated at abs-max 0; inputs beyond the calibrated abs-max;
-    exact .5 ties; ReLU-in with the residual."""
+    """K10 where the frames do not take it, float32 and bfloat16, the three
+    scale modes (the same bar, bit for bit): Cin 1, 33, 98, 1056 (a 1x1 of
+    the encoder at lowered gates), 2 and 4 parts; Cout 1, 8, 20, 322 (three
+    128-channel tiles); batch 1, maps smaller than one tile, 1 pixel wide or
+    high; a channel calibrated at abs-max 0; inputs beyond the calibrated
+    abs-max; exact .5 ties; ReLU-in with the residual. Phased (``s2d``):
+    batch 1, a 2x2 map, an odd 5x7 map, parts 32+32 and 128+128, a phase of
+    a channel at abs-max 0, ties; and the ReLU after the rounding."""
     import torch
-
-    from patchrefinerv2_torch.ops.quant import quant_conv, quant_conv_plain
 
     cases = [((1, 5, 7), (1,), 1, 3, True, False, {}),
              ((2, 9, 1), (33,), 8, 3, False, False, {}),
@@ -801,20 +842,24 @@ def quant_edge_cases(dev, g) -> None:
              ((2, 7, 30), (1056,), 20, 1, False, False, {}),
              ((1, 6, 9), (8, 8, 3, 5), 20, 3, True, False, dict(zero_ch=True)),
              ((2, 8, 16), (40,), 8, 1, True, False, dict(ties=True)),
-             ((1, 9, 17), (32, 32), 64, 3, False, False, dict(ties=True))]
+             ((1, 9, 17), (32, 32), 64, 3, False, False, dict(ties=True)),
+             ((1, 2, 2), (32,), 32, 3, True, True, dict(layout="s2d")),
+             ((1, 34, 36), (32, 32), 32, 3, True, False, dict(layout="s2d", zero_phase=True)),
+             ((2, 5, 7), (32, 32), 32, 3, True, False, dict(layout="s2d")),
+             ((1, 18, 40), (128, 128), 128, 3, True, False, dict(layout="s2d", zero_phase=True)),
+             ((1, 6, 10), (32, 32), 32, 3, False, False, dict(layout="s2d", ties=True)),
+             ((1, 20, 18), (128,), 32, 3, True, False, dict(layout="s2d_down", relu_out=True)),
+             ((2, 3, 5), (24,), 24, 3, False, True, dict(relu_out=True))]
     for dt in (torch.float32, torch.bfloat16):
-        for scales in ("perchan", "tensor"):
+        for scales in QUANT_SCALES:
             for shape, widths, cout, k, bias, relu_res, extra in cases:
                 parts, site, _, kw = quant_case(g, dev, dt, shape, widths, cout, k, bias, relu_res,
                                                 scales, **extra)
-                args = (parts, site.kq, site.sx, site.scale)
-                ref = quant_conv_plain(*args, **kw)
-                err = err_of(quant_conv(*args, wf=site.wf, **kw), ref)
-                tol = (2 ** -8 if dt == torch.bfloat16 else 1e-6) * max(float(ref.float().abs().max()), 1e-30)
-                name = f"quant_conv {shape} in {list(widths)} k{k} out {cout} {scales} {sorted(extra)}"
-                log({"check": name, "dtype": str(dt)[6:], "max_abs_err": err, "tol": tol, "ok": err <= tol})
-                if not err <= tol:
-                    raise AssertionError(f"{name} ({dt}): kernel and plain version disagree: {err} > {tol}")
+                err = err_of(k10(parts, site, kw), k10(parts, site, kw, plain=True))
+                name = f"quant_conv {shape} in {list(widths)} k{k} out {cout} {scales} {sorted(extra.items())}"
+                log({"check": name, "dtype": str(dt)[6:], "max_abs_err": err, "tol": 0.0, "ok": err == 0})
+                if err != 0:
+                    raise AssertionError(f"{name} ({dt}): kernel and plain version disagree: {err}")
 
 
 def check_canny(chk: Checks, dev) -> None:
@@ -986,7 +1031,7 @@ KERNEL_GROUPS = (
     ("K3/K4 attention", ("attention_kernel",)),
     ("K5 gate_tail", ("gate_tail",)),
     ("K9 tail_conv", ("tail_conv_kernel",)),
-    ("K10 quant_conv", ("qconv_kernel", "quantize_kernel")),
+    ("K10 quant_conv", ("qconv_kernel", "quantize_kernel", "absmax_kernel", "scales_kernel")),
     ("K8 bins", ("attractor_kernel", "log_binomial_kernel")),
     ("K1 roi_align", ("roi_align_kernel",)),
     ("K2 resize", ("resize_kernel",)),
@@ -1034,23 +1079,26 @@ def profile_frame(fn, frame_ms: float, label: str) -> None:
 # to the int8 serving mode
 FRAME_IDLE_OK = ("canny_nms", "quant_conv")
 INT8_IDLE_OK = ("canny_nms",)
-QUANT_SITES_PER_CHUNK = sum(s[-1] for s in QUANT_SITES)  # 12
+QUANT_SITES_PER_CHUNK = sum(s[6] for s in quant_sites(32))  # 15
+# the head's int8 sites, which K10 takes from K9 in the int8 runs
+HEAD_INT8_SITES = sum(s[6] for s in quant_sites(32) if s[7] != "plain")  # 3
 
 
-def check_tail_per_chunk(label, counts) -> None:
-    """K9 runs once at each of its 9 sites in every chunk, and roi_align 7
-    times (the six coarse levels and the coarse depth): their counts must
-    agree, chunk for chunk."""
+def check_tail_per_chunk(label, counts, per_chunk=9) -> None:
+    """K9 runs once at each of its 9 sites in every chunk (6 in an int8 run,
+    where K10 takes the head's 3), and roi_align 7 times (the six coarse
+    levels and the coarse depth): their counts must agree, chunk for
+    chunk."""
     chunks = counts["roi_align"] / 7
     log({"phase": f"{label}_tail_conv_per_chunk", "chunks": chunks, "tail_conv": counts["tail_conv"]})
-    if chunks < 1 or counts["tail_conv"] != 9 * chunks:
+    if chunks < 1 or counts["tail_conv"] != per_chunk * chunks:
         raise AssertionError(f"{label}: {counts['tail_conv']} tail_conv launches for {chunks} chunks, "
-                             "not 9 a chunk")
+                             f"not {per_chunk} a chunk")
 
 
 def check_quant_per_chunk(label, counts, per_chunk) -> None:
     """K10 runs once at each of its ``per_chunk`` sites in every chunk of an
-    int8 run (12), and never in an exact run (0)."""
+    int8 run (15), and never in an exact run (0)."""
     chunks = counts["roi_align"] / 7
     log({"phase": f"{label}_quant_conv_per_chunk", "chunks": chunks, "quant_conv": counts["quant_conv"]})
     if counts["quant_conv"] != per_chunk * chunks:
@@ -1075,8 +1123,9 @@ class Frames:
     def first(self, mode, label, idle_ok=FRAME_IDLE_OK, int8_sites=0):
         """The first frame of a mode, with the launch counters set to 0 just
         before it and read just after: every kernel but ``idle_ok`` must
-        have launched, K9 9 times a chunk and K10 ``int8_sites`` times. The
-        map is the reensemble canvas for m1 and m2, the raw frame for rN."""
+        have launched, K10 ``int8_sites`` times a chunk and K9 9 times (6
+        in an int8 run). The map is the reensemble canvas for m1 and m2, the
+        raw frame for rN."""
         import torch
 
         from patchrefinerv2_torch import ops
@@ -1098,7 +1147,7 @@ class Frames:
         idle = [k for k, v in counts.items() if v == 0 and k not in idle_ok]
         if idle:
             raise AssertionError(f"{label}: kernels never launched on the main path: {idle}")
-        check_tail_per_chunk(label, counts)
+        check_tail_per_chunk(label, counts, 9 - (HEAD_INT8_SITES if int8_sites else 0))
         check_quant_per_chunk(label, counts, int8_sites)
         return depth, counts
 
@@ -1159,17 +1208,29 @@ def flagship(dev) -> dict:
 
 
 def int8_frames(fr, label, d16, flagship: bool, idle_ok=INT8_IDLE_OK) -> dict:
-    """The calibrated int8 serving mode on the frame, bfloat16: calibrate on
-    the frame (m1 and the three shifted passes, process_num 16; seconds and
-    the sites the default gates select, which must be the 12), then with
-    per-channel scales m1 (first, timed, profiled) and, for the flagship,
-    r32 (the JAX bench's mode: first, timed, profiled) and an m1 first frame
-    with per-tensor scales; K10 12 times a chunk in each. The mean relative
-    difference of the int8 m1 depth from the bfloat16 one is for
-    information."""
+    """The int8 serving mode on the frame, bfloat16. For the flagship first
+    the dynamic mode (no calibration: ``set_int8(None, "dynamic")``), m1
+    first, timed and profiled. Then calibrate on the frame (m1 and the three
+    shifted passes, process_num 16; seconds and the sites the default gates
+    select, which must be the 15), then with per-channel scales m1 (first,
+    timed, profiled) and, for the flagship, r32 (the JAX bench's mode:
+    first, timed, profiled) and an m1 first frame with per-tensor scales;
+    K10 15 times a chunk and K9 6 in each. The mean relative differences of
+    the int8 m1 depths from the bfloat16 one are for information."""
     import torch
 
     model = fr.model
+    runs = {}
+    if flagship:
+        model.set_int8(None, "dynamic")
+        torch.cuda.reset_peak_memory_stats()
+        dd, runs["m1_int8_dynamic"] = fr.first("m1", "m1_int8_dynamic_first", idle_ok,
+                                               QUANT_SITES_PER_CHUNK)
+        ms = fr.timed("m1", "m1_int8_dynamic_timed", 5)
+        profile_frame(lambda: fr.infer("m1"), ms, "m1_int8_dynamic")
+        rel = float(((dd.float() - d16.float()).abs() / d16.float().abs().clamp(min=1e-6)).mean())
+        log({"phase": "m1_int8_dynamic_vs_bf16", "mean_rel_diff": rel, "note": "information only"})
+        model.set_int8(None)
     torch.cuda.synchronize()
     t = time.time()
     cal = model.calibrate_int8([(fr.image_lr, fr.image_hr)], process_num=16)
@@ -1180,7 +1241,6 @@ def int8_frames(fr, label, d16, flagship: bool, idle_ok=INT8_IDLE_OK) -> dict:
     if len(sel) != QUANT_SITES_PER_CHUNK:
         raise AssertionError(f"{label}int8 calibration selects {len(sel)} sites, not {QUANT_SITES_PER_CHUNK}")
     model.set_int8(cal, "perchan")
-    runs = {}
     torch.cuda.reset_peak_memory_stats()
     d8, runs[f"{label}m1_int8"] = fr.first("m1", f"{label}m1_int8_perchan_first", idle_ok,
                                            QUANT_SITES_PER_CHUNK)
@@ -1261,34 +1321,40 @@ def small_gpu_vs_cpu(dev) -> None:
 
 
 def small_int8_gpu_vs_cpu(gpu, cpu, lr, hr, dev) -> None:
-    """m1 int8 with per-channel scales in float32 (forced) on the small
-    flagship graph: calibrated once on the CPU (``min_hw`` 128, the default
-    8192 scaled by the 48x64 patch's pixels: the same 12 sites), the
-    calibration carried to the card. K10 must launch 12 times. Bar, the
-    composed one of tests/test_torch_quant_slice.py: mean rel < 1e-4 (rel to
-    |CPU| floored at 1e-3): the exact layers between the sites sum in
-    another order on the card, and where that flips a rounding of
-    ``x / sx`` a value moves by one int8 step."""
+    """m1 int8 in float32 (forced) on the small flagship graph, with
+    per-channel scales calibrated once on the CPU (``min_hw`` 128, the
+    default 8192 scaled by the 48x64 patch's pixels: the same 15 sites) and
+    carried to the card, and in the dynamic mode at the same gates. K10 must
+    launch 15 times in each. Bars, the composed ones of
+    tests/test_torch_quant_slice.py: mean rel < 2.5e-4 per-channel, < 6e-4
+    dynamic (rel to |CPU| floored at 1e-3): the exact layers between the
+    sites sum in another order on the card, and where that flips a
+    rounding of ``x / sx`` a value moves by one int8 step."""
     import numpy as np
 
     from patchrefinerv2_torch import ops
 
     cal = cpu.calibrate_int8([(lr, hr)], process_num=4, min_hw=128)
-    cpu.set_int8(cal, "perchan", force=True)
-    gpu.set_int8(cal.to(dev), "perchan", force=True)
-    ops.reset_launches()
-    dg = gpu.infer(lr, hr, "m1", process_num=4)[0].cpu().double().numpy()
-    launches = ops.launch_counts()["quant_conv"]
-    dc = cpu.infer(lr, hr, "m1", process_num=4)[0].double().numpy()
-    rel = np.abs(dg - dc) / np.maximum(np.abs(dc), 1e-3)
-    log({"phase": "small_zoedepth_m1_int8_gpu_vs_cpu", "selected": len(cal.selected()),
-         "quant_conv_launches": launches, "max_rel": float(rel.max()), "mean_rel": float(rel.mean()),
-         "tol_mean": 1e-4})
-    cpu.set_int8(None)
-    gpu.set_int8(None)
-    if launches != QUANT_SITES_PER_CHUNK or not rel.mean() < 1e-4:
-        raise AssertionError(f"small int8 m1: {launches} quant_conv launches, GPU vs CPU mean rel "
-                             f"{rel.mean()}")
+    for scales, bar in (("perchan", 2.5e-4), ("dynamic", 6e-4)):
+        if scales == "dynamic":
+            cpu.set_int8(None, "dynamic", force=True, min_hw=128)
+            gpu.set_int8(None, "dynamic", force=True, min_hw=128)
+        else:
+            cpu.set_int8(cal, scales, force=True)
+            gpu.set_int8(cal.to(dev), scales, force=True)
+        ops.reset_launches()
+        dg = gpu.infer(lr, hr, "m1", process_num=4)[0].cpu().double().numpy()
+        launches = ops.launch_counts()["quant_conv"]
+        dc = cpu.infer(lr, hr, "m1", process_num=4)[0].double().numpy()
+        rel = np.abs(dg - dc) / np.maximum(np.abs(dc), 1e-3)
+        log({"phase": f"small_zoedepth_m1_int8_{scales}_gpu_vs_cpu", "selected": len(cal.selected()),
+             "quant_conv_launches": launches, "max_rel": float(rel.max()), "mean_rel": float(rel.mean()),
+             "tol_mean": bar})
+        cpu.set_int8(None)
+        gpu.set_int8(None)
+        if launches != QUANT_SITES_PER_CHUNK or not rel.mean() < bar:
+            raise AssertionError(f"small int8 m1 {scales}: {launches} quant_conv launches, GPU vs CPU "
+                                 f"mean rel {rel.mean()}")
 
 
 def synthetic_cityscapes(length: int, lr_shape):

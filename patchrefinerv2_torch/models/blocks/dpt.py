@@ -13,10 +13,13 @@ Names follow the reference's torch modules
 A block called with one input has no first unit: the reference's unit there
 is dead weight, which the JAX converter drops too.
 
-The convolutions that the reference routes through its int8 dispatcher
-outside the head are int8 sites (``models/int8.py``): a GatedConvUnit's
-``conv`` and ``fusion_conv[0]`` (its 1x1 inside K5 raises if selected) and
-the C2F ``output_conv1``.
+The convolutions that the reference routes through its int8 dispatcher are
+int8 sites (``models/int8.py``): a GatedConvUnit's ``conv`` and
+``fusion_conv[0]`` (its 1x1 inside K5 raises if selected), the C2F
+``output_conv1``, and in the head, which the reference runs in
+space-to-depth form, ``output_conv2`` (``qsd_0``) and the head unit's
+``conv`` and ``fusion_conv[0]`` with that layout. Where the int8 mode serves
+a head site, K10 takes it from K9.
 """
 
 from __future__ import annotations
@@ -40,46 +43,47 @@ def upsample_bilinear_ac(x: torch.Tensor, size=None, scale: int = 2) -> torch.Te
 
 class GatedConvUnit(nn.Module):
     """out = x + conv(relu x); with fusion: f = 1x1(relu(LN(conv(cat(out, c)))));
-    gate => out * sigmoid(f), else f. The 3x3 convolutions go to cuDNN, or
-    with ``tail`` each to one K9 launch (``conv(relu x) + x``, and the fusion
-    conv reading ``out`` and ``c`` in place); the rest after the fusion conv
-    (LN, ReLU, the 1x1, the gate) is one K5 launch."""
+    gate => out * sigmoid(f), else f. The 3x3 convolutions go to K10 where
+    the int8 mode serves them, else to cuDNN, or with ``tail`` each to one K9
+    launch (``conv(relu x) + x``, and the fusion conv reading ``out`` and
+    ``c`` in place); the rest after the fusion conv (LN, ReLU, the 1x1, the
+    gate) is one K5 launch."""
 
     def __init__(self, features: int, coarse_ch: int, gate: bool = True, fusion: bool = True,
                  tail: bool = False):
         super().__init__()
         self.gate, self.fusion, self.tail = gate, fusion, tail
         self.conv = conv3(features, features)
+        # the reference's dispatcher sites: in space-to-depth form with
+        # ``tail`` (there a unit without fusion has one too, dpt.py:136-143)
+        layout = "s2d" if tail else "plain"
+        if fusion or tail:
+            mark_site(self.conv, "qamax_0", layout=layout)
         if fusion:
             self.fusion_conv = nn.Sequential(
                 conv3(features + coarse_ch, features), ChannelLayerNorm(features), nn.ReLU(),
                 nn.Conv2d(features, features, 1, bias=False))
-            if not tail:  # the reference's dispatcher sites (a unit without fusion has none)
-                mark_site(self.conv, "qamax_0")
-                mark_site(self.fusion_conv[0], "qamax_1")
-                mark_site(self.fusion_conv[3], "qamax_2", unported=True)
+            mark_site(self.fusion_conv[0], "qamax_1", layout=layout)
+            mark_site(self.fusion_conv[3], "qamax_2", unported=True, layout=layout)
 
     def forward(self, x, c_feat=None):
-        fc = self.fusion_conv if self.fusion else None
-        if self.tail:
+        out = int8_conv(self.conv, [x], relu_in=True, residual=x)
+        if out is None and self.tail:
             xh = to_nhwc(x)
-            out = tail_conv([xh], self.conv.weight, self.conv.bias, residual=xh, relu_in=True)
-            if not self.fusion:
-                return to_nchw(out)
-            f = tail_conv([out, to_nhwc(c_feat)], fc[0].weight, fc[0].bias)
-        elif not self.fusion:
-            return self.conv(F.relu(x)) + x
-        else:
-            out = int8_conv(self.conv, [x], relu_in=True, residual=x)
-            if out is None:
-                out = self.conv(F.relu(x)) + x
-            f = int8_conv(fc[0], [out, c_feat])
-            if f is None:
-                f = fc[0](torch.cat([out, c_feat], dim=1))
-            int8_conv(fc[3], [f])  # K5's 1x1: raises where the gate would select it
-            f, out = to_nhwc(f), to_nhwc(out)
-        y = gate_tail(f, out if self.gate else None, fc[3].weight, fc[1].weight, fc[1].bias,
-                      fc[1].eps)
+            out = to_nchw(tail_conv([xh], self.conv.weight, self.conv.bias, residual=xh, relu_in=True))
+        elif out is None:
+            out = self.conv(F.relu(x)) + x
+        if not self.fusion:
+            return out
+        fc = self.fusion_conv
+        f = int8_conv(fc[0], [out, c_feat])
+        if f is None and self.tail:
+            f = to_nchw(tail_conv([to_nhwc(out), to_nhwc(c_feat)], fc[0].weight, fc[0].bias))
+        elif f is None:
+            f = fc[0](torch.cat([out, c_feat], dim=1))
+        int8_conv(fc[3], [f])  # K5's 1x1: raises where the gate would select it
+        y = gate_tail(to_nhwc(f), to_nhwc(out) if self.gate else None, fc[3].weight, fc[1].weight,
+                      fc[1].bias, fc[1].eps)
         return to_nchw(y)
 
 
@@ -132,8 +136,8 @@ class C2FModule(nn.Module):
     ``coarse_chl``: channels of the 6 coarse levels, highest resolution
     first. The full-resolution head (``output_conv2``, its gated block and
     ``output_conv3``) runs on K9, where the JAX module's ``s2d_tail`` runs
-    it in space-to-depth form. Returns (feats [l5_rn, p5, p4, p3, p2,
-    last_feat], out)."""
+    it in space-to-depth form, or on K10 where the int8 mode serves its
+    sites. Returns (feats [l5_rn, p5, p4, p3, p2, last_feat], out)."""
 
     def __init__(self, fine_chl, coarse_chl, features: int = 256, head2_features: int = 32,
                  gate: bool = True, fusion: bool = True):
@@ -147,6 +151,7 @@ class C2FModule(nn.Module):
         s.output_conv1 = conv3(features, features // 2)
         mark_site(s.output_conv1, "qamax_0")
         s.output_conv2 = nn.Sequential(conv3(features // 2, head2_features), nn.ReLU())
+        mark_site(s.output_conv2[0], "qsd_0", layout="s2d_down")
         s.output_conv2_fusion = GatedFusionBlock(head2_features, coarse_chl[0], skip=False,
                                                  gate=gate, fusion=fusion, tail=True)
         s.output_conv3 = nn.Sequential(nn.Conv2d(head2_features, 1, 1))
@@ -164,7 +169,9 @@ class C2FModule(nn.Module):
         if out is None:
             out = s.output_conv1(p1)
         oc2, oc3 = s.output_conv2[0], s.output_conv3[0]
-        last_feat = to_nchw(tail_conv([to_nhwc(out)], oc2.weight, oc2.bias, act="relu"))
+        last_feat = int8_conv(oc2, [out], relu_out=True)
+        if last_feat is None:
+            last_feat = to_nchw(tail_conv([to_nhwc(out)], oc2.weight, oc2.bias, act="relu"))
         last_feat = s.output_conv2_fusion(last_feat, coarse_feat=coarse_features[0], upscale=False)
         out = to_nchw(tail_conv([to_nhwc(last_feat)], oc3.weight, oc3.bias))
         return [l5, p5, p4, p3, p2, last_feat], out

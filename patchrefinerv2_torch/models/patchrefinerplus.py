@@ -19,9 +19,10 @@ The module tree keeps the reference's torch state-dict names
 (``coarse_branch``, ``refiner_fine_branch``, ``refiner_fusion_model``), so
 ``utils/jax_weights.load_jax_params`` can load the JAX package's variables.
 
-The calibrated int8 serving mode (``calibrate_int8``, then ``set_int8``;
-``patchrefinerplus.py:770-867`` and ``ops/quant.py`` in the JAX package)
-routes the convolutions that the gate selects to K10 (``models/int8.py``).
+The int8 serving mode (``patchrefinerplus.py:770-867`` and ``ops/quant.py``
+in the JAX package) routes the convolutions that the gate selects to K10
+(``models/int8.py``): calibrated (``calibrate_int8``, then ``set_int8``) or
+dynamic (``set_int8(None, "dynamic")``, scales taken live).
 """
 
 from __future__ import annotations
@@ -192,12 +193,14 @@ class PatchRefinerPlus:
         self.net = net.to(self.device, memory_format=torch.channels_last).eval()
         if self.infer_dtype != torch.float32:
             self.net.to(self.infer_dtype)
-        self._int8 = None  # (calibration, scales, force) while the int8 mode is set
+        # (calibration or None, scales, force, min_kc, min_hw) while the int8 mode is set
+        self._int8 = None
 
     def set_infer_dtype(self, dtype: torch.dtype) -> None:
         """Cast the parameters (in place) and run inference in ``dtype``. A
         calibration made in another dtype is stale: serving with it raises
-        until ``calibrate_int8`` and ``set_int8`` run again."""
+        until ``calibrate_int8`` and ``set_int8`` run again. The dynamic int8
+        mode quantizes the cast weights anew."""
         self.infer_dtype = dtype
         self.net.to(dtype)
         self._attach_int8()
@@ -245,27 +248,37 @@ class PatchRefinerPlus:
         return calibration(self.net, recs, min_kc, min_hw)
 
     def set_int8(self, calibration: Int8Calibration | None, scales: str = "perchan",
-                 force: bool = False) -> None:
-        """Serve the int8 sites that the calibration's gates select with K10,
-        with per-input-channel (``"perchan"``, the JAX bench's default) or
-        per-tensor (``"tensor"``) activation scales; ``None`` switches the
-        mode off. As in the reference (``quant.py:68-79``) the mode applies
-        only to a 2-byte infer dtype (bfloat16) unless ``force``, the
-        counterpart of ``PRV2_INT8_FORCE``."""
+                 force: bool = False, min_kc: int = MIN_KC, min_hw: int = MIN_HW) -> None:
+        """Serve the int8 sites that the gates select with K10: with the
+        calibration's scales and gates, per input channel (``"perchan"``, the
+        JAX bench's default) or per tensor (``"tensor"``); or, with no
+        calibration and ``scales="dynamic"``, with one scale per site and
+        chunk taken from the input's live abs-max (the reference's
+        ``PRV2_INT8=1`` without ``quant_scales``, ``quant.py:330-337``), the
+        weights quantized per output channel here, and the gates ``min_kc``
+        and ``min_hw``. ``None`` with another ``scales`` switches the mode
+        off. As in the reference (``quant.py:68-79``) the mode applies only
+        to a 2-byte infer dtype (bfloat16) unless ``force``, the counterpart
+        of ``PRV2_INT8_FORCE``."""
         if scales not in SCALES:
             raise ValueError(f"scales must be one of {SCALES}, got {scales!r}")
-        self._int8 = None if calibration is None else (calibration, scales, force)
+        if scales == "dynamic" and calibration is not None:
+            raise ValueError("the dynamic int8 mode takes no calibration")
+        on = calibration is not None or scales == "dynamic"
+        self._int8 = (calibration, scales, force, min_kc, min_hw) if on else None
         self._attach_int8()
 
     def _attach_int8(self) -> None:
-        """Serve the int8 sites from the calibration while the mode applies
-        (a 2-byte dtype or ``force``, and a calibration of this dtype), else
+        """Serve the int8 sites while the mode applies (a 2-byte dtype or
+        ``force``, and a calibration of this dtype or the dynamic mode), else
         run them exact."""
-        cal, scales, force = self._int8 if self._int8 is not None else (None, None, False)
-        if cal is not None and not ((torch.finfo(self.infer_dtype).bits == 16 or force)
-                                    and cal.dtype == self.infer_dtype):
-            cal = None
-        serve(self.net, cal, scales)
+        if self._int8 is None:
+            return serve(self.net, None)
+        cal, scales, force, min_kc, min_hw = self._int8
+        if not (torch.finfo(self.infer_dtype).bits == 16 or force) or (
+                cal is not None and cal.dtype != self.infer_dtype):
+            return serve(self.net, None)
+        serve(self.net, cal, scales, min_kc, min_hw)
 
     def _plan(self, tc: TileCfg, cai_mode: str, process_num: int):
         """(patch stream, per-patch init flags or None, chunk, random
@@ -294,8 +307,9 @@ class PatchRefinerPlus:
         from ``random_starts`` ((N // process_num, process_num, 2) int [h, w]).
         Returns (depth float32 on the reensemble canvas (H', W') for m1 and
         m2, on the raw (H, W) canvas for rN; coarse depth (1, h, w, 1))."""
-        if self._int8 is not None and self._int8[0].dtype != self.infer_dtype:
-            raise RuntimeError(f"the int8 calibration was made in {self._int8[0].dtype}, the model "
+        cal = self._int8[0] if self._int8 is not None else None
+        if cal is not None and cal.dtype != self.infer_dtype:
+            raise RuntimeError(f"the int8 calibration was made in {cal.dtype}, the model "
                                f"now infers in {self.infer_dtype}: calibrate again")
         dev = self.device
         tc = self._tile(tile_cfg)

@@ -1,11 +1,12 @@
-"""K10: the int8 SAME convolution with static activation scales,
-``y = f32(conv_int32(q(relu?(cat(parts))), kq)) * scale + bias (+ residual)``
+"""K10: the int8 SAME convolution,
+``y = relu?(f32(conv_int32(q(relu?(cat(parts))), kq)) * scale + bias (+ residual))``
 over NHWC maps.
 
 Counterpart of ``patchrefinerv2_tpu/ops/quant.py``: ``quant_conv_same``
-(:130, one activation scale), ``quant_conv_same_perchan`` (:154, a scale per
-input channel, folded into the weights) and the serving branch of
-``conv_dispatch`` (:218). Both modes are one function here:
+(:130, one activation scale, calibrated or taken live), ``quant_conv_same_perchan``
+(:154, a scale per input channel, folded into the weights) and both serving
+branches of ``conv_dispatch`` (:218), at the plain ``qamax`` sites and at the
+space-to-depth ``head`` sites. Every mode is one function here:
 
 1. ``q(x) = clip(round_half_even(f32(x) / sx[c]), -127, 127)`` as int8, with
    ``sx`` a float32 scale per input channel (the per-tensor mode repeats its
@@ -16,7 +17,29 @@ input channel, folded into the weights) and the serving branch of
    per-tensor mode, ``swc`` in the per-channel mode), then ``+ f32(bias)``,
    rounded to the input dtype;
 4. with ``residual``: ``y + residual`` rounded again to the input dtype, as
-   the reference's ``quant_conv(...) + x`` rounds it.
+   the reference's ``quant_conv(...) + x`` rounds it; with ``relu_out`` a
+   ReLU last (``relu(dconv(...))`` at the C2F ``qsd`` site).
+
+**Phased** (the head GatedConvUnit's 3x3 convs with per-channel scales):
+the reference runs them on space-to-depth maps, whose per-channel scales are
+per (pixel phase, channel), ``ph(h, w) = 2 * (h % 2) + (w % 2)`` (the
+group-major order of ``ops/s2d.py`` ``space_to_depth``). Folded into the
+expanded kernel they give weights and dequant scales by the output pixel's
+phase. Here, in the plain layout: ``sx`` (4, Cin), ``kq`` (4, Cout, Cin, 3,
+3), ``scale`` (4, Cout), and
+
+    q[n,h,w,c]   = clip(rne(f32(x)[n,h,w,c] / sx[ph(h,w), c]), -127, 127)
+    acc[n,h,w,o] = sum_{du,dv,c} q[n,h+du-1,w+dv-1,c] * kq[ph(h,w)][o,c,du,dv]
+    y            = rnd(f32(acc) * scale[ph(h,w), o] + f32(bias[o]))
+
+(:func:`fold_phased` folds them). With per-tensor or dynamic scales nothing
+depends on the phase, and the head sites are plain K10 calls.
+
+**Dynamic** (``dynamic=True``, no calibration): ``sx`` is the input's live
+abs-max (after the ReLU) as :func:`act_scale` makes it, one per call, and
+``scale`` holds the weights' per-output-channel scales ``sw``; the
+dequantize scale is ``sx * sw``. On the card the abs-max is a reduction
+kernel whose result stays on the device.
 
 ``relu_in`` applies a ReLU to the inputs first (``GatedConvUnit``'s
 ``conv(relu(x))``). The quantize helpers below are the reference's
@@ -24,9 +47,11 @@ input channel, folded into the weights) and the serving branch of
 ``_fold_act_scales`` in the port's (Cout, Cin, k, k) weight layout.
 
 On a CUDA tensor :func:`quant_conv` launches the kernels of
-``csrc/quant_conv.cu`` (or raises): a quantize pass that reads the parts in
-place and writes int8 NHWC, then the int8 implicit-GEMM convolution on the
-tensor cores with the dequantize, bias and residual in its epilogue.
+``csrc/quant_conv.cu`` (or raises): in the dynamic mode the abs-max pass,
+then a quantize pass that reads the parts in place and writes int8 NHWC, then
+the int8 implicit-GEMM convolution on the tensor cores with the dequantize,
+bias, residual and ReLU in its epilogue (one block per phase at a phased
+site).
 ``quant_conv.launches`` counts the calls that launch them. On a CPU tensor
 it runs :func:`quant_conv_plain`, whose int32 sums are exact (a float64
 convolution of integers: |acc| <= 127^2 * k^2 * Cin < 2^53).
@@ -41,12 +66,19 @@ from patchrefinerv2_torch.ops import _cuda
 
 __all__ = [
     "quant_conv", "quant_conv_plain", "quantize", "act_scale", "quantize_per_out_channel",
-    "fold_act_scales", "int8_conv_sums", "site_selected", "format_weight",
+    "fold_act_scales", "fold_phased", "pixel_phase", "int8_conv_sums", "site_selected",
+    "format_weight", "LAYOUTS",
 ]
 
 MAX_PARTS = 4
 CHUNK = 32  # input channels per k-step of the kernel (one m16n8k32 depth)
 BLOCK_N = 128  # output channels per block of the kernel
+PHASES = 4  # pixel phases (h % 2, w % 2) of a phased site
+# where the reference runs a site: the plain layout, a 3x3 SAME conv on a
+# space-to-depth map (``s2d``: its kernel expanded to (3, 3, 4Cin, 4Cout)),
+# or the stride-2 conv that enters that form from the plain map
+# (``s2d_down``: ops/s2d.py conv_down_expanded, kernel (4, 4, Cin, 4Cout))
+LAYOUTS = ("plain", "s2d", "s2d_down")
 
 
 # The reference writes its scales as ``max(amax, 1e-8) / 127.0``; XLA compiles
@@ -86,11 +118,48 @@ def fold_act_scales(w: torch.Tensor, amax_c: torch.Tensor):
     return w.float() * sx[None, :, None, None], sx
 
 
-def site_selected(weight_shape, hw: int, min_kc: int, min_hw: int) -> bool:
+def fold_phased(w: torch.Tensor, amax_c: torch.Tensor):
+    """The per-(pixel phase, channel) activation scales ``amax_c`` (4, Cin)
+    folded into a 3x3 weight (Cout, Cin, 3, 3) by output phase, then
+    quantized per output channel: (kqc int8 (4, Cout, Cin, 3, 3), swc
+    float32 (4, Cout)). Output phase (di, dj) at tap (du, dv) reads the input
+    phase ``((di + du - 1) % 2) * 2 + (dj + dv - 1) % 2``, as
+    ``s2d_same_kernel`` places the tap (ops/s2d.py:114-136): the same
+    numbers as quantizing the reference's folded expanded kernel, whose
+    other taps are zeros."""
+    sx = act_scale(amax_c)
+    kqc, swc = [], []
+    for di in range(2):
+        for dj in range(2):
+            gi = torch.tensor([[((di + du - 1) % 2) * 2 + (dj + dv - 1) % 2 for dv in range(3)]
+                               for du in range(3)], device=w.device)
+            sx_tap = sx[gi].permute(2, 0, 1)  # (Cin, 3, 3): the scale each tap's input has
+            kq, sw = quantize_per_out_channel(w.float() * sx_tap[None])
+            kqc.append(kq)
+            swc.append(sw)
+    return torch.stack(kqc), torch.stack(swc)
+
+
+def pixel_phase(h: int, w: int, device=None) -> torch.Tensor:
+    """``ph(h, w) = 2 * (h % 2) + (w % 2)`` over an (h, w) map, int64."""
+    ys = torch.arange(h, device=device) % 2
+    xs = torch.arange(w, device=device) % 2
+    return ys[:, None] * 2 + xs[None, :]
+
+
+def site_selected(weight_shape, hw: int, min_kc: int, min_hw: int, layout: str = "plain") -> bool:
     """The reference's serving gate (``quant.py:272-283``): a conv takes the
     int8 path when kh * kw * Cout >= ``min_kc`` and its input has at least
-    ``min_hw`` pixels. ``weight_shape``: (Cout, Cin, kh, kw)."""
+    ``min_hw`` pixels, both counted on the shapes the reference runs: for a
+    ``layout`` of ``s2d`` the expanded kernel (kh, kw, 4Cin, 4Cout) on the
+    (H/2)(W/2) map, for ``s2d_down`` the (kh+1, kw+1, Cin, 4Cout) kernel on
+    the H x W map. ``weight_shape``: the plain (Cout, Cin, kh, kw); ``hw``:
+    the plain input's pixels."""
     cout, _, kh, kw = weight_shape
+    if layout == "s2d":
+        return kh * kw * 4 * cout >= min_kc and hw // 4 >= min_hw
+    if layout == "s2d_down":
+        return (kh + 1) * (kw + 1) * 4 * cout >= min_kc and hw >= min_hw
     return kh * kw * cout >= min_kc and hw >= min_hw
 
 
@@ -103,29 +172,45 @@ def int8_conv_sums(xq: torch.Tensor, kq: torch.Tensor) -> torch.Tensor:
     return acc.permute(0, 2, 3, 1).to(torch.int32)
 
 
-def quant_conv_plain(parts, kq, sx, scale, bias=None, relu_in: bool = False, residual=None):
+def quant_conv_plain(parts, kq, sx, scale, bias=None, relu_in: bool = False, residual=None,
+                     relu_out: bool = False, dynamic: bool = False):
     """Plain PyTorch version of :func:`quant_conv` (any device). The sums
     are exact; float64 -> float32 rounds them to nearest even, as the
-    int32 -> float32 conversion does."""
+    int32 -> float32 conversion does. A phased call takes each phase's
+    sums from its own weights."""
     dt = parts[0].dtype
     x = torch.cat(list(parts), dim=-1)
     if relu_in:
         x = torch.relu(x)
+    if dynamic:
+        sx = act_scale(x.float().abs().amax())
+        sx, scale = sx.expand(x.shape[-1]), sx * scale
     k = kq.shape[-1]
-    xq = quantize(x, sx).permute(0, 3, 1, 2).double()
-    acc = F.conv2d(xq, kq.double(), padding=k // 2).permute(0, 2, 3, 1)
-    y = acc.float() * scale
+    if kq.ndim == 5:  # phased: scales and weights by pixel phase
+        ph = pixel_phase(x.shape[1], x.shape[2], x.device)
+        xq = quantize(x, sx[ph]).permute(0, 3, 1, 2).double()
+        acc = sum(F.conv2d(xq, kq[g].double(), padding=k // 2) * (ph == g) for g in range(PHASES))
+        y = acc.permute(0, 2, 3, 1).float() * scale[ph]
+    else:
+        xq = quantize(x, sx).permute(0, 3, 1, 2).double()
+        acc = F.conv2d(xq, kq.double(), padding=k // 2).permute(0, 2, 3, 1)
+        y = acc.float() * scale
     if bias is not None:
         y = y + bias.float()
     y = y.to(dt)
     if residual is not None:
         y = (y.float() + residual.float()).to(dt)
+    if relu_out:
+        y = torch.relu(y)
     return y
 
 
 def format_weight(kq: torch.Tensor) -> torch.Tensor:
     """(Cout, Cin, k, k) int8 -> the kernel's [Cin / 32][k * k][Cout_pad][32],
-    zero-padded to a multiple of 32 input and of 128 output channels."""
+    zero-padded to a multiple of 32 input and of 128 output channels; a
+    phased (4, Cout, Cin, 3, 3) -> [4][Cin / 32][9][Cout_pad][32]."""
+    if kq.ndim == 5:
+        return torch.stack([format_weight(q) for q in kq])
     cout, cin, k, _ = kq.shape
     nch, cp = -(-cin // CHUNK), -(-cout // BLOCK_N) * BLOCK_N
     w = torch.zeros((k * k, cp, nch * CHUNK), dtype=torch.int8, device=kq.device)
@@ -133,19 +218,22 @@ def format_weight(kq: torch.Tensor) -> torch.Tensor:
     return w.reshape(k * k, cp, nch, CHUNK).permute(2, 0, 1, 3).contiguous()
 
 
-def quant_conv(parts, kq: torch.Tensor, sx: torch.Tensor, scale: torch.Tensor,
+def quant_conv(parts, kq: torch.Tensor, sx: torch.Tensor | None, scale: torch.Tensor,
                bias: torch.Tensor | None = None, relu_in: bool = False,
-               residual: torch.Tensor | None = None, wf: torch.Tensor | None = None) -> torch.Tensor:
+               residual: torch.Tensor | None = None, wf: torch.Tensor | None = None,
+               relu_out: bool = False, dynamic: bool = False) -> torch.Tensor:
     """``parts``: 1-4 NHWC maps (N, H, W, C_i) of one size and dtype (float32
     or bfloat16), concatenated along channels in this order; ``kq``: int8
-    (Cout, sum C_i, k, k) with k 3 (SAME) or 1; ``sx``: float32 (sum C_i,)
-    activation scales; ``scale``: float32 (Cout,) dequantize scales;
+    (Cout, sum C_i, k, k) with k 3 (SAME) or 1, or a phased (4, Cout, sum C_i,
+    3, 3); ``sx``: float32 (sum C_i,) activation scales ((4, sum C_i) when
+    phased; None when ``dynamic``); ``scale``: float32 (Cout,) dequantize
+    scales ((4, Cout) when phased; the weights' ``sw`` when ``dynamic``);
     ``bias``: (Cout,) in the input dtype or None; ``residual``: (N, H, W,
     Cout) or None; ``wf``: ``format_weight(kq)`` when the caller keeps it.
     Returns (N, H, W, Cout) in the input dtype."""
     parts = list(parts)
     if _cuda.on_cpu(parts[0]):
-        return quant_conv_plain(parts, kq, sx, scale, bias, relu_in, residual)
+        return quant_conv_plain(parts, kq, sx, scale, bias, relu_in, residual, relu_out, dynamic)
     if not 1 <= len(parts) <= MAX_PARTS:
         raise ValueError(f"quant_conv takes 1 to {MAX_PARTS} input parts, got {len(parts)}")
     n, h, w = parts[0].shape[:3]
@@ -153,14 +241,24 @@ def quant_conv(parts, kq: torch.Tensor, sx: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"quant_conv parts must be NHWC maps of one size, got "
                          f"{[tuple(p.shape) for p in parts]}")
     cin = sum(p.shape[3] for p in parts)
-    cout, k = kq.shape[0], kq.shape[-1]
-    if kq.dtype != torch.int8 or tuple(kq.shape) != (cout, cin, k, k) or k not in (1, 3):
-        raise ValueError(f"quant_conv takes an int8 (Cout, {cin}, k, k) weight with k 1 or 3, "
-                         f"got {kq.dtype} {tuple(kq.shape)}")
-    if sx.dtype != torch.float32 or tuple(sx.shape) != (cin,):
-        raise ValueError(f"sx must be float32 ({cin},), got {sx.dtype} {tuple(sx.shape)}")
-    if scale.dtype != torch.float32 or tuple(scale.shape) != (cout,):
-        raise ValueError(f"scale must be float32 ({cout},), got {scale.dtype} {tuple(scale.shape)}")
+    phased = kq.ndim == 5
+    lead = (PHASES,) if phased else ()
+    cout, k = kq.shape[-4], kq.shape[-1]
+    if (kq.dtype != torch.int8 or tuple(kq.shape) != (*lead, cout, cin, k, k) or k not in (1, 3)
+            or (phased and (k != 3 or dynamic))):
+        raise ValueError(f"quant_conv takes an int8 (Cout, {cin}, k, k) weight with k 1 or 3, or a "
+                         f"phased (4, Cout, {cin}, 3, 3) one outside the dynamic mode, got "
+                         f"{kq.dtype} {tuple(kq.shape)}")
+    if relu_out and (phased or k != 3):
+        raise ValueError("the kernel takes relu_out with a plain 3x3 weight only (the qsd site)")
+    if dynamic:
+        if sx is not None:
+            raise ValueError("the dynamic mode takes no activation scales: sx must be None")
+    elif sx is None or sx.dtype != torch.float32 or tuple(sx.shape) != (*lead, cin):
+        raise ValueError(f"sx must be float32 {(*lead, cin)}, got "
+                         f"{None if sx is None else (sx.dtype, tuple(sx.shape))}")
+    if scale.dtype != torch.float32 or tuple(scale.shape) != (*lead, cout):
+        raise ValueError(f"scale must be float32 {(*lead, cout)}, got {scale.dtype} {tuple(scale.shape)}")
     if bias is not None and tuple(bias.shape) != (cout,):
         raise ValueError(f"bias must be ({cout},), got {tuple(bias.shape)}")
     if residual is not None and tuple(residual.shape) != (n, h, w, cout):
@@ -168,25 +266,31 @@ def quant_conv(parts, kq: torch.Tensor, sx: torch.Tensor, scale: torch.Tensor,
     if wf is None:
         wf = format_weight(kq)
     nch, cp = -(-cin // CHUNK), -(-cout // BLOCK_N) * BLOCK_N
-    if tuple(wf.shape) != (nch, k * k, cp, CHUNK) or wf.dtype != torch.int8:
-        raise ValueError(f"formatted weight {tuple(wf.shape)} is not {(nch, k * k, cp, CHUNK)} int8")
+    if tuple(wf.shape) != (*lead, nch, k * k, cp, CHUNK) or wf.dtype != torch.int8:
+        raise ValueError(f"formatted weight {tuple(wf.shape)} is not {(*lead, nch, k * k, cp, CHUNK)} int8")
     dt = parts[0].dtype
     extra = [t for t in (bias, residual) if t is not None]
     # require_cuda checks one device and the dense NHWC layout the kernels
     # assume; it raises, it never copies
-    _cuda.require_cuda(*parts, *extra, sx, scale, wf)
+    _cuda.require_cuda(*parts, *extra, *([] if dynamic else [sx]), scale, wf)
     if any(t.dtype != dt for t in parts + extra):
         raise ValueError("quant_conv takes the parts, bias and residual in one dtype, got "
                          f"{sorted({str(t.dtype) for t in parts + extra})}")
     code = _cuda.dtype_code(dt)
-    xq = torch.empty((n, h, w, nch * CHUNK), dtype=torch.int8, device=parts[0].device)
-    y = torch.empty((n, h, w, cout), dtype=dt, device=parts[0].device)
+    dev = parts[0].device
+    xq = torch.empty((n, h, w, nch * CHUNK), dtype=torch.int8, device=dev)
+    y = torch.empty((n, h, w, cout), dtype=dt, device=dev)
+    sw = amax = None
+    if dynamic:  # scratch the kernels fill on the device: the abs-max, sx, sx * sw
+        dyn = torch.empty(1 + cin + cout, dtype=torch.float32, device=dev)
+        sw, amax, sx, scale = scale, dyn[:1], dyn[1:1 + cin], dyn[1 + cin:]
     ps = parts + [None] * (MAX_PARTS - len(parts))
     cs = [p.shape[3] for p in parts] + [0] * (MAX_PARTS - len(parts))
-    fn = _cuda.bind("quant_conv", "prv2_quant_conv", 11, 10)
+    fn = _cuda.bind("quant_conv", "prv2_quant_conv", 13, 12)
     rc = fn(*(_cuda.ptr(p) for p in ps), _cuda.ptr(sx), _cuda.ptr(wf), _cuda.ptr(scale),
-            _cuda.ptr(bias), _cuda.ptr(residual), _cuda.ptr(xq), _cuda.ptr(y), n, h, w, *cs, cout,
-            k, int(relu_in), code, _cuda.stream_of(y))
+            _cuda.ptr(bias), _cuda.ptr(residual), _cuda.ptr(xq), _cuda.ptr(y), _cuda.ptr(sw),
+            _cuda.ptr(amax), n, h, w, *cs, cout, k, int(relu_in), int(relu_out), int(phased), code,
+            _cuda.stream_of(y))
     _cuda.check(rc, "quant_conv")
     quant_conv.launches += 1
     return y

@@ -317,6 +317,43 @@ def _node_paths(tree, path=()) -> dict[int, tuple]:
     return out
 
 
+def _s2d_channels(split) -> np.ndarray:
+    """(4, sum(split)): where channel c of pixel phase g lies on the channel
+    axis of the reference's space-to-depth map ``cat(s2d(a), s2d(b), ...)``
+    of parts of ``split`` channels (phase-group-major within each part,
+    ``ops/s2d.py`` ``space_to_depth`` and ``_cat_perm``)."""
+    pos, base = [], 0
+    for cp in split:
+        pos.append(4 * base + np.arange(4)[:, None] * cp + np.arange(cp)[None, :])
+        base += cp
+    return np.concatenate(pos, axis=1)
+
+
+def _phased_kernel(k, layout: str, split) -> np.ndarray:
+    """A reference int8 kernel of a head site, HWIO on the space-to-depth
+    shapes, as the port's weights by output phase (4, Cout, Cin, 3, 3): at
+    ``s2d`` the expanded (3, 3, 4Cin, 4Cout) (``s2d_same_kernel``, the input
+    axis in ``cat(s2d(...))`` order), at ``s2d_down`` the stride-2 (4, 4,
+    Cin, 4Cout) (``s2d_down_kernel``). Each tap lies once in each output
+    phase's columns, so the inverse is exact."""
+    k = np.asarray(k)
+    co = k.shape[-1] // 4
+    out = np.empty((4, co, k.shape[2] // (4 if layout == "s2d" else 1), 3, 3), k.dtype)
+    pos = _s2d_channels(split) if layout == "s2d" else None
+    for di in range(2):
+        for dj in range(2):
+            go = di * 2 + dj
+            for du in range(3):
+                for dv in range(3):
+                    if layout == "s2d":
+                        t, u = di + du - 1, dj + dv - 1
+                        rows = k[t // 2 + 1, u // 2 + 1, pos[(t % 2) * 2 + u % 2]]
+                    else:
+                        rows = k[di + du, dj + dv]
+                    out[go, :, :, du, dv] = rows[:, go * co:(go + 1) * co].T
+    return out
+
+
 def load_jax_int8(model, variables, part: str = "PRPlusNet", min_kc: int = MIN_KC,
                   min_hw: int = MIN_HW) -> Int8Calibration:
     """The calibration in the JAX variables (``quant_scales``: the
@@ -329,7 +366,11 @@ def load_jax_int8(model, variables, part: str = "PRPlusNet", min_kc: int = MIN_K
     found through the weight loader's walk (``GatedConvUnit_0/1`` <->
     ``GateresConfUnit1/2``, an expand-1 MBConv's ``conv_pwl`` <->
     ``conv_pw``); its name is the port conv's ``int8_site``. The unported
-    K5 1x1 sites are left out."""
+    K5 1x1 sites are left out. At the ``head`` sites, which the reference
+    runs in space-to-depth form, its expanded kernels, group-major scales
+    and abs-maxes become the port's: weights and dequant scales by output
+    phase and abs-maxes by (pixel phase, channel) where the per-channel
+    scales depend on the phase (``s2d``), the plain ones otherwise."""
     net = getattr(model, "net", model)
     sd = _SD()
     PARTS[part](sd, variables["params"], variables.get("batch_stats", {}))
@@ -351,11 +392,26 @@ def load_jax_int8(model, variables, part: str = "PRPlusNet", min_kc: int = MIN_K
     for name, conv in sites_of(net).items():
         if conv.int8_unported:
             continue
-        scope, site = paths[id(sd.nodes[name])][:-1], conv.int8_site
+        scope, site, layout = paths[id(sd.nodes[name])][:-1], conv.int8_site, conv.int8_layout
         scales, kq = at(variables["quant_scales"], scope), at(variables["quant_kq"], scope)[site]
-        cal.sites[name] = dict(
-            amax=t(scales[site], f32), amax_c=t(scales["qc_" + site], f32),
-            kq=t(kq["kq"], perm=hwio), sw=t(kq["sw"], f32),
-            kqc=t(kq["kqc"], perm=hwio) if "kqc" in kq else None,
-            swc=t(kq["swc"], f32) if "swc" in kq else None, hw=None)
+        e = dict(amax=t(scales[site], f32), amax_c=t(scales["qc_" + site], f32),
+                 kq=t(kq["kq"], perm=hwio), sw=t(kq["sw"], f32),
+                 kqc=t(kq["kqc"], perm=hwio) if "kqc" in kq else None,
+                 swc=t(kq["swc"], f32) if "swc" in kq else None, hw=None, layout=layout)
+        if layout != "plain":
+            # the head unit's fusion conv reads cat(out, c_feat), out having
+            # Cout channels (s2d_same_kernel(k2, split=(features, cc)))
+            cout, cin = conv.out_channels, conv.in_channels
+            split = (cout, cin - cout) if site == "qamax_1" else (cin,)
+            co = slice(0, cout)  # the per-tensor pair is the same in every phase
+            e.update(kq=t(_phased_kernel(kq["kq"], layout, split)[0]), sw=t(np.asarray(kq["sw"], f32)[co]))
+            if layout == "s2d":
+                e.update(amax_c=t(np.asarray(scales["qc_" + site], f32)[_s2d_channels(split)]))
+            if "kqc" in kq:
+                kqc, swc = _phased_kernel(kq["kqc"], layout, split), np.asarray(kq["swc"], f32)
+                if layout == "s2d":
+                    e.update(kqc=t(kqc), swc=t(swc.reshape(4, cout)))
+                else:
+                    e.update(kqc=t(kqc[0]), swc=t(swc[co]))
+        cal.sites[name] = e
     return cal
