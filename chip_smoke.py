@@ -26,10 +26,14 @@ Phases (each prints one or more lines; any failure exits non-zero):
    per-tensor and dynamic scales (``check_quant_conv``), bit for bit, and
    its edge cases; each with the tolerance stated, and time the
    kernel, the plain version and, where one PyTorch call computes the same
-   function, that call; then, in
-   float32 at small shapes, the kernels' paths the main paths do not reach
-   (roi_align border bands, the other resize modes, padded and
-   per-patch-init blends, ragged attention lengths and other head dims, the
+   function, that call (device time: ``time_ms``); then, at small shapes,
+   the kernels' paths the main paths do not reach (roi_align border bands,
+   the other resize modes; every K2 path in float32 and bfloat16: channel
+   counts 1, 3, 4, 8, 98, 194, 256 and 322, sources off alignment, a crop
+   reaching outside the frame, nearest on maps holding inf and NaN bit for
+   bit; padded and per-patch-init blends; attention at S = 1, 17, 63, 64,
+   65, 769 and 1025, head dims 16, 48 and 64, with and without the bias, in
+   float32 and bfloat16 and each shape of the bfloat16 kernel's blocks; the
    gate off and other channel counts, normed / exp / sum attractors, canny
    ties, zero gradients and maps one pixel wide or high);
 4. build the flagship (``configs/patchrefinerv2_zoedepth/v2_eff_u4k.py``,
@@ -62,7 +66,8 @@ Phases (each prints one or more lines; any failure exits non-zero):
    kernel, canny_nms included, and every metric must be finite; the
    inference and metric ms and the prediction's canny edge pixels of each
    frame are printed (random weights give a nearly flat prediction, with
-   no edges);
+   no edges); then the K2 paths (``ops/resize._launch_plan``) that the runs
+   of phases 4-6 took, with their launch counts;
 7. the same graphs at a small size on the GPU (kernels) against the CPU
    (plain versions) in float32, with a tiny BEiT and a ``vitt`` DA2 coarse
    branch: m1, m2 and r8 depth must agree, and the flagship's m1 in int8
@@ -106,11 +111,22 @@ def log(obj) -> None:
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Device ms per call of ``fn``: CUDA events around ``iters`` calls,
+    after a sleep kernel that holds the card while the host enqueues them,
+    so that a call whose host side (Python, the launch) takes longer than
+    its kernels is not timed by its launch gaps. A call that synchronises
+    the host (the plain crop's ``tolist``) is timed with its gaps."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # ~2 GHz cycles for 1.5x the host time of the calls, at most 0.2 s
+    torch.cuda._sleep(int(2e9 * min(1.5 * iters * host_s + 1e-4, 0.2)))
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
@@ -890,11 +906,13 @@ def check_canny(chk: Checks, dev) -> None:
 
 def check_edge_cases(dev) -> None:
     """Paths of the kernels that the flagship frame does not reach, each held
-    against its plain version in float32 (not timed): roi_align samples in
-    every border band of the map, resize with align_corners off and nearest
-    (up and down), blending with an init pass, per-patch init flags and a
-    padded patch; and the zeros the kernels write for indices outside the
-    maps."""
+    against its plain version in float32 (K2 and attention in bfloat16 too;
+    not timed): roi_align samples in every border band of the map, resize
+    with align_corners off and nearest (up and down), blending with an init
+    pass, per-patch init flags and a padded patch; the zeros the kernels
+    write for indices outside the maps; then the K2 paths, attention's
+    shapes and nearest on non-finite maps (``resize_edge_cases``,
+    ``new_kernel_edge_cases``, ``nearest_nonfinite_bit_equal``)."""
     import torch
 
     from patchrefinerv2_torch.ops.blend import TileBlender, add_pass_plain, finalize_plain
@@ -934,12 +952,84 @@ def check_edge_cases(dev) -> None:
                crop_resize(f[0].contiguous(), far, (4, 4), (4, 4))]
     cases += [(f"{name} out of range gives zeros", got, torch.zeros_like(got))
               for name, got in zip(("roi_align", "crop_resize"), outside)]
-    cases += new_kernel_edge_cases(dev, g)
+    cases += new_kernel_edge_cases(dev, g) + resize_edge_cases(dev, g)
     for name, got, ref in cases:
-        err, tol = err_of(got, ref), tol_of(ref, torch.float32)
-        log({"check": name, "dtype": "float32", "max_abs_err": err, "tol": tol, "ok": err <= tol})
+        err, tol = err_of(got, ref), tol_of(ref, got.dtype)
+        log({"check": name, "dtype": str(got.dtype)[6:], "max_abs_err": err, "tol": tol, "ok": err <= tol})
         if not err <= tol:
             raise AssertionError(f"{name}: kernel and plain version disagree: {err} > {tol}")
+    nearest_nonfinite_bit_equal(dev, g)
+
+
+def resize_edge_cases(dev, g) -> list:
+    """(name, kernel output, plain output) for each path of the K2 kernel
+    (``ops/resize._launch_plan``), float32 and bfloat16, at small shapes:
+    channel counts 1 and 3 (the run path), 4, 98, 194 and 322 (4- and
+    8-byte channel vectors), 8 and 256 (16-byte ones), each in every mode
+    up and down; sources offset by 1 and 2 elements from an aligned buffer
+    (the run path, or narrower vectors); a crop reaching outside the frame,
+    whose outputs with a tap outside it are zeros."""
+    import numpy as np
+    import torch
+
+    from patchrefinerv2_torch.ops.resize import axis_taps, crop_resize, crop_resize_plain, resize, resize_plain
+
+    cases = []
+    modes = (("bilinear", True, (29, 40)), ("bilinear", False, (6, 7)), ("nearest", False, (29, 40)),
+             ("nearest", False, (6, 7)), ("bicubic", False, (20, 11)))
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt)[6:]
+        for c in (1, 3, 4, 8, 98, 194, 256, 322):
+            x = torch.randn((2, 13, 17, c), generator=g, device=dev).to(dt)
+            for mode, ac, size in modes:
+                cases.append((f"resize {name} C={c} {mode} align_corners={ac} to {size}",
+                              resize(x, size, mode, ac), resize_plain(x, size, mode, ac)))
+        for off in (1, 2):
+            buf = torch.randn((off + 2 * 13 * 17 * 8,), generator=g, device=dev).to(dt)
+            x = buf[off:].view(2, 13, 17, 8)
+            for mode, ac, size in modes[:3]:
+                cases.append((f"resize {name} C=8 offset {off} {mode} to {size}",
+                              resize(x, size, mode, ac), resize_plain(x, size, mode, ac)))
+        img = torch.rand((20, 24, 3), generator=g, device=dev).to(dt)
+        starts = torch.tensor([[14, 18], [3, 20], [0, 0], [12, 4]], dtype=torch.int32, device=dev)
+        pad = 8
+        padded = torch.nn.functional.pad(img.permute(2, 0, 1), (pad, pad, pad, pad)).permute(1, 2, 0)
+        ref = crop_resize_plain(padded.contiguous(), starts + pad, (8, 8), (5, 7))
+        iy, ix = axis_taps(8, 5, "bilinear", True)[0], axis_taps(8, 7, "bilinear", True)[0]
+        st = starts.cpu().numpy()
+        inside = ((st[:, :1, None] + iy[1][None, :, None] < 20) &
+                  (st[:, 1:, None] + ix[1][None, None, :] < 24))
+        ref = ref * torch.from_numpy(inside[..., None]).to(dev, dt)
+        cases.append((f"crop_resize {name} reaching outside the frame",
+                      crop_resize(img, starts, (8, 8), (5, 7)), ref))
+    return cases
+
+
+def nearest_nonfinite_bit_equal(dev, g) -> None:
+    """Nearest K2 of maps holding inf, -inf and NaN (1 channel: the run path;
+    8: the channel path), float32 and bfloat16, up and down: the kernel's
+    output must equal the plain version's bit for bit, NaN where it has NaN
+    (w0 * v + w1 * v with w1 = 0 turns an inf into NaN in both)."""
+    import torch
+
+    from patchrefinerv2_torch.ops.resize import resize, resize_plain
+
+    for dt in (torch.float32, torch.bfloat16):
+        for c in (1, 8):
+            x = torch.randn((2, 13, 17, c), generator=g, device=dev)
+            pick = torch.rand(x.shape, generator=g, device=dev)
+            x[pick < 0.05] = float("inf")
+            x[(pick >= 0.05) & (pick < 0.1)] = -float("inf")
+            x[(pick >= 0.1) & (pick < 0.15)] = float("nan")
+            x = x.to(dt)
+            for size in ((29, 40), (6, 7)):
+                got, ref = resize(x, size, "nearest"), resize_plain(x, size, "nearest")
+                nan_got, nan_ref = torch.isnan(got), torch.isnan(ref)
+                ok = bool(torch.equal(nan_got, nan_ref)) and bool(torch.equal(got[~nan_got], ref[~nan_ref]))
+                name = f"resize nearest non-finite {str(dt)[6:]} C={c} to {size}"
+                log({"check": name, "nan": int(nan_ref.sum()), "bit_equal": ok, "ok": ok})
+                if not ok:
+                    raise AssertionError(f"{name}: kernel and plain version differ")
 
 
 def new_kernel_edge_cases(dev, g) -> list:
@@ -958,6 +1048,8 @@ def new_kernel_edge_cases(dev, g) -> list:
     from patchrefinerv2_torch.ops.gated import gate_tail, gate_tail_plain
     from patchrefinerv2_torch.ops.resize import resize, resize_plain
 
+    import itertools
+
     cases = []
     for b, h, s, d, grid in ((2, 3, 37, 16, (4, 9)), (1, 2, 50, 48, None), (1, 4, 65, 64, (8, 8)),
                              (2, 2, 1, 64, None)):
@@ -969,6 +1061,27 @@ def new_kernel_edge_cases(dev, g) -> list:
         cases.append((f"attention S={s} D={d} bias={grid is not None}",
                       attention(q, k, v, d ** -0.5, table, grid),
                       attention_plain(q, k, v, d ** -0.5, table, grid)))
+    # every S on both sides of the 64-row and 64-key tiles and the two frame
+    # lengths, each head dim, with the bias (a grid of S - 1 patches; S = 1
+    # has none) and without, float32 and bfloat16; q, k, v the heads of one
+    # packed qkv as in the blocks. In bfloat16 the (batch, heads) pick the
+    # blocks' shape: 1 x 2 two key groups of 4 row-warps; at S = 1025, 1 x 16
+    # (DINOv2-L) two groups of 5, 2 x 16 one group of 4
+    grids = {17: (4, 4), 63: (2, 31), 64: (7, 9), 65: (8, 8), 769: (24, 32), 1025: (32, 32)}
+    for dt in (torch.float32, torch.bfloat16):
+        for s in (1, 17, 63, 64, 65, 769, 1025):
+            for d, (b, h) in itertools.product((16, 48, 64),
+                                               ((1, 2), (1, 16), (2, 16)) if s == 1025 else ((1, 2),)):
+                for grid in ((None, grids[s]) if s in grids else (None,)):
+                    qkv = torch.randn((b, s, 3, h, d), generator=g, device=dev).to(dt)
+                    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+                    table = None
+                    if grid is not None:
+                        table = torch.randn(((2 * grid[0] - 1) * (2 * grid[1] - 1) + 3, h),
+                                            generator=g, device=dev).to(dt)
+                    cases.append((f"attention {str(dt)[6:]} S={s} D={d} B={b} H={h} bias={grid is not None}",
+                                  attention(q, k, v, d ** -0.5, table, grid),
+                                  attention_plain(q, k, v, d ** -0.5, table, grid)))
     for p, c, gate in ((1000, 128, True), (777, 32, True), (1000, 32, False), (333, 256, False)):
         f = torch.randn((p, c), generator=g, device=dev) * 2 + 0.3
         out = torch.randn((p, c), generator=g, device=dev) if gate else None
@@ -1028,13 +1141,13 @@ def canny_edge_cases(dev, g) -> list:
 
 # kernel-name fragments -> the layer they belong to (first match wins)
 KERNEL_GROUPS = (
-    ("K3/K4 attention", ("attention_kernel",)),
+    ("K3/K4 attention", ("attention_kernel", "attention_mma_kernel")),
     ("K5 gate_tail", ("gate_tail",)),
     ("K9 tail_conv", ("tail_conv_kernel",)),
     ("K10 quant_conv", ("qconv_kernel", "quantize_kernel", "absmax_kernel", "scales_kernel")),
     ("K8 bins", ("attractor_kernel", "log_binomial_kernel")),
     ("K1 roi_align", ("roi_align_kernel",)),
-    ("K2 resize", ("resize_kernel",)),
+    ("K2 resize", ("resize_row_kernel",)),
     ("K6 layer_norm", ("ln_rows",)),
     ("K7 blend", ("blend_add_kernel", "blend_finalize_kernel")),
     ("cudnn layout padding", ("nhwcaddpadding", "nchwtonhwc", "nhwctonchw")),
@@ -1546,6 +1659,24 @@ def eval_gpu_vs_cpu(dev) -> None:
          "pred_edge_pixels": int(edges.sum())})
 
 
+def record_resize_plans() -> dict:
+    """Wrap ``ops/resize._launch_plan`` so that every later K2 launch counts
+    its (channels, element bytes, vec, vstore) in the returned dict."""
+    import importlib
+
+    R = importlib.import_module("patchrefinerv2_torch.ops.resize")  # the module, not ops.resize
+    plan, seen = R._launch_plan, {}
+
+    def recording(c, itemsize, align, out_row_bytes):
+        out = plan(c, itemsize, align, out_row_bytes)
+        key = (c, itemsize, *out)
+        seen[key] = seen.get(key, 0) + 1
+        return out
+
+    R._launch_plan = recording
+    return seen
+
+
 def main() -> int:
     import torch
 
@@ -1584,7 +1715,10 @@ def main() -> int:
     check_quant_conv(chk, dev)
     check_canny(chk, dev)
     check_edge_cases(dev)
+    plans = record_resize_plans()
     counts = {**flagship(dev), **depth_anything_v2(dev), **cityscapes_eval(dev)}
+    log({"phase": "resize_plans_of_the_main_paths",
+         "channels_itemsize_vec_vstore_launches": sorted([*k, n] for k, n in plans.items())})
     small_gpu_vs_cpu(dev)
     eval_gpu_vs_cpu(dev)
 

@@ -10,16 +10,19 @@ the input dtype, Q.K^T accumulated in float32, the bias added in float32,
 a float32 softmax, P rounded to V's dtype, P.V accumulated in float32 and
 the output rounded to the input dtype.
 
-On a CUDA tensor :func:`attention` launches the kernel of
+On a CUDA tensor :func:`attention` launches a kernel of
 ``csrc/attention.cu`` (or raises), which computes every bias entry from
 the (num_rel + 3, H) table and the timm index formula inside the kernel:
-no (H, S, S) bias is written. q, k and v may be strided views (the heads of
-one packed qkv projection); the output is a (B, H, S, D) view of a
-(B, S, H, D) buffer, so merging the heads back is free. On a CPU tensor
-it runs :func:`attention_plain`. ``attention.launches`` counts the kernel
-launches. The kernel keeps a row of S float32 logits per query in shared
-memory: an S whose row does not fit the card's 227 KB per block (S above
-~1500) fails at launch with the CUDA error of the shared-memory request.
+no (H, S, S) bias is written. bfloat16 runs the register-tiled two-pass
+kernel on the tensor cores (P normalised in float32 before it is rounded,
+any S); float32 runs the three-phase CUDA-core kernel, which keeps a row
+of S float32 logits per query in shared memory, so an S whose row does not
+fit the card's 227 KB per block (S above ~1500) fails at launch with the
+CUDA error of the shared-memory request. q, k and v may be strided views
+(the heads of one packed qkv projection); the output is a (B, H, S, D)
+view of a (B, S, H, D) buffer, so merging the heads back is free. On a CPU
+tensor it runs :func:`attention_plain`. ``attention.launches`` counts the
+kernel launches.
 """
 
 from __future__ import annotations
@@ -99,8 +102,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
         return attention_plain(q, k, v, scale, rel_table, grid)
     _check(q, k, v, rel_table, grid)
     dt = _cuda.dtype_code(q.dtype)
-    if q.dtype == torch.bfloat16:  # the kernel loads bf16 K / V rows 16 bytes at a time
-        k, v = (t if _rows_aligned(t) else t.contiguous() for t in (k, v))
+    if q.dtype == torch.bfloat16:  # the kernel loads bf16 Q / K / V rows 16 bytes at a time
+        q, k, v = (t if _rows_aligned(t) else t.contiguous() for t in (q, k, v))
     b, h, s, d = q.shape
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
     gh, gw = (int(grid[0]), int(grid[1])) if rel_table is not None else (0, 0)

@@ -6,8 +6,10 @@ Counterpart of ``patchrefinerv2_tpu/ops/resize.py`` (``resize`` :214,
 matrices on the MXU; here each axis becomes its taps (two source indices
 and two weights per output index for bilinear and nearest, four for
 bicubic), computed on the host in float32 exactly as ``_resize_matrix_np``
-does, and the CUDA kernel ``csrc/resize.cu`` gathers them. Layout: NHWC at
-every public function.
+does, and the CUDA kernel ``csrc/resize.cu`` gathers them, one block per
+output row segment. :func:`_launch_plan` picks the kernel's path on the
+host: channel vectors of one pixel, or runs of consecutive elements of a
+row for narrow or unaligned maps. Layout: NHWC at every public function.
 
 On a CUDA tensor the functions launch the kernel (or raise); on a CPU
 tensor they run the plain PyTorch version, which applies the same taps
@@ -25,6 +27,42 @@ import torch
 from patchrefinerv2_torch.ops import _cuda
 
 __all__ = ["axis_taps", "resize", "resize_plain", "crop_resize", "crop_resize_plain"]
+
+# bytes a thread of the kernel loads or stores at once, widest first
+_VECTOR_BYTES = (16, 8, 4)
+
+
+def _launch_plan(c: int, itemsize: int, align: int, out_row_bytes: int) -> tuple[int, bool]:
+    """The kernel's path for ``c`` channels of ``itemsize`` bytes, a source
+    whose pointer is ``align``-byte aligned and output rows of
+    ``out_row_bytes`` (the output is a fresh allocation): ``(vec, False)``
+    with ``vec`` >= 2, the channel path, each thread ``vec`` channels of one
+    pixel in the widest of 16, 8 and 4 bytes that divides the pixel's
+    channels and the alignment; else ``(0, vstore)``, the run path, each
+    thread 16 bytes of consecutive output elements of a row, stored as one
+    vector when ``vstore`` (the rows are a multiple of 16 bytes)."""
+    for nb in _VECTOR_BYTES:
+        if nb >= 2 * itemsize and (c * itemsize) % nb == 0 and align % nb == 0:
+            return nb // itemsize, False
+    return 0, out_row_bytes % 16 == 0
+
+
+def _alignment(t: torch.Tensor) -> int:
+    """The largest power of two up to 16 that divides ``t``'s address."""
+    ptr = t.data_ptr()
+    return min(16, ptr & -ptr) if ptr else 16
+
+
+def _launch(x, y, taps_h, taps_w, starts, n, h, w, c, batch_stride, nearest=False):
+    """Launch the kernel on ``x`` (n images of h x w x c, ``batch_stride``
+    elements apart) into the fresh NHWC ``y`` with the packed taps."""
+    oh, ow = y.shape[1], y.shape[2]
+    vec, vstore = _launch_plan(c, x.element_size(), _alignment(x), ow * c * x.element_size())
+    taps = 1 if nearest else taps_h.shape[1] // 2  # distinct source taps an axis
+    fn = _cuda.bind("resize", "prv2_resize", 5, 10)
+    return fn(_cuda.ptr(x), _cuda.ptr(y), _cuda.ptr(taps_h), _cuda.ptr(taps_w), _cuda.ptr(starts),
+              n, h, w, c, oh, ow, batch_stride, taps, vec, int(vstore),
+              _cuda.dtype_code(x.dtype), _cuda.stream_of(x))
 
 
 def _cubic(t: np.ndarray) -> np.ndarray:
@@ -89,6 +127,15 @@ def _taps_on(in_size, out_size, mode, align_corners, scale, device):
     return torch.from_numpy(idx).to(device), torch.from_numpy(w).to(device)
 
 
+@functools.lru_cache(maxsize=256)
+def _packed_taps_on(in_size, out_size, mode, align_corners, scale, device):
+    """The kernel's taps of an axis: (out, 2 T) int32, per output index its
+    T source indices and then its T float32 weights' bits."""
+    idx, w = axis_taps(in_size, out_size, mode, align_corners, scale)
+    packed = np.concatenate([idx.T, np.ascontiguousarray(w.T).view(np.int32)], axis=1)
+    return torch.from_numpy(np.ascontiguousarray(packed)).to(device)
+
+
 def _apply_axis(x, axis, idx, w):
     """Combine the taps along ``axis`` of a float32 tensor."""
     shape = [1] * x.ndim
@@ -136,15 +183,10 @@ def resize(x: torch.Tensor, size, mode: str = "bilinear", align_corners: bool = 
     if _cuda.on_cpu(x):
         return resize_plain(x, size, mode, align_corners, scale_override)
     _cuda.require_cuda(x)
-    dt = _cuda.dtype_code(x.dtype)
-    iy, wy = _taps_on(h, oh, mode, bool(align_corners), sh, x.device)
-    ix, wx = _taps_on(w, ow, mode, bool(align_corners), sw, x.device)
+    th = _packed_taps_on(h, oh, mode, bool(align_corners), sh, x.device)
+    tw = _packed_taps_on(w, ow, mode, bool(align_corners), sw, x.device)
     y = torch.empty((n, oh, ow, c), dtype=x.dtype, device=x.device)
-    fn = _cuda.bind("resize", "prv2_resize", 7, 8)
-    rc = fn(_cuda.ptr(x), _cuda.ptr(y), _cuda.ptr(iy), _cuda.ptr(wy), _cuda.ptr(ix),
-            _cuda.ptr(wx), _cuda.ptr(None), n, h, w, c, oh, ow, h * w * c, iy.shape[0], dt,
-            _cuda.stream_of(x))
-    _cuda.check(rc, "resize")
+    _cuda.check(_launch(x, y, th, tw, None, n, h, w, c, h * w * c, mode == "nearest"), "resize")
     resize.launches += 1
     return y
 
@@ -176,17 +218,12 @@ def crop_resize(image: torch.Tensor, starts: torch.Tensor, patch_raw_shape, out_
         return crop_resize_plain(image, starts, (prh, prw), (oh, ow))
     starts = starts.to(device=image.device, dtype=torch.int32).contiguous()
     _cuda.require_cuda(image, starts)
-    dt = _cuda.dtype_code(image.dtype)
     h, w, c = image.shape
     n = starts.shape[0]
-    iy, wy = _taps_on(prh, oh, "bilinear", True, None, image.device)
-    ix, wx = _taps_on(prw, ow, "bilinear", True, None, image.device)
+    th = _packed_taps_on(prh, oh, "bilinear", True, None, image.device)
+    tw = _packed_taps_on(prw, ow, "bilinear", True, None, image.device)
     y = torch.empty((n, oh, ow, c), dtype=image.dtype, device=image.device)
-    fn = _cuda.bind("resize", "prv2_resize", 7, 8)
-    rc = fn(_cuda.ptr(image), _cuda.ptr(y), _cuda.ptr(iy), _cuda.ptr(wy), _cuda.ptr(ix),
-            _cuda.ptr(wx), _cuda.ptr(starts), n, h, w, c, oh, ow, 0, 2, dt,
-            _cuda.stream_of(image))
-    _cuda.check(rc, "crop_resize")
+    _cuda.check(_launch(image, y, th, tw, starts, n, h, w, c, 0), "crop_resize")
     crop_resize.launches += 1
     return y
 
