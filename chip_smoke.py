@@ -792,11 +792,14 @@ def check_quant_conv(chk: Checks, dev) -> None:
     ``F.conv2d`` of the site in the same dtype with its bias, on the input
     concatenated beforehand (the ``torch.cat`` is timed beside it); at the
     three head sites K9 (``tail_conv``, the kernel the exact runs take
-    there) is timed on the same inputs and weights in the same dtype. Then
-    the edge cases."""
+    there) is timed on the same inputs and weights in the same dtype. Each
+    site's line names the product's tile (rows by pixels; a phased tile's
+    pixels span both column phases) and its N split (N, tiles, ring
+    stages; ``ops/quant.launch_plan``). Then the edge cases."""
     import torch
     import torch.nn.functional as F
 
+    from patchrefinerv2_torch.ops.quant import ROWS, RUN, launch_plan
     from patchrefinerv2_torch.ops.tail_conv import tail_conv
 
     g = torch.Generator(device=dev).manual_seed(7)
@@ -832,9 +835,12 @@ def check_quant_conv(chk: Checks, dev) -> None:
             for _ in range(count):
                 chk.add("quant_conv", path, dt, err, 0.0, ms, plain, lib, nbytes, 2 * npx * 9 * cin * cout,
                         INT8_TENSOR_OPS, main=batch == 16 and scales == "perchan")
+            plan = launch_plan(*shape, cin, cout, 3, layout == "s2d", es)
             log({"quant_conv_site": name, "path": path, "dtype": str(dt)[6:], "batch": batch,
                  "scales": scales, "layout": layout, "count": count, "in": list(widths), "out": cout,
-                 "hw": [shape[1], shape[2]], "cat_ms": cat_ms, "k9_ms": k9_ms})
+                 "hw": [shape[1], shape[2]], "cat_ms": cat_ms, "k9_ms": k9_ms,
+                 "tile": [ROWS, RUN * (2 if layout == "s2d" else 1)],
+                 "n_split": [[sg["n"], sg["tiles"], sg["stages"]] for sg in plan["segments"]]})
             del parts, site, w, kw, ref, xc, wl
     quant_edge_cases(dev, g)
 
@@ -842,12 +848,17 @@ def check_quant_conv(chk: Checks, dev) -> None:
 def quant_edge_cases(dev, g) -> None:
     """K10 where the frames do not take it, float32 and bfloat16, the three
     scale modes (the same bar, bit for bit): Cin 1, 33, 98, 1056 (a 1x1 of
-    the encoder at lowered gates), 2 and 4 parts; Cout 1, 8, 20, 322 (three
-    128-channel tiles); batch 1, maps smaller than one tile, 1 pixel wide or
-    high; a channel calibrated at abs-max 0; inputs beyond the calibrated
-    abs-max; exact .5 ties; ReLU-in with the residual. Phased (``s2d``):
-    batch 1, a 2x2 map, an odd 5x7 map, parts 32+32 and 128+128, a phase of
-    a channel at abs-max 0, ties; and the ReLU after the rounding."""
+    the encoder at lowered gates), 2 and 4 parts; Cout 1, 8, 20, 322;
+    batch 1, maps smaller than one tile, 1 pixel wide or high; a channel
+    calibrated at abs-max 0; inputs beyond the calibrated abs-max; exact .5
+    ties; ReLU-in with the residual. Phased (``s2d``): batch 1, a 2x2 map,
+    an odd 5x7 map, parts 32+32 and 128+128, a phase of a channel at
+    abs-max 0, ties; and the ReLU after the rounding. The wgmma kernel's
+    tile edges: widths 63, 64, 65, 112 and 224 (runs of 64 pixels), Cout 72
+    (an 80-channel tile) and 322 (128 + 128 + 80), Cout 12 and 20 (float32
+    rows of 16-byte units that are not 8 outputs), Cin 194 and 322 (padded
+    k32 steps), odd phased maps (a zero column in a parity plane), batch
+    1."""
     import torch
 
     cases = [((1, 5, 7), (1,), 1, 3, True, False, {}),
@@ -865,7 +876,15 @@ def quant_edge_cases(dev, g) -> None:
              ((1, 18, 40), (128, 128), 128, 3, True, False, dict(layout="s2d", zero_phase=True)),
              ((1, 6, 10), (32, 32), 32, 3, False, False, dict(layout="s2d", ties=True)),
              ((1, 20, 18), (128,), 32, 3, True, False, dict(layout="s2d_down", relu_out=True)),
-             ((2, 3, 5), (24,), 24, 3, False, True, dict(relu_out=True))]
+             ((2, 3, 5), (24,), 24, 3, False, True, dict(relu_out=True)),
+             ((1, 5, 63), (194,), 72, 3, True, False, {}),
+             ((1, 3, 64), (322,), 322, 3, False, False, {}),
+             ((2, 3, 65), (12, 21), 12, 3, True, True, {}),
+             ((1, 4, 112), (128, 64), 128, 3, True, True, {}),
+             ((1, 2, 224), (256,), 256, 3, True, False, {}),
+             ((1, 6, 65), (96,), 20, 1, False, False, {}),
+             ((1, 7, 9), (32, 32), 32, 3, True, False, dict(layout="s2d")),
+             ((1, 3, 65), (128,), 128, 3, True, True, dict(layout="s2d"))]
     for dt in (torch.float32, torch.bfloat16):
         for scales in QUANT_SCALES:
             for shape, widths, cout, k, bias, relu_res, extra in cases:
@@ -1144,7 +1163,7 @@ KERNEL_GROUPS = (
     ("K3/K4 attention", ("attention_kernel", "attention_mma_kernel")),
     ("K5 gate_tail", ("gate_tail",)),
     ("K9 tail_conv", ("tail_conv_kernel",)),
-    ("K10 quant_conv", ("qconv_kernel", "quantize_kernel", "absmax_kernel", "scales_kernel")),
+    ("K10 quant_conv", ("qconv_wgmma_kernel", "quantize_kernel", "absmax_kernel", "scales_kernel")),
     ("K8 bins", ("attractor_kernel", "log_binomial_kernel")),
     ("K1 roi_align", ("roi_align_kernel",)),
     ("K2 resize", ("resize_row_kernel",)),

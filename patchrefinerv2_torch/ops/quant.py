@@ -48,10 +48,16 @@ kernel whose result stays on the device.
 
 On a CUDA tensor :func:`quant_conv` launches the kernels of
 ``csrc/quant_conv.cu`` (or raises): in the dynamic mode the abs-max pass,
-then a quantize pass that reads the parts in place and writes int8 NHWC, then
-the int8 implicit-GEMM convolution on the tensor cores with the dequantize,
-bias, residual and ReLU in its epilogue (one block per phase at a phased
-site).
+then a quantize pass that reads the parts in place and writes an int8
+scratch of 16-byte cells (16 channels of one column of a plane of a row; at
+a phased site two column-parity planes, so that one output phase's pixels
+of a row are contiguous), then the int8 implicit-GEMM convolution on
+``wgmma``, its halo and weights fed by TMA through an mbarrier ring, with
+the dequantize, bias, residual and ReLU in its epilogue. :func:`launch_plan`
+picks its N tiles per site (one or two launches: Cout 322 as 128 + 128 +
+80), ring depth and scratch shape; :func:`format_weight` lays the weights
+out as the kernel's bulk copies read them. A phased tile has all four
+phases of its region computed from one halo.
 ``quant_conv.launches`` counts the calls that launch them. On a CPU tensor
 it runs :func:`quant_conv_plain`, whose int32 sums are exact (a float64
 convolution of integers: |acc| <= 127^2 * k^2 * Cin < 2^53).
@@ -67,13 +73,20 @@ from patchrefinerv2_torch.ops import _cuda
 __all__ = [
     "quant_conv", "quant_conv_plain", "quantize", "act_scale", "quantize_per_out_channel",
     "fold_act_scales", "fold_phased", "pixel_phase", "int8_conv_sums", "site_selected",
-    "format_weight", "LAYOUTS",
+    "format_weight", "launch_plan", "n_tiles", "LAYOUTS",
 ]
 
 MAX_PARTS = 4
-CHUNK = 32  # input channels per k-step of the kernel (one m16n8k32 depth)
-BLOCK_N = 128  # output channels per block of the kernel
+CHUNK = 32  # input channels per k-step of the kernel (one wgmma k32 depth, two 16-byte halves)
 PHASES = 4  # pixel phases (h % 2, w % 2) of a phased site
+# the product kernel's block (csrc/quant_conv.cu): ROWS output rows by runs
+# of RUN pixels (the wgmma M), two consumer warpgroups of 2 runs (phased: 4,
+# both column phases of 2 rows); its N tiles, the widest first; the shared
+# memory a block may take and the ring's deepest
+ROWS, RUN = 4, 64
+N_TILES = {False: (128, 80, 32, 8), True: (32, 8)}  # an integer wgmma's N: 8, 16, 24, 32, 48, ...
+SMEM_MAX = 232448
+MAX_STAGES = 4
 # where the reference runs a site: the plain layout, a 3x3 SAME conv on a
 # space-to-depth map (``s2d``: its kernel expanded to (3, 3, 4Cin, 4Cout)),
 # or the stride-2 conv that enters that form from the plain map
@@ -205,17 +218,74 @@ def quant_conv_plain(parts, kq, sx, scale, bias=None, relu_in: bool = False, res
     return y
 
 
+def n_tiles(cout: int, phased: bool) -> list:
+    """The widths of the kernel's N tiles over ``cout`` output channels, in
+    order: as many of the widest as fit, then the narrowest that holds the
+    rest (Cout 322: 128, 128, 80; the flagship head's 32: 32)."""
+    tiles = N_TILES[phased]
+    full, rem = divmod(cout, tiles[0])
+    return [tiles[0]] * full + ([min(t for t in tiles if t >= rem)] if rem else [])
+
+
 def format_weight(kq: torch.Tensor) -> torch.Tensor:
-    """(Cout, Cin, k, k) int8 -> the kernel's [Cin / 32][k * k][Cout_pad][32],
-    zero-padded to a multiple of 32 input and of 128 output channels; a
-    phased (4, Cout, Cin, 3, 3) -> [4][Cin / 32][9][Cout_pad][32]."""
-    if kq.ndim == 5:
-        return torch.stack([format_weight(q) for q in kq])
-    cout, cin, k, _ = kq.shape
-    nch, cp = -(-cin // CHUNK), -(-cout // BLOCK_N) * BLOCK_N
-    w = torch.zeros((k * k, cp, nch * CHUNK), dtype=torch.int8, device=kq.device)
-    w[:, :cout, :cin] = kq.permute(2, 3, 0, 1).reshape(k * k, cout, cin)
-    return w.reshape(k * k, cp, nch, CHUNK).permute(2, 0, 1, 3).contiguous()
+    """(Cout, Cin, k, k) int8 -> the kernel's weights, flat: for each N tile
+    of :func:`n_tiles` in turn ``[Cin / 32][1][2][k * k][N][16]``, for each
+    32-channel k-step its two 16-channel halves, each a K-major plane of
+    (tap, output channel) rows of 16 bytes, zero past Cin and Cout; a
+    phased (4, Cout, Cin, 3, 3) -> ``[Cin / 32][4][2][9][N][16]`` a tile,
+    the four phases of a k-step together. A tile's k-step is one contiguous
+    block that the kernel copies in one bulk load: tile t (first channel
+    o_t) starts at ``o_t * Cin_pad * phases * k * k`` bytes, and
+    ``wf[start + ((((s * phases + ph) * 2 + h) * k * k + tap) * N + o) * 16 + i]
+    = kq[ph][o_t + o, 32 s + 16 h + i, tap // k, tap % k]``."""
+    qs = kq if kq.ndim == 5 else kq[None]
+    ph, cout, cin, k, _ = qs.shape
+    nch = -(-cin // CHUNK)
+    widths = n_tiles(cout, kq.ndim == 5)
+    w = torch.zeros((ph, k * k, sum(widths), nch * CHUNK), dtype=torch.int8, device=kq.device)
+    w[:, :, :cout, :cin] = qs.permute(0, 3, 4, 1, 2).reshape(ph, k * k, cout, cin)
+    out, o = [], 0
+    for nt in widths:
+        t = w[:, :, o:o + nt].reshape(ph, k * k, nt, nch, 2, CHUNK // 2)
+        out.append(t.permute(3, 0, 4, 1, 2, 5).reshape(-1))
+        o += nt
+    return torch.cat(out).contiguous()
+
+
+def launch_plan(n: int, h: int, w: int, cin: int, cout: int, k: int, phased: bool,
+                itemsize: int = 2) -> dict:
+    """The host's plan for one product launch, as ``csrc/quant_conv.cu``
+    takes it: the N tiles (up to two segments, ``(N, tiles, stages)``, the
+    second from channel N * tiles of the first), each segment's ring depth
+    and shared memory, and the int8 scratch's shape. A tile is ``ROWS``
+    rows by ``RUN`` pixels (phased: by ``RUN`` pixels of each column phase,
+    from one halo over the two column-parity planes) by N channels; a
+    persistent block per SM walks a segment's ``tiles`` (pixel tiles x N
+    tiles). A stage holds the halo of one k-step (``halo``: rows, channel
+    halves, planes, columns) and the N tile's weights for every tap (and
+    phase); beside the ring each consumer keeps its output tiles (RUN rows
+    of N outputs of ``itemsize`` bytes a run, bfloat16 rows padded by 8
+    elements)."""
+    planes, phases, taps = (2, 4, 9) if phased else (1, 1, k * k)
+    runs = 4 if phased else 2
+    halo = (ROWS + k - 1, 2, planes, RUN + k - 1)
+    cols = -(-w // 2) if phased else w  # the columns of a plane of the scratch
+    nch = -(-cin // CHUNK)
+    a_box = halo[0] * halo[1] * halo[2] * halo[3] * 16
+    pixel_tiles = n * -(-h // ROWS) * -(-cols // RUN)
+    widths = n_tiles(cout, phased)
+    segments = []
+    for nt in dict.fromkeys(widths):
+        count = widths.count(nt)
+        stage = -(-a_box // 128) * 128 + phases * 2 * taps * nt * 16
+        out = 2 * runs * RUN * (nt * itemsize + (16 if itemsize == 2 else 0))
+        fixed = 384 + out  # the base's alignment, the barriers, the output tiles
+        stages = min(MAX_STAGES, (SMEM_MAX - fixed) // stage)
+        segments.append(dict(n=nt, tiles=count, stages=stages, stage_bytes=stage, out_bytes=out,
+                             smem=fixed + stages * stage, work=pixel_tiles * count,
+                             tx_bytes=a_box + phases * 2 * taps * nt * 16))
+    return dict(segments=segments, halo=halo, phases=phases, taps=taps, nchunk=nch, runs=runs,
+                pixel_tiles=pixel_tiles, xq_shape=(n, h, 2 * nch, planes, cols, CHUNK // 2))
 
 
 def quant_conv(parts, kq: torch.Tensor, sx: torch.Tensor | None, scale: torch.Tensor,
@@ -265,9 +335,10 @@ def quant_conv(parts, kq: torch.Tensor, sx: torch.Tensor | None, scale: torch.Te
         raise ValueError(f"residual {tuple(residual.shape)} is not ({n}, {h}, {w}, {cout})")
     if wf is None:
         wf = format_weight(kq)
-    nch, cp = -(-cin // CHUNK), -(-cout // BLOCK_N) * BLOCK_N
-    if tuple(wf.shape) != (*lead, nch, k * k, cp, CHUNK) or wf.dtype != torch.int8:
-        raise ValueError(f"formatted weight {tuple(wf.shape)} is not {(*lead, nch, k * k, cp, CHUNK)} int8")
+    nch = -(-cin // CHUNK)
+    wlen = nch * CHUNK * (PHASES if phased else 1) * k * k * sum(n_tiles(cout, phased))
+    if tuple(wf.shape) != (wlen,) or wf.dtype != torch.int8:
+        raise ValueError(f"formatted weight {tuple(wf.shape)} {wf.dtype} is not ({wlen},) int8")
     dt = parts[0].dtype
     extra = [t for t in (bias, residual) if t is not None]
     # require_cuda checks one device and the dense NHWC layout the kernels
@@ -278,19 +349,22 @@ def quant_conv(parts, kq: torch.Tensor, sx: torch.Tensor | None, scale: torch.Te
                          f"{sorted({str(t.dtype) for t in parts + extra})}")
     code = _cuda.dtype_code(dt)
     dev = parts[0].device
-    xq = torch.empty((n, h, w, nch * CHUNK), dtype=torch.int8, device=dev)
+    plan = launch_plan(n, h, w, cin, cout, k, phased, parts[0].element_size())
+    segs = [(sg["n"], sg["tiles"], sg["stages"]) for sg in plan["segments"]] + [(0, 0, 0)]
+    xq = torch.empty(plan["xq_shape"], dtype=torch.int8, device=dev)
     y = torch.empty((n, h, w, cout), dtype=dt, device=dev)
     sw = amax = None
-    if dynamic:  # scratch the kernels fill on the device: the abs-max, sx, sx * sw
-        dyn = torch.empty(1 + cin + cout, dtype=torch.float32, device=dev)
-        sw, amax, sx, scale = scale, dyn[:1], dyn[1:1 + cin], dyn[1 + cin:]
+    if dynamic:  # scratch the kernels fill on the device: the abs-max, sx, sx * sw (16-byte aligned)
+        c4 = -(-cin // 4) * 4
+        dyn = torch.empty(4 + c4 + cout, dtype=torch.float32, device=dev)
+        sw, amax, sx, scale = scale, dyn[:1], dyn[4:4 + cin], dyn[4 + c4:]
     ps = parts + [None] * (MAX_PARTS - len(parts))
     cs = [p.shape[3] for p in parts] + [0] * (MAX_PARTS - len(parts))
-    fn = _cuda.bind("quant_conv", "prv2_quant_conv", 13, 12)
+    fn = _cuda.bind("quant_conv", "prv2_quant_conv", 13, 18)
     rc = fn(*(_cuda.ptr(p) for p in ps), _cuda.ptr(sx), _cuda.ptr(wf), _cuda.ptr(scale),
             _cuda.ptr(bias), _cuda.ptr(residual), _cuda.ptr(xq), _cuda.ptr(y), _cuda.ptr(sw),
-            _cuda.ptr(amax), n, h, w, *cs, cout, k, int(relu_in), int(relu_out), int(phased), code,
-            _cuda.stream_of(y))
+            _cuda.ptr(amax), n, h, w, *cs, cout, k, int(relu_in), int(relu_out), int(phased),
+            *segs[0], *segs[1], code, _cuda.stream_of(y))
     _cuda.check(rc, "quant_conv")
     quant_conv.launches += 1
     return y

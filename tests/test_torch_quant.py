@@ -186,14 +186,16 @@ def test_site_selected_is_the_reference_gate():
 
 
 def test_format_weight_layout():
-    """The kernel's weight layout: [Cin / 32][tap][Cout_pad][32], zeros past
-    the real channels."""
+    """The kernel's weight layout: for each N tile (here one of 32 for Cout
+    20) [Cin / 32][phase][half][tap][N][16], flat, zeros past the real input
+    and output channels."""
     kq = torch.randint(-127, 128, (20, 40, 3, 3), dtype=torch.int8)
     wf = pq.format_weight(kq)
-    assert tuple(wf.shape) == (2, 9, 128, 32)
-    for ch, tap, o, i in ((0, 0, 0, 0), (1, 4, 19, 7), (0, 8, 5, 31)):
-        assert int(wf[ch, tap, o, i]) == int(kq[o, ch * 32 + i, tap // 3, tap % 3])
-    assert not wf[:, :, 20:].any() and not wf[1, :, :, 8:].any()
+    assert tuple(wf.shape) == (2 * 1 * 2 * 9 * 32 * 16,)
+    wf = wf.reshape(2, 1, 2, 9, 32, 16)
+    for ch, half, tap, o, i in ((0, 0, 0, 0, 0), (1, 0, 4, 19, 7), (0, 1, 8, 5, 15)):
+        assert int(wf[ch, 0, half, tap, o, i]) == int(kq[o, ch * 32 + half * 16 + i, tap // 3, tap % 3])
+    assert not wf[1, :, 0, :, :, 8:].any() and not wf[1, :, 1].any() and not wf[:, :, :, :, 20:].any()
 
 
 # ---------------------------------------------------------------- the blocks
