@@ -232,6 +232,30 @@ def tol_of(ref, dtype) -> float:
 DTYPES = ("float32", "bfloat16")
 
 
+def roi_grid(boxes, size, spatial_scale, map_hw):
+    """The sample grid of roi_align(aligned=True, sampling_ratio=1) for each
+    box, as ``F.grid_sample(align_corners=False)`` takes it: (N, out_h, out_w,
+    2) of (x, y) normalised to [-1, 1] over a map of ``map_hw``. With
+    ``padding_mode="border"`` grid_sample clamps the samples into the map as
+    roi_align does; roi_align's zero rule (a sample past -1 or the size)
+    never fires at the call sites, whose boxes lie inside the map. K1's
+    library yardstick, used nowhere in the port."""
+    import torch
+
+    bx = boxes.float() * spatial_scale - 0.5
+    oh, ow = size
+    h, w = map_hw
+
+    def axis(lo, hi, n):
+        i = torch.arange(n, dtype=torch.float32, device=boxes.device)
+        return lo[:, None] + (i[None, :] + 0.5) * ((hi - lo) / n)[:, None]
+
+    ys, xs = axis(bx[:, 1], bx[:, 3], oh), axis(bx[:, 0], bx[:, 2], ow)
+    gx = ((2 * xs + 1) / w - 1)[:, None, :].expand(-1, oh, -1)
+    gy = ((2 * ys + 1) / h - 1)[:, :, None].expand(-1, -1, ow)
+    return torch.stack([gx, gy], dim=-1).contiguous()
+
+
 def check_kernels(chk: Checks, dev) -> None:
     """The PR 1 kernels (K1, K2 bilinear, K6, K7) at the shapes of every
     path's frame, and the rN and metric shapes."""
@@ -241,6 +265,7 @@ def check_kernels(chk: Checks, dev) -> None:
     from patchrefinerv2_torch.models.tiling import TileCfg, regular_pass
     from patchrefinerv2_torch.ops.layer_norm import layer_norm, layer_norm_plain
     from patchrefinerv2_torch.ops.resize import crop_resize, crop_resize_plain, resize, resize_plain
+    from patchrefinerv2_torch.ops.roi_align import launch_plan as roi_plan
     from patchrefinerv2_torch.ops.roi_align import roi_align, roi_align_plain
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -254,16 +279,35 @@ def check_kernels(chk: Checks, dev) -> None:
         starts = torch.from_numpy(m1.starts_raw).to(dev)
         for dt in (getattr(torch, d) for d in geo["dtypes"]):
             es = torch.finfo(dt).bits // 8
-            # K1: the 7 roi_align calls of one chunk
+            # K1: the 7 roi_align calls of one chunk; the yardstick one
+            # grid_sample over the boxes' sample grids (roi_grid), in
+            # float32 for both dtypes: grid_sample takes its grid in the
+            # map's dtype, and a bfloat16 grid moves the samples by up to a
+            # pixel at 512-wide maps (the bfloat16 rows' call reads a float32
+            # copy of the map, twice its bytes)
             for h, w, c in geo["levels"]:
                 f = torch.randn((1, h, w, c), generator=g, device=dev).to(dt)
                 args = (f, boxes, bidx, (h, w), h / pph)
                 ref = roi_align_plain(*args)
                 err = err_of(roi_align(*args), ref)
+                fx = f.float().permute(0, 3, 1, 2).expand(16, c, h, w)
+                grid = roi_grid(boxes, (h, w), h / pph, (h, w))
+                lib_out = F.grid_sample(fx, grid, mode="bilinear", padding_mode="border",
+                                        align_corners=False).permute(0, 2, 3, 1)
+                lib_err, lib_tol = err_of(lib_out, ref), (1e-2 if dt == torch.bfloat16 else 1e-3) * max(
+                    float(ref.float().abs().max()), 1.0)
+                log({"check": "roi_align yardstick (grid_sample)", "path": path, "dtype": str(dt)[6:],
+                     "level": [h, w, c], "max_abs_err": lib_err, "tol": lib_tol, "ok": lib_err <= lib_tol,
+                     "plan": roi_plan(c, h, w, es)})
+                if not lib_err <= lib_tol:
+                    raise AssertionError(f"grid_sample yardstick of roi_align {(h, w, c)} ({dt}) disagrees: "
+                                         f"{lib_err} > {lib_tol}")
+                lib = time_ms(lambda: F.grid_sample(fx, grid, mode="bilinear", padding_mode="border",
+                                                    align_corners=False))
                 chk.add("roi_align", path, dt, err, tol_of(ref, dt), time_ms(lambda: roi_align(*args)),
-                        time_ms(lambda: roi_align_plain(*args)), None,
+                        time_ms(lambda: roi_align_plain(*args)), lib,
                         f.numel() * es + 16 * 5 * 4 + ref.numel() * es, 10 * ref.numel())
-                del f, ref
+                del f, ref, lib_out, fx
             # K2: crop-resize of the 16 raw patches -> the process shape
             img = torch.rand((*tc.image_raw_shape, 3), generator=g, device=dev).to(dt)
             crop = (img, starts, (prh, prw), (pph, ppw))
@@ -636,6 +680,7 @@ def check_tail_conv(chk: Checks, dev) -> None:
     import torch
     import torch.nn.functional as F
 
+    from patchrefinerv2_torch.ops.tail_conv import launch_plan as tail_plan
     from patchrefinerv2_torch.ops.tail_conv import tail_conv, tail_conv_plain
 
     g = torch.Generator(device=dev).manual_seed(6)
@@ -663,7 +708,8 @@ def check_tail_conv(chk: Checks, dev) -> None:
                             time_ms(lambda: tail_conv_plain(parts, **kw)), lib, nbytes,
                             2 * npx * k * k * cin * cout, peak, main=batch == 16)
                     log({"tail_conv_site": name, "path": path, "dtype": str(dt)[6:], "batch": batch,
-                         "in": list(widths), "k": k, "out": cout, "cat_ms": cat_ms})
+                         "in": list(widths), "k": k, "out": cout, "cat_ms": cat_ms,
+                         "plan": tail_plan(widths, k, cout, dt)})
                     del parts, kw, ref, xc
     tail_edge_cases(dev, g)
 
@@ -671,10 +717,14 @@ def check_tail_conv(chk: Checks, dev) -> None:
 def tail_edge_cases(dev, g) -> None:
     """K9 where the frames do not take it, in float32 and bfloat16 (same
     tolerances): tiles cut by the map's edge (H, W not multiples of the
-    16 x 16 tile, or of 8 x 16 at Cout 128),
-    batch 1, Cout 1 and Cout 16 (a partial output tile), 1-channel parts,
-    98 channels, four parts of odd widths, a 1x1 conv with LayerNorm, and
-    maps smaller than one tile."""
+    16 x 16 tile, or of 8 x 16 at Cout 128; in bfloat16 of the wgmma
+    route's 8 x 64 and 4 x 64 tiles), batch 1, Cout 1 and Cout 16 (a
+    partial output tile), 1-channel parts, 98 channels, four parts of odd
+    widths, a 1x1 conv with LayerNorm, and maps smaller than one tile; then
+    each bfloat16 route's ragged edges: the 128-wide ReLU prologue with its
+    residual, a 1x1 at N 128, the 98- and 1-channel parts with an image edge
+    inside a tile in both directions, Cout 1 with its residual (the mma.sync
+    route) and a residual at Cout 20 < N 32 (loaded element by element)."""
     import torch
 
     from patchrefinerv2_torch.ops.tail_conv import tail_conv, tail_conv_plain
@@ -686,7 +736,13 @@ def tail_edge_cases(dev, g) -> None:
              ((3, 11, 19), (128, 128), 3, 128, dict(bias=True)),
              ((2, 7, 30), (16,), 1, 16, dict(bias=True, ln=True, act="relu")),
              ((2, 6, 9), (8, 8, 3, 5), 3, 20, dict(bias=True, act="gelu")),
-             ((1, 3, 2), (128,), 3, 1, dict(bias=True))]
+             ((1, 3, 2), (128,), 3, 1, dict(bias=True)),
+             ((1, 6, 70), (128,), 3, 128, dict(bias=True, residual="x", relu_in=True)),
+             ((2, 5, 65), (128,), 1, 128, dict(bias=True)),
+             ((1, 17, 66), (98,), 3, 32, dict(act="gelu")),
+             ((1, 9, 130), (32, 1, 1), 3, 32, dict(ln=True, act="gelu")),
+             ((2, 17, 20), (32,), 3, 1, dict(residual="map", act="relu")),
+             ((1, 9, 67), (32,), 3, 20, dict(bias=True, residual="map"))]
     for dt in (torch.float32, torch.bfloat16):
         for shape, widths, k, cout, ep in cases:
             parts, kw = tail_case(g, dev, dt, shape, widths, k, cout, ep)
@@ -1162,13 +1218,14 @@ def canny_edge_cases(dev, g) -> list:
 KERNEL_GROUPS = (
     ("K3/K4 attention", ("attention_kernel", "attention_mma_kernel")),
     ("K5 gate_tail", ("gate_tail",)),
-    ("K9 tail_conv", ("tail_conv_kernel",)),
+    ("K9 tail_conv", ("tail_conv_kernel", "tail_wgmma_kernel")),
     ("K10 quant_conv", ("qconv_wgmma_kernel", "quantize_kernel", "absmax_kernel", "scales_kernel")),
     ("K8 bins", ("attractor_kernel", "log_binomial_kernel")),
     ("K1 roi_align", ("roi_align_kernel",)),
     ("K2 resize", ("resize_row_kernel",)),
     ("K6 layer_norm", ("ln_rows",)),
     ("K7 blend", ("blend_add_kernel", "blend_finalize_kernel")),
+    ("K11 canny", ("canny_nms_kernel",)),
     ("cudnn layout padding", ("nhwcaddpadding", "nchwtonhwc", "nhwctonchw")),
     ("gather and index", ("gather", "index", "scatter")),
     ("batch norm", ("batch_norm",)),
@@ -1181,17 +1238,46 @@ KERNEL_GROUPS = (
 )
 
 
+# each K group's wrappers (names of ``ops.KERNELS``), and whether the
+# profile must count exactly one kernel of the group a call: K1 and K9,
+# one launch a call, in the chunk part of the frame. The profiler can drop
+# the first events of a frame (DA2's coarse branch lost 2 of 24 attention
+# launches in one run), so the other groups must only have launches where
+# their wrappers counted some: a kernel renamed out of its group's
+# fragments leaves the group empty
+K_GROUP_WRAPPERS = {
+    "K1 roi_align": (("roi_align",), True),
+    "K2 resize": (("resize", "crop_resize"), False),
+    "K3/K4 attention": (("attention",), False),
+    "K5 gate_tail": (("gate_tail",), False),
+    "K6 layer_norm": (("layer_norm",), False),
+    "K7 blend": (("blend_add_pass", "blend_finalize"), False),
+    "K8 bins": (("attractor_update", "log_binomial_depth"), False),
+    "K9 tail_conv": (("tail_conv",), True),
+    "K10 quant_conv": (("quant_conv",), False),
+    "K11 canny": (("canny_nms",), False),
+}
+
+
 def profile_frame(fn, frame_ms: float, label: str) -> None:
     """One frame under torch.profiler: device time by layer, the costliest
     kernels, and the share of the unprofiled frame time the device spends
-    in kernels."""
+    in kernels. Every kernel of ``csrc/`` and of the Triton ops must fall in
+    its own K group: each group's profiled launches are held against its
+    wrappers' launch counters over the frame (``K_GROUP_WRAPPERS``), so a
+    kernel whose name no longer matches its group's fragments fails the run
+    instead of landing in another group."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from patchrefinerv2_torch import ops
+
+    ops.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    groups, total, kernels = {}, 0.0, []
+    counts = ops.launch_counts()
+    groups, launches, total, kernels = {}, {}, 0.0, []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -1199,12 +1285,20 @@ def profile_frame(fn, frame_ms: float, label: str) -> None:
         name = e.key.lower()
         group = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)), "other")
         groups[group] = groups.get(group, 0.0) + us
+        launches[group] = launches.get(group, 0) + e.count
         total += us
         kernels.append((us / 1e3, e.count, e.key[:90]))
+    want = {grp: sum(counts[w] for w in wrappers) for grp, (wrappers, _) in K_GROUP_WRAPPERS.items()}
     log({"phase": f"profile_{label}", "device_ms": total / 1e3, "frame_ms": frame_ms,
          "device_busy_share": total / 1e3 / frame_ms,
          "by_layer_ms": {g: v / 1e3 for g, v in sorted(groups.items(), key=lambda kv: -kv[1])},
+         "k_group_launches_profiled_vs_counted": {g: [launches.get(g, 0), n] for g, n in want.items()},
          "top_kernels_ms_calls_name": sorted(kernels, reverse=True)[:15]})
+    for grp, (_, exact) in K_GROUP_WRAPPERS.items():
+        got = launches.get(grp, 0)
+        if (exact and got != want[grp]) or (want[grp] > 0 and got == 0):
+            raise AssertionError(f"{label}: the profile puts {got} kernel launches in {grp!r}, its wrappers "
+                                 f"counted {want[grp]}: a kernel of the group is named outside its fragments")
 
 
 # kernels that the frames do not run: canny belongs to the evaluation, K10

@@ -1,9 +1,11 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-Each ``csrc/<name>.cu`` is a standalone source with a plain C interface.
-It is compiled at first use with ``nvcc`` for ``sm_90a`` into a shared
-library under ``patchrefinerv2_torch/_build/`` (named by a hash of the
-source, so an edited source rebuilds) and loaded with ``ctypes``. Every
+Each ``csrc/<name>.cu`` is a standalone source with a plain C interface
+(it may include local headers, ``csrc/*.cuh``). It is compiled at first
+use with ``nvcc`` for ``sm_90a`` into a shared library under
+``patchrefinerv2_torch/_build/`` (named by a hash of the source and of
+every local header it includes, so an edited source or header rebuilds)
+and loaded with ``ctypes``. Every
 C entry takes ``void*`` pointers and a ``void*`` CUDA stream and returns
 ``cudaGetLastError()``; :func:`check` raises when it is not 0.
 
@@ -17,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,10 +49,27 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def local_files(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every local header it includes (``#include
+    "..."``, followed through the headers), in the order first met."""
+    files, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        f = todo.pop(0)
+        if f in files:
+            continue
+        files.append(f)
+        todo += [f.parent / m.decode() for m in _LOCAL_INCLUDE.findall(f.read_bytes())]
+    return files
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for f in local_files(name):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _nvcc_cmd(name: str, out: Path) -> list[str]:

@@ -8,7 +8,9 @@ Counterpart of ``patchrefinerv2_tpu/ops/roi_align.py`` (``roi_align``
 size), so other ratios raise.
 
 On a CUDA tensor :func:`roi_align` launches ``csrc/roi_align.cu`` (or
-raises); on a CPU tensor it runs :func:`roi_align_plain`.
+raises), one block per (box, band of output rows) with the path and band
+that :func:`launch_plan` picks; on a CPU tensor it runs
+:func:`roi_align_plain`.
 ``roi_align.launches`` counts the kernel launches. A box index outside
 the batch raises on the CPU and gives zeros from the kernel.
 """
@@ -19,7 +21,10 @@ import torch
 
 from patchrefinerv2_torch.ops import _cuda
 
-__all__ = ["roi_align", "roi_align_plain"]
+__all__ = ["roi_align", "roi_align_plain", "launch_plan"]
+
+MODES = {"scalar": 0, "channels": 1, "columns": 2}
+BAND_BYTES = 32 * 1024  # output bytes a block writes, at least one row
 
 
 def _axis_taps(lo, hi, out_size: int, in_size: int):
@@ -58,6 +63,21 @@ def roi_align_plain(features, boxes, box_idx, output_size, spatial_scale=1.0):
     return out.to(features.dtype)
 
 
+def launch_plan(c: int, oh: int, ow: int, itemsize: int, aligned: bool = True) -> dict:
+    """The kernel's path and band for (N, oh, ow, c) outputs of ``itemsize``
+    bytes: ``"channels"``, 16-byte vectors of ``vec`` channels of a pixel,
+    where c is a multiple of ``vec``; ``"columns"``, ``vec`` consecutive
+    outputs of a row, for a 1-channel map whose rows are a multiple of
+    ``vec``; else ``"scalar"``, one element a thread. The vector paths need
+    the map and the output at 16-byte aligned addresses (``aligned``).
+    ``band``: the output rows of a block, ~``BAND_BYTES`` of output."""
+    vec = 16 // itemsize
+    mode = ("channels" if aligned and c % vec == 0 else
+            "columns" if aligned and c == 1 and ow % vec == 0 else "scalar")
+    band = max(1, min(oh, BAND_BYTES // max(1, ow * c * itemsize)))
+    return dict(mode=mode, vec=1 if mode == "scalar" else vec, band=band, blocks=-(-oh // band))
+
+
 def roi_align(features, boxes, box_idx, output_size, spatial_scale: float = 1.0,
               sampling_ratio: int = 1):
     """Aligned RoI-Align of NHWC ``features`` -> (N, out_h, out_w, C) in the
@@ -78,9 +98,12 @@ def roi_align(features, boxes, box_idx, output_size, spatial_scale: float = 1.0,
     n = boxes.shape[0]
     oh, ow = int(output_size[0]), int(output_size[1])
     out = torch.empty((n, oh, ow, c), dtype=features.dtype, device=features.device)
-    fn = _cuda.bind("roi_align", "prv2_roi_align", 4, 7, 1)
+    aligned = features.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    plan = launch_plan(c, oh, ow, features.element_size(), aligned)
+    fn = _cuda.bind("roi_align", "prv2_roi_align", 4, 9, 1)
     rc = fn(_cuda.ptr(features), _cuda.ptr(boxes), _cuda.ptr(box_idx), _cuda.ptr(out),
-            n, b, h, w, c, oh, ow, float(spatial_scale), dt, _cuda.stream_of(features))
+            n, b, h, w, c, oh, ow, plan["band"], MODES[plan["mode"]], float(spatial_scale), dt,
+            _cuda.stream_of(features))
     _cuda.check(rc, "roi_align")
     roi_align.launches += 1
     return out

@@ -25,8 +25,14 @@ once, to the input dtype.
 
 On a CUDA tensor :func:`tail_conv` launches the kernel of
 ``csrc/tail_conv.cu`` (or raises): it reads the parts in place, without a
-concatenation, and writes ``y`` once. On a CPU tensor it runs
-:func:`tail_conv_plain`. ``tail_conv.launches`` counts the kernel launches.
+concatenation, and writes ``y`` once. :func:`launch_plan` picks the kernel
+and its shapes: bfloat16 runs a persistent warp-specialised ``wgmma``
+implicit GEMM fed by a streamed ring of halo and weight k-steps (at Cout <=
+8 the ``mma.sync`` kernel), float32 the CUDA-core kernel (the tensor cores
+would round float32 to TF32). The weights are laid out once per weight
+tensor (:func:`formatted_weight`, re-formatted when the tensor changes).
+On a CPU tensor it runs :func:`tail_conv_plain`. ``tail_conv.launches``
+counts the kernel launches.
 """
 
 from __future__ import annotations
@@ -36,16 +42,77 @@ import torch.nn.functional as F
 
 from patchrefinerv2_torch.ops import _cuda
 
-__all__ = ["tail_conv", "tail_conv_plain"]
+__all__ = ["tail_conv", "tail_conv_plain", "launch_plan", "format_weight", "formatted_weight"]
 
 ACTS = {"none": 0, "relu": 1, "gelu": 2}
 MAX_PARTS = 4
-CHUNK = 32  # input channels per chunk of the kernel's weight layout (KC)
+CHUNK = 32  # input channels per chunk of the mma route's weight layout
+KSTEP = 16  # input channels per k-step of the wgmma route
+RUN = 64  # output pixels of an m64 run (a tile row) of the wgmma route
+SMEM_MAX = 232448  # shared memory a block can have (bytes)
+MAX_STAGES = 8
+WGMMA_FIXED = 128 + 128 + 3 * 128 * 4  # alignment, the ring's barriers, the epilogue's parameters
+MMA_RESIDENT = 113 * 1024  # the mma route keeps all of its weights when they fit
 
 
 def cout_pad(cout: int) -> int:
-    """The kernel's output-channel tile for ``cout`` (1..128)."""
+    """The kernels' output-channel tile for ``cout`` (1..128)."""
     return 8 if cout <= 8 else 32 if cout <= 32 else 128
+
+
+def _up128(b: int) -> int:
+    return -(-b // 128) * 128
+
+
+def launch_plan(widths, k: int, cout: int, dtype) -> dict:
+    """The host's plan for one ``tail_conv`` launch, as ``csrc/tail_conv.cu``
+    takes it, from the parts' widths, the kernel size, Cout and the dtype.
+
+    Route ``"wgmma"``, bfloat16 with Cout > 8: N = Cout padded to 32 or
+    128; ``runs`` m64 runs (tile rows of ``RUN`` pixels) for each of the two
+    consumer warpgroups, 2 at N 128 and 4 at N 32, so a tile is ``rows`` = 2
+    * runs rows by 64 pixels; a stage is one of the ``nk`` k-steps of 16
+    input channels: the tile's halo (``halo``: rows, channel halves of 8,
+    columns of 16-byte cells) and the weights of every tap; beside the ring
+    each consumer keeps an output tile (``runs`` x 64 pixel rows of N
+    bfloat16, padded by 16 bytes) through which the residual comes in and
+    the output goes out in 16-byte units; ``stages`` as many as fit beside
+    the barriers, the epilogue's parameters and the output tiles, at most 8;
+    ``producers`` warpgroups keep the ring full: 1 at N 128 (its
+    accumulators need the registers), 2 at N 32 (more cp.asyncs in flight
+    for the byte-bound sites).
+
+    Route ``"mma"``, float32 (CUDA-core FMAs: the tensor cores would round
+    float32 to TF32) and bfloat16 with Cout <= 8 (``mma.sync``: a wgmma of
+    N 8 is bound by its issue, not the tensor cores): tiles of 16 x 16 pixels (8 x
+    16 at N 128) by N, a chunk of 32 channels at a time, the weights kept
+    whole when they fit (``resident``)."""
+    cin, taps = sum(widths), k * k
+    n = cout_pad(cout)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"tail_conv takes float32 or bfloat16, got {dtype}")
+    if dtype == torch.bfloat16 and n > 8:
+        runs = 2 if n == 128 else 4
+        rows = 2 * runs
+        halo = (rows + k - 1, 2, RUN + k - 1)
+        a_bytes = halo[0] * halo[1] * halo[2] * 16
+        stage = _up128(a_bytes) + 2 * taps * n * 16
+        out = 2 * runs * RUN * (2 * n + 16)  # the consumers' output tiles, rows padded by 16 bytes
+        stages = min(MAX_STAGES, (SMEM_MAX - WGMMA_FIXED - out) // stage)
+        return dict(route="wgmma", n=n, runs=runs, producers=1 if n == 128 else 2, tile=(rows, RUN),
+                    halo=halo, nk=-(-cin // KSTEP), stages=stages, stage_bytes=stage, out_bytes=out,
+                    smem=WGMMA_FIXED + stages * stage + out)
+    bf = dtype == torch.bfloat16
+    es = 2 if bf else 4
+    th = 8 if n == 128 else 16
+    nch = -(-cin // CHUNK)
+    wb = _up128(taps * CHUNK * (n + (8 if bf else 0)) * es)
+    hb = _up128((th + k - 1) * (16 + k - 1) * (CHUNK + (8 if bf else 1)) * es)
+    ob = _up128(th * 16 * (n + 4) * 4)
+    resident = wb * nch + max(hb, ob) <= MMA_RESIDENT
+    smem = wb * nch + max(hb, ob) if resident else max(wb + hb, ob)
+    return dict(route="mma", n=n, runs=0, producers=0, tile=(th, 16), nk=nch, stages=0, smem=smem,
+                resident=resident)
 
 
 def tail_conv_plain(parts, weight, bias=None, residual=None, ln=None, act: str = "none",
@@ -77,13 +144,41 @@ def tail_conv_plain(parts, weight, bias=None, residual=None, ln=None, act: str =
 
 
 def format_weight(weight: torch.Tensor) -> torch.Tensor:
-    """(Cout, Cin, k, k) -> the kernel's [Cin chunks][k * k][32][Cout_pad],
-    zero-padded in both channel axes."""
+    """(Cout, Cin, k, k) -> the layout of the kernel that :func:`launch_plan`
+    picks for the weight's dtype and Cout, zero-padded past Cin and Cout (N
+    = ``cout_pad(Cout)``):
+
+    - route "mma" (float32; bfloat16 with Cout <= 8):
+      ``[ceil(Cin / 32)][k * k][32][N]``;
+    - route "wgmma" (bfloat16 with Cout > 8): ``[ceil(Cin / 16)][2][k *
+      k][N][8]``, for each k-step of 16 channels its two halves, each a
+      K-major plane of (tap, output channel) rows of 8 channels (16 bytes):
+      one contiguous block a k-step, which the kernel brings in one bulk
+      copy, ``wf[s, h, tap, o, i] = weight[o, 16 s + 8 h + i, tap // k, tap
+      % k]``."""
     cout, cin, k, _ = weight.shape
-    nch = -(-cin // CHUNK)
+    n = cout_pad(cout)
+    wgmma = weight.dtype == torch.bfloat16 and n > 8
+    step = KSTEP if wgmma else CHUNK
+    nch = -(-cin // step)
     w = weight.permute(2, 3, 1, 0).reshape(k * k, cin, cout)
-    w = F.pad(w, (0, cout_pad(cout) - cout, 0, nch * CHUNK - cin))
-    return w.reshape(k * k, nch, CHUNK, -1).transpose(0, 1).contiguous()
+    w = F.pad(w, (0, n - cout, 0, nch * step - cin))  # (taps, Cin_pad, N)
+    if not wgmma:
+        return w.reshape(k * k, nch, CHUNK, n).transpose(0, 1).contiguous()
+    return w.reshape(k * k, nch, 2, 8, n).permute(1, 2, 0, 4, 3).contiguous()
+
+
+def formatted_weight(weight: torch.Tensor) -> torch.Tensor:
+    """:func:`format_weight` of ``weight``, kept on the tensor and made anew
+    when its storage or its version counter changes (``load_jax_params``'
+    in-place copies, any ``copy_`` or ``data`` assignment), so that a frame
+    runs no format pass."""
+    key = (weight.data_ptr(), weight._version, weight.dtype, tuple(weight.shape))
+    kept = getattr(weight, "_tail_conv_format", None)
+    if kept is None or kept[0] != key:
+        kept = (key, format_weight(weight.detach()))
+        weight._tail_conv_format = kept
+    return kept[1]
 
 
 def tail_conv(parts, weight: torch.Tensor, bias: torch.Tensor | None = None,
@@ -119,7 +214,7 @@ def tail_conv(parts, weight: torch.Tensor, bias: torch.Tensor | None = None,
     extra = vecs + ([residual] if residual is not None else [])
     # require_cuda checks one device and the dense NHWC layout the kernel
     # assumes (is_contiguous on the NHWC view); it raises, it never copies.
-    # The weight may have any strides: format_weight re-lays it out.
+    # The weight may have any strides: formatted_weight re-lays it out.
     _cuda.require_cuda(*parts, *extra)
     if weight.device != parts[0].device:
         raise ValueError(f"weight on {weight.device}, parts on {parts[0].device}")
@@ -128,15 +223,17 @@ def tail_conv(parts, weight: torch.Tensor, bias: torch.Tensor | None = None,
         raise ValueError("tail_conv takes every tensor in one dtype, got "
                          f"{sorted({str(t.dtype) for t in parts + [weight] + extra})}")
     code = _cuda.dtype_code(dt)
-    wf = format_weight(weight)
+    plan = launch_plan([p.shape[3] for p in parts], k, cout, dt)
+    wf = formatted_weight(weight)
     y = torch.empty((n, h, w, cout), dtype=dt, device=parts[0].device)
     ps = parts + [None] * (MAX_PARTS - len(parts))
     cs = [p.shape[3] for p in parts] + [0] * (MAX_PARTS - len(parts))
     lg, lb = ln if ln is not None else (None, None)
-    fn = _cuda.bind("tail_conv", "prv2_tail_conv", 10, 11, 1)
+    fn = _cuda.bind("tail_conv", "prv2_tail_conv", 10, 15, 1)
     rc = fn(*(_cuda.ptr(p) for p in ps), _cuda.ptr(wf), _cuda.ptr(bias), _cuda.ptr(residual),
             _cuda.ptr(lg), _cuda.ptr(lb), _cuda.ptr(y), n, h, w, *cs, cout, k, int(relu_in),
-            ACTS[act], float(eps), code, _cuda.stream_of(y))
+            ACTS[act], plan["n"], plan["runs"], plan["producers"], plan["stages"], float(eps), code,
+            _cuda.stream_of(y))
     _cuda.check(rc, "tail_conv")
     tail_conv.launches += 1
     return y

@@ -36,7 +36,7 @@ from patchrefinerv2_torch.models.blocks.convs import DoubleConv, SingleConvCNNLN
 from patchrefinerv2_torch.models.blocks.dpt import C2FModule, GatedFusionBlock
 from patchrefinerv2_torch.models.blocks.fusion import BiDirectionalFusion
 from patchrefinerv2_torch.ops.tail_conv import (
-    CHUNK, cout_pad, format_weight, tail_conv, tail_conv_plain,
+    CHUNK, cout_pad, format_weight, launch_plan, tail_conv, tail_conv_plain,
 )
 from patchrefinerv2_torch.utils.jax_weights import load_jax_params
 from tests.test_torch_modules import _COARSE, _FINE, assert_close_nhwc, init_random, nchw
@@ -162,17 +162,27 @@ def test_plain_matches_final_conv_clamp():
 
 @pytest.mark.parametrize("k,split,cout,dtype", [
     (3, (32, 1, 1), 32, torch.bfloat16), (3, (98,), 32, torch.float32),
-    (1, (128,), 128, torch.bfloat16), (3, (40,), 128, torch.float32), (3, (5,), 1, torch.float32)])
+    (1, (128,), 128, torch.bfloat16), (3, (40,), 128, torch.float32), (3, (5,), 1, torch.float32),
+    (3, (32,), 1, torch.bfloat16)])
 def test_formatted_weight_reproduces_the_conv(k, split, cout, dtype):
-    """The kernel's weight layout ([Cin chunks][tap][32][Cout_pad], zero
-    padded) summed the way the kernel sums it gives the plain conv: the
-    contract between ``format_weight`` and ``csrc/tail_conv.cu``."""
+    """The weight layout of the kernel for the dtype and Cout, zero padded,
+    summed the way the kernel sums it gives the plain conv: the contract
+    between ``format_weight`` and ``csrc/tail_conv.cu``. Route "mma"
+    (float32, bfloat16 at Cout <= 8): [Cin chunks][tap][32][N]; "wgmma":
+    [k-steps of 16][half][tap][N][8]."""
     rng = np.random.RandomState(6)
     parts = [rng.randn(1, 5, 7, c).astype(np.float32) for c in split]
     _, w = _kernel(rng, k, sum(split), cout)
     wf = format_weight(w.to(dtype)).float().numpy()
-    nch, kk, kc, cpad = wf.shape
-    assert (kk, kc, cpad) == (k * k, CHUNK, cout_pad(cout))
+    if launch_plan(split, k, cout, dtype)["route"] == "wgmma":
+        nch, halves, kk, cpad, eight = wf.shape
+        assert (halves, kk, eight) == (2, k * k, 8)
+        wf = wf.transpose(0, 2, 1, 4, 3).reshape(nch, kk, 16, cpad)  # [k-step][tap][16][N]
+        kc = 16
+    else:
+        nch, kk, kc, cpad = wf.shape
+        assert (kk, kc) == (k * k, CHUNK)
+    assert cpad == cout_pad(cout)
     x = np.concatenate(parts, axis=-1)
     x = np.pad(x, ((0, 0), (k // 2,) * 2, (k // 2,) * 2, (0, nch * kc - x.shape[-1])))
     acc = np.zeros((1, 5, 7, cpad), np.float64)
