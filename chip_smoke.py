@@ -17,8 +17,11 @@ Phases (each prints one or more lines; any failure exits non-zero):
    patch, the blend of 16 raw patches and finalize at raw size); the
    metrics' float32 prediction resizes to the gt shape; canny_nms at the
    evaluation's (1, 1024, 2048) in float64, where the masks must be equal,
-   and float32; K9 ``tail_conv`` at each of its 9 sites in the 16- and
-   8-patch chunks of every path (``check_tail_conv``) and its edge cases in
+   and float32; K5 ``gate_tail`` at the 10 sites of a 16-patch chunk of
+   the flagship and DA2 frames in float32 and bfloat16, gate on, and gate
+   off at the head's shape (``check_gate_tail``); K9 ``tail_conv`` at each
+   of its 9 sites in the 16- and 8-patch chunks of every path
+   (``check_tail_conv``) and its edge cases in
    float32 and bfloat16; K10 ``quant_conv`` at its 15 int8 sites (the 3
    head sites with K9's time beside) in the flagship's 16- and 8-patch
    chunks and DA2's 16-patch chunk in bfloat16 and the flagship's 16-patch
@@ -31,10 +34,13 @@ Phases (each prints one or more lines; any failure exits non-zero):
    the other resize modes; every K2 path in float32 and bfloat16: channel
    counts 1, 3, 4, 8, 98, 194, 256 and 322, sources off alignment, a crop
    reaching outside the frame, nearest on maps holding inf and NaN bit for
-   bit; padded and per-patch-init blends; attention at S = 1, 17, 63, 64,
+   bit; padded and per-patch-init blends, bit for bit also on a canvas
+   width that is not a multiple of 4, on the add_pass kernel's tile seams
+   and with 49 patches over one tile; attention at S = 1, 17, 63, 64,
    65, 769 and 1025, head dims 16, 48 and 64, with and without the bias, in
    float32 and bfloat16 and each shape of the bfloat16 kernel's blocks; the
-   gate off and other channel counts, normed / exp / sum attractors, canny
+   gate off, other row counts (one tile of the bfloat16 kernel and one row
+   either side) in float32 and bfloat16, normed / exp / sum attractors, canny
    ties, zero gradients and maps one pixel wide or high);
 4. build the flagship (``configs/patchrefinerv2_zoedepth/v2_eff_u4k.py``,
    BEiT-L/16 24 blocks + EfficientNet-B5 + BiDirectionalFusion, random
@@ -48,10 +54,11 @@ Phases (each prints one or more lines; any failure exits non-zero):
    profiled) and an m1 first frame with per-tensor scales. The launch
    counters are set to 0 just before each first frame and read just after;
    every kernel but canny_nms (and K10 in the exact runs) must have
-   launched, K10 15 times a chunk and K9 6 times in the int8 runs, K10 0
-   and K9 9 times in the others (7 roi_align launches a chunk count the
-   chunks). Outputs must be finite maps of the reensemble canvas (1536,
-   2048), or of the raw frame (2160, 3840) for r32;
+   launched, K5 10 times a chunk in every run, K10 15 times a chunk and K9
+   6 times in the int8 runs, K10 0 and K9 9 times in the others (7
+   roi_align launches a chunk count the chunks). Outputs must be finite
+   maps of the reensemble canvas (1536, 2048), or of the raw frame (2160,
+   3840) for r32;
 5. the Depth-Anything-V2 path (``configs/patchrefinerv2_dav2/plus_eff_u4k.py``:
    DINOv2 ViT-L/14 24 blocks + DPT head at 448x448, the same refiner and
    fusion, random weights from seed 0), m1 in bfloat16 on the same frame:
@@ -518,8 +525,8 @@ def check_metric_resizes(chk: Checks, dev, g, tc) -> None:
 
 
 def check_new_kernels(chk: Checks, dev) -> None:
-    """K3/K4 attention, K5 gate_tail, K8 bins head and bicubic K2 at the
-    shapes of the flagship and DA2 frames."""
+    """K3/K4 attention, K8 bins head and bicubic K2 at the shapes of the
+    flagship and DA2 frames."""
     import torch
     import torch.nn.functional as F
 
@@ -527,7 +534,6 @@ def check_new_kernels(chk: Checks, dev) -> None:
     from patchrefinerv2_torch.ops.bins import (
         attractor_update, attractor_update_plain, log_binomial_depth, log_binomial_depth_plain,
     )
-    from patchrefinerv2_torch.ops.gated import gate_tail, gate_tail_plain
     from patchrefinerv2_torch.ops.resize import resize, resize_plain
 
     g = torch.Generator(device=dev).manual_seed(3)
@@ -554,27 +560,6 @@ def check_new_kernels(chk: Checks, dev) -> None:
                     time_ms(lambda: attention_plain(*args)), lib,
                     4 * 16 * s * 64 * es + (0 if table is None else table.numel() * es),
                     4 * 16 * s * s * 64, peak)
-    # K5, gate on: C2F refinenet1's units (16 patches at half the process
-    # shape, C = 256) and the full-resolution output_conv2_fusion unit at
-    # the config's coarse_chl[0] channels (32 in the flagship, 128 in DA2)
-    units = (("flagship", 16 * 192 * 256, 256), ("flagship", 16 * 384 * 512, 32),
-             ("da2", 16 * 224 * 224, 256), ("da2", 16 * 448 * 448, 128))
-    for dt in (getattr(torch, d) for d in DTYPES):
-        es = torch.finfo(dt).bits // 8
-        peak = BF16_TENSOR_FLOPS if dt == torch.bfloat16 else F32_FLOPS
-        for path, p, c in units:
-            f = (torch.randn((p, c), generator=g, device=dev) * 2 + 0.3).to(dt)
-            out = torch.randn((p, c), generator=g, device=dev).to(dt)
-            w = (torch.randn((c, c, 1, 1), generator=g, device=dev) * c ** -0.5).to(dt)
-            lw = (torch.rand((c,), generator=g, device=dev) + 0.5).to(dt)
-            lb = (torch.randn((c,), generator=g, device=dev) * 0.1).to(dt)
-            args = (f, out, w, lw, lb)
-            ref = gate_tail_plain(*args)
-            err = err_of(gate_tail(*args), ref)
-            chk.add("gate_tail", path, dt, err, tol_of(ref, dt), time_ms(lambda: gate_tail(*args)),
-                    time_ms(lambda: gate_tail_plain(*args)), None,
-                    3 * p * c * es + c * c * es + 2 * c * es, 2 * p * c * c + 12 * p * c, peak)
-            del f, out, ref
     # K8 (flagship only): the four attractor layers of the bins head (64
     # bins, 16/8/4/1 attractors at the decoder levels r4..r1 of a 384x512
     # input) and the log-binomial depth at 384x512. Tolerance in float32:
@@ -616,6 +601,66 @@ def check_new_kernels(chk: Checks, dev) -> None:
                 time_ms(lambda: resize(x, (32, 32), "bicubic", False, sc)),
                 time_ms(lambda: resize_plain(x, (32, 32), "bicubic", False, sc)), lib,
                 x.numel() * es + ref.numel() * es, 2 * 8 * ref.numel())
+
+
+# K5's sites in one 16-patch chunk of a path's frame: (name, rows, C, units).
+# The C2F decoder's refinenets run at 1/2, 1/4, ... 1/32 of the process
+# shape with c2f_features 256, two units each but refinenet5's one; the
+# head's unit runs at the process shape with coarse_chl[0] channels (32 in
+# the flagship, 128 in DA2): 10 launches a chunk.
+def gate_sites(process, h2: int, batch: int = 16) -> list:
+    h, w = process
+    sites = [(f"refinenet{k}", batch * (h >> k) * (w >> k), 256, 1 if k == 5 else 2) for k in range(1, 6)]
+    return sites + [("head", batch * h * w, h2, 1)]
+
+
+GATE_UNITS_PER_CHUNK = sum(s[3] for s in gate_sites((384, 512), 32))  # 10
+
+
+def check_gate_tail(chk: Checks, dev) -> None:
+    """K5 at every site of a 16-patch chunk of the flagship and DA2 frames
+    (``gate_sites``), gate on, in bfloat16 and float32 (TF32 off), and gate
+    off at the head's shape (the ``coarse-fusion`` C2F; checked and logged,
+    not recorded). A site with two units counts twice in the path's record,
+    so that its sums are a chunk's. Tolerance: float32 1e-5 of the output's
+    magnitude (the same float32 sums in another order); bfloat16 1e-2 of it
+    (one output rounding: the LN output, the 1x1 output and the sigmoid
+    are each rounded to bfloat16 on both sides, and a sum in another order
+    can cross a rounding boundary). Bound: f and out read once, y written
+    once, W and the LayerNorm's parameters; operations 2 P C^2 (bf16 on the
+    tensor cores) + 12 P C. No single PyTorch call computes the function.
+    Each bfloat16 site logs the kernel's launch plan."""
+    import torch
+
+    from patchrefinerv2_torch.ops.gated import gate_tail, gate_tail_plain, launch_plan
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for path in ("flagship", "da2"):
+        geo = PATHS[path]
+        h2 = geo["levels"][-2][2]
+        for dt in (getattr(torch, d) for d in geo["dtypes"]):
+            es = torch.finfo(dt).bits // 8
+            peak = BF16_TENSOR_FLOPS if dt == torch.bfloat16 else F32_FLOPS
+            sites = gate_sites(geo["process"], h2)
+            for name, p, c, units in sites + [("head_gate_off", *sites[-1][1:3], 0)]:
+                f = (torch.randn((p, c), generator=g, device=dev) * 2 + 0.3).to(dt)
+                out = torch.randn((p, c), generator=g, device=dev).to(dt) if units else None
+                w = (torch.randn((c, c, 1, 1), generator=g, device=dev) * c ** -0.5).to(dt)
+                lw = (torch.rand((c,), generator=g, device=dev) + 0.5).to(dt)
+                lb = (torch.randn((c,), generator=g, device=dev) * 0.1).to(dt)
+                args = (f, out, w, lw, lb)
+                ref = gate_tail_plain(*args)
+                err = err_of(gate_tail(*args), ref)
+                ms, plain_ms = time_ms(lambda: gate_tail(*args)), time_ms(lambda: gate_tail_plain(*args))
+                n = max(units, 1)
+                chk.add("gate_tail", path, dt, err, tol_of(ref, dt), n * ms, n * plain_ms, None,
+                        n * ((3 if units else 2) * p * c * es + c * c * es + 2 * c * es),
+                        n * (2 * p * c * c + 12 * p * c), peak, main=units > 0)
+                plan = launch_plan(p, c, sms) if dt == torch.bfloat16 else None
+                log({"gate_tail_site": name, "path": path, "dtype": str(dt)[6:], "rows": p, "channels": c,
+                     "units": units, "ms": ms, "plan": plan})
+                del f, out, ref, args
 
 
 # K9's sites in one chunk of a path's frame, in the order the head runs them:
@@ -1021,6 +1066,7 @@ def check_edge_cases(dev) -> None:
     add_pass_plain(s_p, preds.flip(0), mask, st, valid, initv)
     cases += [(f"blend {name}", a, b) for name, a, b in zip(s_k._fields, s_k, s_p)]
     cases.append(("blend finalize", TileBlender.finalize(s_k), finalize_plain(s_p)))
+    cases += blend_edge_cases(dev, g)
     # indices outside the maps: the kernels write zeros (the plain versions raise)
     far = torch.tensor([[9, 9]], dtype=torch.int32, device=dev)
     outside = [roi_align(f, boxes[:1], torch.tensor([2], dtype=torch.int32, device=dev), (8, 8)),
@@ -1034,6 +1080,45 @@ def check_edge_cases(dev) -> None:
         if not err <= tol:
             raise AssertionError(f"{name}: kernel and plain version disagree: {err} > {tol}")
     nearest_nonfinite_bit_equal(dev, g)
+
+
+def blend_edge_cases(dev, g) -> list:
+    """(name, kernel canvas, plain canvas) for the add_pass kernel's paths
+    that the frames do not reach, each bit for bit (tolerance 0): a canvas
+    width that is not a multiple of 4 (scalar canvas accesses), patches
+    that start or end on a seam of the kernel's canvas tiles or reach the
+    canvas edge, and 49 patches overlapping one tile (m2 with
+    process_num 49: a tile's list taken in two pieces), float32 and
+    bfloat16 predictions, per-patch init and valid flags."""
+    import torch
+
+    from patchrefinerv2_torch.ops.blend import TILE, BlendState, TileBlender, add_pass_plain
+
+    th, tw = TILE
+    cases = []
+    for name, canvas, hw, starts in (
+            ("odd width", (37, 301), (7, 29), [[i % 30, (7 * i) % 272] for i in range(20)]),
+            ("tile seams and edge", (2 * th + 5, 3 * tw), (9, 17),
+             [[th - 9, tw - 17], [th, tw], [th - 4, 2 * tw - 8], [2 * th + 5 - 9, 3 * tw - 17], [0, 0]]),
+            ("49 over one tile", (th + 8, tw + 40), (th, tw), [[i % 9, (3 * i) % 41] for i in range(49)])):
+        n = len(starts)
+        for dt in (torch.float32, torch.bfloat16):
+            preds = (torch.rand((n, *hw), generator=g, device=dev) * 10).to(dt)
+            mask = torch.rand(hw, generator=g, device=dev) + 1e-3
+            st = torch.tensor(starts, dtype=torch.int32, device=dev)
+            valid = (torch.rand((n,), generator=g, device=dev) > 0.1).float()
+            initv = (torch.rand((n,), generator=g, device=dev) > 0.5).float()
+            base = [torch.rand(canvas, generator=g, device=dev) * 10 for _ in range(3)]
+            s_k = BlendState(*(t.clone() for t in base))
+            s_p = BlendState(*(t.clone() for t in base))
+            TileBlender.add_pass(s_k, preds, mask, st, valid=valid, initv=initv)
+            add_pass_plain(s_p, preds, mask, st, valid, initv)
+            for field, a, b in zip(s_k._fields, s_k, s_p):
+                label = f"blend {name} {str(dt)[6:]} {field}"
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{label}: differs from the plain version")
+                cases.append((label, a, b))
+    return cases
 
 
 def resize_edge_cases(dev, g) -> list:
@@ -1112,8 +1197,8 @@ def new_kernel_edge_cases(dev, g) -> list:
     attention, gate_tail, bins and bicubic kernels that the frames do not
     reach: ragged token counts (S not a multiple of the 32-query or 64-key
     tiles), head dims 16 and 48 (the small composed graphs'), non-square
-    grids, two batches; the gate off and ragged row counts; normed, exp and
-    sum attractors; bicubic upsampling."""
+    grids, two batches; the gate off and ragged row counts (gate_tail in
+    bfloat16 too); normed, exp and sum attractors; bicubic upsampling."""
     import torch
 
     from patchrefinerv2_torch.ops.attention import attention, attention_plain
@@ -1157,14 +1242,20 @@ def new_kernel_edge_cases(dev, g) -> list:
                     cases.append((f"attention {str(dt)[6:]} S={s} D={d} B={b} H={h} bias={grid is not None}",
                                   attention(q, k, v, d ** -0.5, table, grid),
                                   attention_plain(q, k, v, d ** -0.5, table, grid)))
-    for p, c, gate in ((1000, 128, True), (777, 32, True), (1000, 32, False), (333, 256, False)):
-        f = torch.randn((p, c), generator=g, device=dev) * 2 + 0.3
-        out = torch.randn((p, c), generator=g, device=dev) if gate else None
-        w = torch.randn((c, c, 1, 1), generator=g, device=dev) * c ** -0.5
-        lw = torch.rand((c,), generator=g, device=dev) + 0.5
-        lb = torch.randn((c,), generator=g, device=dev) * 0.1
-        cases.append((f"gate_tail P={p} C={c} gate={gate}", gate_tail(f, out, w, lw, lb),
-                      gate_tail_plain(f, out, w, lw, lb)))
+    # gate_tail: ragged row counts, one tile of the bfloat16 kernel and one
+    # row either side (256 rows at C = 32, 64 above), a single row
+    for dt in (torch.float32, torch.bfloat16):
+        for p, c, gate in ((1000, 128, True), (777, 32, True), (1000, 32, False), (333, 256, False),
+                           (1, 256, True), (255, 32, True), (256, 32, False), (257, 32, True),
+                           (63, 128, False), (64, 128, True), (65, 128, True), (63, 256, True),
+                           (64, 256, False), (65, 256, True)):
+            f = (torch.randn((p, c), generator=g, device=dev) * 2 + 0.3).to(dt)
+            out = torch.randn((p, c), generator=g, device=dev).to(dt) if gate else None
+            w = (torch.randn((c, c, 1, 1), generator=g, device=dev) * c ** -0.5).to(dt)
+            lw = (torch.rand((c,), generator=g, device=dev) + 0.5).to(dt)
+            lb = (torch.randn((c,), generator=g, device=dev) * 0.1).to(dt)
+            cases.append((f"gate_tail {str(dt)[6:]} P={p} C={c} gate={gate}", gate_tail(f, out, w, lw, lb),
+                          gate_tail_plain(f, out, w, lw, lb)))
     a = torch.rand((2, 7, 9, 3), generator=g, device=dev) * 2
     bc = torch.rand((2, 7, 9, 64), generator=g, device=dev)
     for kind, typ, normed in (("sum", "exp", False), ("mean", "exp", True), ("sum", "inv", True),
@@ -1239,7 +1330,7 @@ KERNEL_GROUPS = (
 
 
 # each K group's wrappers (names of ``ops.KERNELS``), and whether the
-# profile must count exactly one kernel of the group a call: K1 and K9,
+# profile must count exactly one kernel of the group a call: K1, K5 and K9,
 # one launch a call, in the chunk part of the frame. The profiler can drop
 # the first events of a frame (DA2's coarse branch lost 2 of 24 attention
 # launches in one run), so the other groups must only have launches where
@@ -1249,7 +1340,7 @@ K_GROUP_WRAPPERS = {
     "K1 roi_align": (("roi_align",), True),
     "K2 resize": (("resize", "crop_resize"), False),
     "K3/K4 attention": (("attention",), False),
-    "K5 gate_tail": (("gate_tail",), False),
+    "K5 gate_tail": (("gate_tail",), True),
     "K6 layer_norm": (("layer_norm",), False),
     "K7 blend": (("blend_add_pass", "blend_finalize"), False),
     "K8 bins": (("attractor_update", "log_binomial_depth"), False),
@@ -1322,6 +1413,17 @@ def check_tail_per_chunk(label, counts, per_chunk=9) -> None:
                              f"not {per_chunk} a chunk")
 
 
+def check_gate_per_chunk(label, counts) -> None:
+    """K5 runs once at each GatedConvUnit of the fusion head in every chunk
+    (9 C2F units and the head's), in every run, int8 included: 10 a
+    chunk (roi_align's 7 count the chunks)."""
+    chunks = counts["roi_align"] / 7
+    log({"phase": f"{label}_gate_tail_per_chunk", "chunks": chunks, "gate_tail": counts["gate_tail"]})
+    if chunks < 1 or counts["gate_tail"] != GATE_UNITS_PER_CHUNK * chunks:
+        raise AssertionError(f"{label}: {counts['gate_tail']} gate_tail launches for {chunks} chunks, "
+                             f"not {GATE_UNITS_PER_CHUNK} a chunk")
+
+
 def check_quant_per_chunk(label, counts, per_chunk) -> None:
     """K10 runs once at each of its ``per_chunk`` sites in every chunk of an
     int8 run (15), and never in an exact run (0)."""
@@ -1374,6 +1476,7 @@ class Frames:
         if idle:
             raise AssertionError(f"{label}: kernels never launched on the main path: {idle}")
         check_tail_per_chunk(label, counts, 9 - (HEAD_INT8_SITES if int8_sites else 0))
+        check_gate_per_chunk(label, counts)
         check_quant_per_chunk(label, counts, int8_sites)
         return depth, counts
 
@@ -1708,6 +1811,7 @@ def cityscapes_eval(dev) -> dict:
         if idle:
             raise AssertionError(f"cityscapes eval {mode}: kernels never launched: {idle}")
         check_tail_per_chunk(f"cityscapes_eval_{mode}", c)
+        check_gate_per_chunk(f"cityscapes_eval_{mode}", c)
         check_quant_per_chunk(f"cityscapes_eval_{mode}", c, 0)
     return counts
 
@@ -1824,6 +1928,7 @@ def main() -> int:
     chk = Checks()
     check_kernels(chk, dev)
     check_new_kernels(chk, dev)
+    check_gate_tail(chk, dev)
     check_tail_conv(chk, dev)
     check_quant_conv(chk, dev)
     check_canny(chk, dev)

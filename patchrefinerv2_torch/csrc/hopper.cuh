@@ -1,5 +1,5 @@
 // Hopper building blocks shared by the wgmma kernels (csrc/quant_conv.cu,
-// csrc/tail_conv.cu): shared-memory addresses, mbarriers, bulk copies, the
+// csrc/tail_conv.cu, csrc/gated_conv.cu): shared-memory addresses, mbarriers, bulk copies, the
 // wgmma fences and the shared-memory matrix descriptor. Each source that
 // includes this header is its own library; ops/_cuda.py rebuilds a source
 // when a header it includes changes.
@@ -52,9 +52,9 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 // A shared-memory matrix descriptor, K-major without swizzle: core matrices
 // of 8 rows by 16 bytes (rows 16 bytes apart), `lbo` bytes between the two
 // core matrices of a k-step's 32 bytes (int8 k32 or bfloat16 k16: the two
-// 16-byte halves of its channels), 128 bytes between groups of 8 rows
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr >> 4) & 0x3fff) | (uint64_t)((lbo >> 4) & 0x3fff) << 16 | (uint64_t)(128 >> 4) << 32;
+// 16-byte halves of its channels), `sbo` bytes between groups of 8 rows
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo = 128) {
+  return (uint64_t)((addr >> 4) & 0x3fff) | (uint64_t)((lbo >> 4) & 0x3fff) << 16 | (uint64_t)((sbo >> 4) & 0x3fff) << 32;
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }

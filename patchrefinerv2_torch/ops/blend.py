@@ -9,8 +9,10 @@ of masks). ``finalize`` is ``where(sum_w > 0, sum_wp / sum_w, mosaic)``.
 
 Unlike the functional JAX version, :meth:`TileBlender.add_pass` updates the
 canvases in place (it returns the same state), which saves copying three
-canvases per chunk. On CUDA canvases it launches ``csrc/blend.cu``; on CPU
-canvases it runs the plain version, a loop over the patches in order.
+canvases per chunk. On CUDA canvases it launches ``csrc/blend.cu`` (a block
+per canvas tile of ``TILE`` pixels, over the patches that overlap the tile,
+listed in patch order ``LIST_CAP`` at a time); on CPU canvases it runs the
+plain version, a loop over the patches in order.
 ``TileBlender.add_pass.launches`` and ``TileBlender.finalize.launches``
 count the kernel launches.
 """
@@ -25,6 +27,9 @@ from patchrefinerv2_torch.ops import _cuda
 from patchrefinerv2_torch.ops.resize import resize
 
 __all__ = ["BlendState", "TileBlender", "add_pass_plain", "finalize_plain"]
+
+TILE = (32, 128)  # the add_pass kernel's canvas tile (rows, columns)
+LIST_CAP = 32  # patches a tile's list holds; more are taken in pieces
 
 
 class BlendState(NamedTuple):
@@ -89,6 +94,9 @@ class TileBlender:
         initv = initv.to(device=dev, dtype=torch.float32).contiguous()
         _cuda.require_cuda(state.mosaic, state.sum_wp, state.sum_w, preds, mask, starts, valid, initv)
         rh, rw = state.sum_w.shape
+        if rh * rw >= 2 ** 31 or n * h * w >= 2 ** 31:
+            raise ValueError(f"blend add_pass indexes with 32 bits: a ({rh}, {rw}) canvas and "
+                             f"({n}, {h}, {w}) predictions are too large")
         fn = _cuda.bind("blend", "prv2_blend_add", 8, 5)
         rc = fn(_cuda.ptr(state.mosaic), _cuda.ptr(state.sum_wp), _cuda.ptr(state.sum_w),
                 _cuda.ptr(preds), _cuda.ptr(mask), _cuda.ptr(starts), _cuda.ptr(valid),

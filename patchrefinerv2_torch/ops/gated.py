@@ -11,11 +11,15 @@ the input dtype, as the JAX package's ops round them.
 On a CUDA tensor :func:`gate_tail` launches the kernel of
 ``csrc/gated_conv.cu`` (or raises), which reads ``f`` and ``out`` once and
 writes ``y`` once: the LN output and the 1x1 output stay in shared memory
-and registers. On a CPU tensor it runs :func:`gate_tail_plain`.
-``gate_tail.launches`` counts the kernel launches.
+and registers. In bfloat16 it is a persistent kernel that streams tiles of
+``f`` through a ring in shared memory and runs the 1x1 on ``wgmma``;
+:func:`launch_plan` sizes its tiles, ring and grid. On a CPU tensor it runs
+:func:`gate_tail_plain`. ``gate_tail.launches`` counts the kernel launches.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -27,6 +31,32 @@ __all__ = ["gate_tail", "gate_tail_plain"]
 # the configurations' GatedConvUnit widths: c2f_features 256, and head2
 # (coarse_chl[0]) 32 in the ZoeDepth flagship, 128 in Depth-Anything-V2
 CHANNELS = (32, 128, 256)
+SMEM_MAX = 232448  # shared memory a block can have (bytes)
+MAX_STAGES = 8
+# alignment, the ring's barriers, the LayerNorm's scale and bias
+FIXED = 128 + 128 + 1024
+
+
+def launch_plan(rows: int, c: int, sms: int = 132) -> dict:
+    """The bfloat16 kernel's plan for ``rows`` rows of ``c`` channels on a
+    card of ``sms`` SMs: a tile of ``tile_rows`` rows (one m64 block, four
+    at C = 32, where a row is 64 bytes), ``stages`` f tiles in the ring
+    beside the resident W (as many as fit, at most 8), one block of 384
+    threads per SM (``grid``: the SMs, or the tiles where fewer) and its
+    shared memory ``smem``."""
+    if c not in CHANNELS:
+        raise ValueError(f"gate_tail kernel takes {CHANNELS} channels, got {c}")
+    tile_rows = 256 if c == 32 else 64
+    stage = tile_rows * c * 2
+    stages = min(MAX_STAGES, (SMEM_MAX - FIXED - c * c * 2) // stage)
+    tiles = -(-rows // tile_rows)
+    return dict(tile_rows=tile_rows, stages=stages, smem=FIXED + c * c * 2 + stages * stage,
+                tiles=tiles, grid=max(1, min(tiles, sms)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def gate_tail_plain(f, out, weight, ln_weight, ln_bias, eps: float = 1e-6):
@@ -57,13 +87,16 @@ def gate_tail(f: torch.Tensor, out: torch.Tensor | None, weight: torch.Tensor,
     _cuda.require_cuda(*tensors)
     if any(t.dtype != f.dtype for t in tensors):
         raise ValueError("gate_tail takes every tensor in one dtype")
-    if any(t.data_ptr() % 16 for t in (f, out) if t is not None):
-        raise ValueError("gate_tail reads f and out 16 bytes at a time: they must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (f, out, w) if t is not None):
+        raise ValueError("gate_tail reads f, out and the weight 16 bytes at a time: they must be "
+                         "16-byte aligned")
     dt = _cuda.dtype_code(f.dtype)
     y = torch.empty_like(f)
-    fn = _cuda.bind("gated_conv", "prv2_gate_tail", 6, 2, 1)
+    rows = f.numel() // c
+    plan = launch_plan(rows, c, _sms(f.device)) if f.dtype == torch.bfloat16 else dict(stages=0, grid=0)
+    fn = _cuda.bind("gated_conv", "prv2_gate_tail", 6, 4, 1)
     rc = fn(_cuda.ptr(f), _cuda.ptr(out), _cuda.ptr(w), _cuda.ptr(ln_weight), _cuda.ptr(ln_bias),
-            _cuda.ptr(y), f.numel() // c, c, float(eps), dt, _cuda.stream_of(f))
+            _cuda.ptr(y), rows, c, plan["stages"], plan["grid"], float(eps), dt, _cuda.stream_of(f))
     _cuda.check(rc, "gate_tail")
     gate_tail.launches += 1
     return y
