@@ -8,7 +8,7 @@ Phases (each prints one or more lines; any failure exits non-zero):
 1. the device: ``nvidia-smi`` name and power limit, ``torch`` device name;
 2. build every hand-written kernel from the sources in this checkout (one
    ``nvcc`` per CUDA source, all started together, plus the Triton
-   LayerNorm and bins kernels) and print the build seconds;
+   LayerNorm kernel) and print the build seconds;
 3. hold every kernel against its plain PyTorch version at the shapes each
    main path gives it: the flagship's and DA2's 2160x3840 frames (``PATHS``)
    in float32 (TF32 off) and bfloat16; the Cityscapes 1024x2048 frame in
@@ -27,7 +27,12 @@ Phases (each prints one or more lines; any failure exits non-zero):
    chunks and DA2's 16-patch chunk in bfloat16 and the flagship's 16-patch
    chunk in float32, with per-channel (by pixel phase at the head unit),
    per-tensor and dynamic scales (``check_quant_conv``), bit for bit, and
-   its edge cases; each with the tolerance stated, and time the
+   its edge cases; K8 at the flagship's five bins-head calls
+   (``BINS_CALLS``: four attractor layers and the log-binomial depth, each
+   resizing the centres it takes in) in float32 and bfloat16, with the time
+   of the K2 resize each took in before and a bound from its bytes and the
+   operations of the function (``bins_operations``); each with
+   the tolerance stated, and time the
    kernel, the plain version and, where one PyTorch call computes the same
    function, that call (device time: ``time_ms``); then, at small shapes,
    the kernels' paths the main paths do not reach (roi_align border bands,
@@ -56,7 +61,8 @@ Phases (each prints one or more lines; any failure exits non-zero):
    every kernel but canny_nms (and K10 in the exact runs) must have
    launched, K5 10 times a chunk in every run, K10 15 times a chunk and K9
    6 times in the int8 runs, K10 0 and K9 9 times in the others (7
-   roi_align launches a chunk count the chunks). Outputs must be finite
+   roi_align launches a chunk count the chunks), K8 4 + 1 times a frame
+   (0 on DA2; ``check_bins_per_frame``). Outputs must be finite
    maps of the reensemble canvas (1536, 2048), or of the raw frame (2160,
    3840) for r32;
 5. the Depth-Anything-V2 path (``configs/patchrefinerv2_dav2/plus_eff_u4k.py``:
@@ -185,15 +191,18 @@ class Checks:
         self.rec = {}
 
     def add(self, name, path, dtype, err, tol, kernel_ms, plain_ms, library_ms, nbytes, flops,
-            peak=F32_FLOPS, main=True):
+            peak=F32_FLOPS, main=True, extra=None):
         """Log one check and raise if it fails; record it unless ``main`` is
-        false (a dtype that the path does not run at these shapes)."""
+        false (a dtype that the path does not run at these shapes).
+        ``extra``: more times of the check, logged and summed into the
+        record under their names."""
         dname = str(dtype).replace("torch.", "")
         ok = err <= tol
         b, by = bound_ms(nbytes, flops, peak)
+        extra = extra or {}
         log({"check": name, "path": path, "dtype": dname,
              "max_abs_err": err, "tol": tol, "ok": ok, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-             "library_ms": library_ms, "bound_ms": b, "bound_by": by})
+             "library_ms": library_ms, "bound_ms": b, "bound_by": by, **extra})
         if not ok:
             raise AssertionError(f"{name} ({path}, {dtype}) disagrees with its plain version: "
                                  f"{err} > {tol}")
@@ -201,7 +210,7 @@ class Checks:
             return
         for key in (f"{path}_{SHORT[dname]}", "both"):
             r = self.rec.setdefault(name, {}).setdefault(key, dict(
-                max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, by={}))
+                max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, by={}, extra={}))
             r["max_abs_err"] = max(r["max_abs_err"], err)
             r["ms"] += kernel_ms
             r["plain_ms"] += plain_ms
@@ -209,6 +218,8 @@ class Checks:
                                else r["library_ms"] + library_ms)
             r["bound_ms"] += b
             r["by"][by] = r["by"].get(by, 0.0) + b
+            for k, v in extra.items():
+                r["extra"][k] = r["extra"].get(k, 0.0) + v
 
     def record(self, name) -> dict:
         """The kernel's numbers summed over the shapes of every path, and each
@@ -218,7 +229,7 @@ class Checks:
         for key, r in self.rec[name].items():
             out[key] = dict(max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=max(r["by"], key=r["by"].get),
-                            library_ms=r["library_ms"])
+                            library_ms=r["library_ms"], **r["extra"])
         return {**out.pop("both"), **out}
 
 
@@ -524,9 +535,37 @@ def check_metric_resizes(chk: Checks, dev, g, tc) -> None:
                 4 * (x.numel() + ref.numel()), 6 * ref.numel())
 
 
+# The flagship's bins head: the four attractor layers (64 bins, 16/8/4/1
+# attractors at the decoder levels of a 384x512 input, each resizing the
+# previous level's centres) and the log-binomial depth at 384x512 from the
+# last level's 192x256 centres: (h, w) -> (H, W), attractors (0: the
+# log-binomial)
+BINS_CALLS = (((12, 16), (24, 32), 16), ((24, 32), (48, 64), 8), ((48, 64), (96, 128), 4),
+              ((96, 128), (192, 256), 1), ((192, 256), (384, 512), 0))
+
+
+def bins_operations(pixels: int, bins: int, attractors: int, resized: bool) -> int:
+    """The operations of one K8 call, counted from the function (an FMA
+    counts 2, a division, an exponential and a comparison 1 each), at
+    ``pixels`` output pixels of ``bins`` bins: 6 a (pixel, bin) for the
+    bilinear resize where the centres are resized (as K2's checks count
+    it); for the attractor layer (``attractors`` > 0) 6 a (pixel, bin,
+    attractor) (the difference, its square, 300 x square + 1, the quotient
+    and the sum) and 2 a (pixel, bin) (the mean's scale and the update);
+    for the log-binomial (``attractors`` = 0) 11 a (pixel, bin) (the
+    logit's two products and sums, the division by the temperature, the
+    max, the difference and its exponential, their sum, the product with
+    the centre and its sum) and 18 a pixel (the two ratios of pt, the
+    temperature, the clamps, the two logarithms and the last division)."""
+    resize = 6 * pixels * bins if resized else 0
+    if attractors:
+        return resize + pixels * bins * (6 * attractors + 2)
+    return resize + pixels * (11 * bins + 18)
+
+
 def check_new_kernels(chk: Checks, dev) -> None:
-    """K3/K4 attention, K8 bins head and bicubic K2 at the shapes of the
-    flagship and DA2 frames."""
+    """K3/K4 attention, K8 bins head (``BINS_CALLS``) and bicubic K2 at the
+    shapes of the flagship and DA2 frames."""
     import torch
     import torch.nn.functional as F
 
@@ -560,34 +599,41 @@ def check_new_kernels(chk: Checks, dev) -> None:
                     time_ms(lambda: attention_plain(*args)), lib,
                     4 * 16 * s * 64 * es + (0 if table is None else table.numel() * es),
                     4 * 16 * s * s * 64, peak)
-    # K8 (flagship only): the four attractor layers of the bins head (64
-    # bins, 16/8/4/1 attractors at the decoder levels r4..r1 of a 384x512
-    # input) and the log-binomial depth at 384x512. Tolerance in float32:
-    # 1e-5 of the magnitude for the attractors, 1e-4 for the log-binomial
-    # depth (its softmax divides logits up to ~600 by temperatures down to
-    # 0.0212, so a 1-ulp difference in a logarithm moves the depth by ~1e-5
-    # of its range)
+    # K8 (flagship only): BINS_CALLS, each with the resize of the centres it
+    # takes in. Tolerance in float32: 1e-5 of the magnitude for the
+    # attractors, 1e-4 for the log-binomial depth (its softmax divides
+    # logits up to ~600 by temperatures down to 0.0212, so a 1-ulp difference
+    # in a logarithm moves the depth by ~1e-5 of its range). Beside each: the
+    # time of the K2 resize that the call took in before (``absorbed_resize_ms``,
+    # the same shapes); the bound is the larger of the bytes (the coarse
+    # centres, not the upsampled ones) and the function's operations
+    # (``bins_operations``) at the float32 rate outside the tensor cores, in
+    # bfloat16 too (the data sheet gives no bfloat16 rate outside them)
     for dt in (getattr(torch, d) for d in DTYPES):
         es = torch.finfo(dt).bits // 8
-        for (h, w, na) in ((24, 32, 16), (48, 64, 8), (96, 128, 4), (192, 256, 1)):
-            a = (torch.rand((1, h, w, na), generator=g, device=dev) * 2).to(dt)
-            b = (torch.rand((1, h, w, 64), generator=g, device=dev) * 2).to(dt)
-            ref = attractor_update_plain(a, b, "mean", "inv")[0]
-            err = err_of(attractor_update(a, b, "mean", "inv")[0], ref)
-            chk.add("attractor_update", "flagship", dt, err, tol_of(ref, dt),
-                    time_ms(lambda: attractor_update(a, b, "mean", "inv")),
-                    time_ms(lambda: attractor_update_plain(a, b, "mean", "inv")), None,
-                    (a.numel() + 2 * b.numel()) * es, 6 * h * w * na * 64)
-        pt = (torch.rand((1, 384, 512, 4), generator=g, device=dev) * 3).to(dt)
-        cen = (torch.rand((1, 384, 512, 64), generator=g, device=dev) * 80).to(dt)
-        args = (pt, cen, 64, 0.0212, 50.0)
-        ref = log_binomial_depth_plain(*args)
-        err = err_of(log_binomial_depth(*args), ref)
-        tol = (1e-2 if dt == torch.bfloat16 else 1e-4) * max(float(ref.float().abs().max()), 1.0)
-        chk.add("log_binomial_depth", "flagship", dt, err, tol,
-                time_ms(lambda: log_binomial_depth(*args)),
-                time_ms(lambda: log_binomial_depth_plain(*args)), None,
-                (pt.numel() + cen.numel() + 384 * 512) * es, 384 * 512 * 64 * 12)
+        for (h, w), (oh, ow), na in BINS_CALLS:
+            b = (torch.rand((1, h, w, 64), generator=g, device=dev) * (80 if na == 0 else 2)).to(dt)
+            before = time_ms(lambda: resize(b, (oh, ow), "bilinear", True))
+            if na:
+                a = (torch.rand((1, oh, ow, na), generator=g, device=dev) * 2).to(dt)
+                args, name = (a, b, "mean", "inv"), "attractor_update"
+                fn, plain = attractor_update, attractor_update_plain
+                nbytes = (a.numel() + b.numel() + oh * ow * 64) * es
+            else:
+                a = (torch.rand((1, oh, ow, 4), generator=g, device=dev) * 3).to(dt)
+                args, name = (a, b, 64, 0.0212, 50.0), "log_binomial_depth"
+                fn, plain = log_binomial_depth, log_binomial_depth_plain
+                nbytes = (a.numel() + b.numel() + oh * ow) * es
+            ref, got = plain(*args), fn(*args)
+            if na:
+                ref, got = ref[0], got[0]
+                tol = tol_of(ref, dt)
+            else:
+                tol = (1e-2 if dt == torch.bfloat16 else 1e-4) * max(float(ref.float().abs().max()), 1.0)
+            chk.add(name, "flagship", dt, err_of(got, ref), tol, time_ms(lambda: fn(*args)),
+                    time_ms(lambda: plain(*args)), None, nbytes,
+                    bins_operations(oh * ow, 64, na, (h, w) != (oh, ow)),
+                    extra=dict(absorbed_resize_ms=before))
     # K2 bicubic (DA2 only): the DINOv2-L position embedding, 37x37 -> 32x32
     # x 1024 with the scale factors (32 + 0.1) / 37 (once per coarse forward)
     sc = ((32 + 0.1) / 37, (32 + 0.1) / 37)
@@ -1198,7 +1244,9 @@ def new_kernel_edge_cases(dev, g) -> list:
     reach: ragged token counts (S not a multiple of the 32-query or 64-key
     tiles), head dims 16 and 48 (the small composed graphs'), non-square
     grids, two batches; the gate off and ragged row counts (gate_tail in
-    bfloat16 too); normed, exp and sum attractors; bicubic upsampling."""
+    bfloat16 too); K8 in bfloat16 too, at odd and identity resizes, two
+    images, 12 and 16 bins, 1 and 16 attractors, every kind, type and normed
+    case, and 12, 16 and 1024 bins of the log-binomial; bicubic upsampling."""
     import torch
 
     from patchrefinerv2_torch.ops.attention import attention, attention_plain
@@ -1256,18 +1304,27 @@ def new_kernel_edge_cases(dev, g) -> list:
             lb = (torch.randn((c,), generator=g, device=dev) * 0.1).to(dt)
             cases.append((f"gate_tail {str(dt)[6:]} P={p} C={c} gate={gate}", gate_tail(f, out, w, lw, lb),
                           gate_tail_plain(f, out, w, lw, lb)))
-    a = torch.rand((2, 7, 9, 3), generator=g, device=dev) * 2
-    bc = torch.rand((2, 7, 9, 64), generator=g, device=dev)
-    for kind, typ, normed in (("sum", "exp", False), ("mean", "exp", True), ("sum", "inv", True),
-                              ("mean", "inv", True)):
-        got = attractor_update(a, bc, kind, typ, normed, 1e-3, 80.0)
-        ref = attractor_update_plain(a, bc, kind, typ, normed, 1e-3, 80.0)
-        cases += [(f"attractor {kind} {typ} normed={normed} b_new", got[0], ref[0]),
-                  (f"attractor {kind} {typ} normed={normed} centers", got[1], ref[1])]
-    pt = torch.rand((3, 5, 7, 4), generator=g, device=dev) * 3
-    cen = torch.sort(torch.rand((3, 5, 7, 16), generator=g, device=dev) * 10, dim=-1).values
-    cases.append(("log_binomial_depth K=16", log_binomial_depth(pt, cen, 16, 5.0, 50.0),
-                  log_binomial_depth_plain(pt, cen, 16, 5.0, 50.0)))
+    # K8 in float32 and bfloat16: the centres resized at an odd ratio, at the
+    # identity, 2 images; 12 and 16 bins (a pixel's lanes not a warp), 1 and 16
+    # attractors, 16-byte bin vectors (the last shape); every kind, type and
+    # normed case
+    for dt in (torch.float32, torch.bfloat16):
+        for bsz, src, out, na, nb in ((2, (7, 9), (13, 17), 16, 64), (1, (13, 17), (13, 17), 1, 16),
+                                      (2, (5, 6), (9, 11), 1, 12), (1, (6, 5), (12, 10), 3, 16),
+                                      (1, (48, 64), (96, 128), 3, 64)):
+            a = (torch.rand((bsz, *out, na), generator=g, device=dev) * 2).to(dt)
+            bc = torch.rand((bsz, *src, nb), generator=g, device=dev).to(dt)
+            for kind, typ, normed in itertools.product(("mean", "sum"), ("inv", "exp"), (False, True)):
+                got = attractor_update(a, bc, kind, typ, normed, 1e-3, 80.0)
+                ref = attractor_update_plain(a, bc, kind, typ, normed, 1e-3, 80.0)
+                name = f"attractor {str(dt)[6:]} {bsz}x{src}->{out} na={na} nb={nb} {kind} {typ} normed={normed}"
+                cases += [(f"{name} b_new", got[0], ref[0]), (f"{name} centers", got[1], ref[1])]
+        for bsz, src, out, k in ((3, (5, 7), (5, 7), 16), (2, (7, 9), (13, 17), 64), (1, (4, 5), (9, 11), 12),
+                                 (1, (13, 17), (13, 17), 64), (1, (3, 4), (5, 7), 1024)):
+            pt = (torch.rand((bsz, *out, 4), generator=g, device=dev) * 3).to(dt)
+            cen = torch.sort(torch.rand((bsz, *src, k), generator=g, device=dev) * 10, dim=-1).values.to(dt)
+            cases.append((f"log_binomial_depth {str(dt)[6:]} {bsz}x{src}->{out} K={k}",
+                          log_binomial_depth(pt, cen, k, 5.0, 50.0), log_binomial_depth_plain(pt, cen, k, 5.0, 50.0)))
     x = torch.randn((2, 13, 17, 5), generator=g, device=dev)
     cases.append(("resize bicubic up", resize(x, (29, 40), "bicubic"),
                   resize_plain(x, (29, 40), "bicubic")))
@@ -1434,14 +1491,27 @@ def check_quant_per_chunk(label, counts, per_chunk) -> None:
                              f"not {per_chunk} a chunk")
 
 
-class Frames:
-    """Runs one model's tiled inference on a fixed random 2160x3840 frame."""
+def check_bins_per_frame(label, counts, frames, per_frame) -> None:
+    """K8 runs in the coarse branch once a frame: ``per_frame`` = (attractor
+    launches, log-binomial launches), (4, 1) for the flagship's ZoeDepth
+    head, (0, 0) for DA2."""
+    got = (counts["attractor_update"], counts["log_binomial_depth"])
+    want = (per_frame[0] * frames, per_frame[1] * frames)
+    log({"phase": f"{label}_bins_launches", "frames": frames, "attractor_update": got[0],
+         "log_binomial_depth": got[1], "resize": counts["resize"]})
+    if got != want:
+        raise AssertionError(f"{label}: {got} K8 launches for {frames} frames, not {want}")
 
-    def __init__(self, model, lr_shape, dev):
+
+class Frames:
+    """Runs one model's tiled inference on a fixed random 2160x3840 frame;
+    ``bins``: its K8 launches a frame (``check_bins_per_frame``)."""
+
+    def __init__(self, model, lr_shape, dev, bins=(4, 1)):
         import torch
 
         g = torch.Generator().manual_seed(0)
-        self.model = model
+        self.model, self.bins = model, bins
         self.image_lr = torch.rand((1, *lr_shape, 3), generator=g).to(dev)
         self.image_hr = torch.rand((1, 2160, 3840, 3), generator=g).to(dev)
 
@@ -1478,6 +1548,7 @@ class Frames:
         check_tail_per_chunk(label, counts, 9 - (HEAD_INT8_SITES if int8_sites else 0))
         check_gate_per_chunk(label, counts)
         check_quant_per_chunk(label, counts, int8_sites)
+        check_bins_per_frame(label, counts, 1, self.bins)
         return depth, counts
 
     def timed(self, mode, label, n):
@@ -1596,7 +1667,7 @@ def depth_anything_v2(dev) -> dict:
 
     model = build(dev, "configs/patchrefinerv2_dav2/plus_eff_u4k.py", "da2")
     model.set_infer_dtype(torch.bfloat16)
-    fr = Frames(model, (448, 448), dev)
+    fr = Frames(model, (448, 448), dev, bins=(0, 0))
     torch.cuda.reset_peak_memory_stats()
     bins = ("attractor_update", "log_binomial_depth")
     d16, counts = fr.first("m1", "da2_m1_bfloat16_first", idle_ok=FRAME_IDLE_OK + bins)
@@ -1813,6 +1884,7 @@ def cityscapes_eval(dev) -> dict:
         check_tail_per_chunk(f"cityscapes_eval_{mode}", c)
         check_gate_per_chunk(f"cityscapes_eval_{mode}", c)
         check_quant_per_chunk(f"cityscapes_eval_{mode}", c, 0)
+        check_bins_per_frame(f"cityscapes_eval_{mode}", c, len(ds), (4, 1))
     return counts
 
 
@@ -1903,7 +1975,6 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from patchrefinerv2_torch import ops
     from patchrefinerv2_torch.ops import _cuda
-    from patchrefinerv2_torch.ops.bins import attractor_update, log_binomial_depth
     from patchrefinerv2_torch.ops.layer_norm import layer_norm
 
     dev = torch.device("cuda")
@@ -1920,8 +1991,6 @@ def main() -> int:
         _cuda.library(name)
     x = torch.ones((4, 32), device=dev)
     layer_norm(x, x[0], x[0])
-    attractor_update(x[:, :4].contiguous(), x)
-    log_binomial_depth(x[:, :4].contiguous(), x, 32, 0.1, 50.0)
     torch.cuda.synchronize()
     log({"phase": "build", "seconds": time.time() - t})
 

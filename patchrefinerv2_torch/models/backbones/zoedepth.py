@@ -8,9 +8,11 @@ Names follow zoedepth_v1.py: ``conv2``, ``seed_bin_regressor._net``,
 ``conditional_log_binomial.mlp``, with the core under ``core.core``.
 
 K8 (the bins-head per-pixel math: the attractor shifts and the
-log-binomial depth) runs through ``ops/bins``, which keeps the reference
-quirk: the attractor layers compute with alpha 300 and gamma 2 whatever the
-config says (the reference never forwards them).
+log-binomial depth) runs through ``ops/bins``, which also resizes the bin
+centres that the reference resizes before that math (``_interp`` at
+zoedepth.py:124, :159 and :375-376), and keeps the reference quirk: the
+attractor layers compute with alpha 300 and gamma 2 whatever the config
+says (the reference never forwards them).
 """
 
 from __future__ import annotations
@@ -62,8 +64,8 @@ class AttractorLayer(nn.Module):
         if self.normed:
             b, _, h, w = a.shape
             a = (a + 1e-3).reshape(b, self.n_attractors, 2, h, w)[:, :, 0]
-        b_centers = interp(b_prev, x.shape[2:])
-        b_new, centers = attractor_update(to_nhwc(a), to_nhwc(b_centers), self.kind,
+        # b_prev is resized to x's size inside attractor_update
+        b_new, centers = attractor_update(to_nhwc(a), to_nhwc(b_prev), self.kind,
                                           self.attractor_type, self.normed, self.min_depth,
                                           self.max_depth)
         return to_nchw(b_new), to_nchw(centers)
@@ -71,7 +73,8 @@ class AttractorLayer(nn.Module):
 
 class ConditionalLogBinomial(nn.Module):
     """The log-binomial MLP (dist_layers.py:78-155) and the depth it gives:
-    forward returns the expectation of the bin centres."""
+    forward returns the expectation of the bin centres, which it takes at
+    any size and resizes to x's (bilinear, align_corners)."""
 
     def __init__(self, in_features: int, n_classes: int, bottleneck: int, min_temp: float,
                  max_temp: float):
@@ -140,8 +143,7 @@ class ZoeDepthHead(nn.Module):
         last = out_conv
         size = last.shape[2:]
         last_cat = torch.cat([last, interp(rel_depth, size)], dim=1)
-        depth = self.conditional_log_binomial(last_cat, interp(b_embedding, size),
-                                              interp(b_centers, size))
+        depth = self.conditional_log_binomial(last_cat, interp(b_embedding, size), b_centers)
         return {"metric_depth": depth, "coarse_features": [x_d0, *x_blocks, last]}
 
 

@@ -42,12 +42,14 @@ KERNELS = {
     "gate_tail": dict(wrapper=gate_tail, route="cuda",
                       source="patchrefinerv2_torch/csrc/gated_conv.cu",
                       replaces="patchrefinerv2_tpu/models/blocks/dpt.py:96"),
-    "attractor_update": dict(wrapper=attractor_update, route="triton",
-                             source="patchrefinerv2_torch/ops/bins.py",
-                             replaces="patchrefinerv2_tpu/models/backbones/zoedepth.py:117"),
-    "log_binomial_depth": dict(wrapper=log_binomial_depth, route="triton",
-                               source="patchrefinerv2_torch/ops/bins.py",
-                               replaces="patchrefinerv2_tpu/models/backbones/zoedepth.py:186"),
+    "attractor_update": dict(wrapper=attractor_update, route="cuda",
+                             source="patchrefinerv2_torch/csrc/bins.cu",
+                             replaces="patchrefinerv2_tpu/models/backbones/zoedepth.py:117,149 "
+                                      "(with _interp :124,159)"),
+    "log_binomial_depth": dict(wrapper=log_binomial_depth, route="cuda",
+                               source="patchrefinerv2_torch/csrc/bins.cu",
+                               replaces="patchrefinerv2_tpu/models/backbones/zoedepth.py:186 "
+                                        "(with _interp :375-376)"),
     "canny_nms": dict(wrapper=canny_nms, route="cuda",
                       source="patchrefinerv2_torch/csrc/canny.cu",
                       replaces="patchrefinerv2_tpu/ops/canny.py:14"),

@@ -29,7 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("roi_align", "resize", "blend", "attention", "gated_conv", "canny", "tail_conv",
-           "quant_conv")
+           "quant_conv", "bins")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -145,6 +145,15 @@ def dtype_code(dtype) -> int:
     if dtype not in codes:
         raise TypeError(f"CUDA kernels take float32 or bfloat16, got {dtype}")
     return codes[dtype]
+
+
+@functools.lru_cache(maxsize=None)
+def sms(device) -> int:
+    """The number of SMs of a CUDA device (the launch plans size their grids
+    by it)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def require_cuda(*tensors) -> None:

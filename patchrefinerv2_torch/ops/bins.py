@@ -1,67 +1,86 @@
-"""K8: the ZoeDepth bins head's per-pixel math, two Triton kernels.
+"""K8: the ZoeDepth bins head's per-pixel math, with the bilinear resize of
+the bin centres taken in: two CUDA kernels, ``csrc/bins.cu``.
 
 Counterpart of ``patchrefinerv2_tpu/models/backbones/zoedepth.py``:
 
 - :func:`attractor_update` -- the attractor shift of the bin centres,
   ``b_new = b_centers + reduce_na(dist(a - b_centers))`` (``exp_attractor``
   :39, ``inv_attractor`` :44, ``AttractorLayerUnnormed`` :117-132,
-  ``AttractorLayerNormed`` :149-170). The reference quirk is kept: ``dist``
-  runs with alpha 300 and gamma 2 whatever the config says (:49-56). Normed
-  layers also return the centres scaled to [min_depth, max_depth], sorted
-  and clipped.
+  ``AttractorLayerNormed`` :149-170), where ``b_centers`` is the previous
+  layer's centres resized to the layer's size (``_interp(b_prev, ...)``,
+  :124 and :159). The reference quirk is kept: ``dist`` runs with alpha 300
+  and gamma 2 whatever the config says (:49-56). Normed layers also return
+  the centres scaled to [min_depth, max_depth], sorted and clipped.
 - :func:`log_binomial_depth` -- from the softplus ``pt`` of
   ``ConditionalLogBinomial`` (:195-217) to the depth: the binomial
   log-probabilities (``log_binom`` :173 with xlogy semantics), the softmax
-  over the K bins with the temperature, and the expectation over the
-  upsampled centres (:375-376).
+  over the K bins with the temperature, and the expectation over the last
+  centres resized to the output (``_interp(b_centers, ...)``, :375-376).
 
-Layout: channels last ((..., na), (..., nb), (..., 4), (..., K)). The
-attractor math runs in the input dtype, as the JAX layers write it: each
-elementwise step is rounded to it, and the reduction over the attractors
-accumulates in float32. The log-binomial math runs in float32 and only the
-depth is rounded to the input dtype. On a CUDA
-tensor the functions launch their kernel (or raise): one program per block
-of pixels holds the pixels' bins in registers, so neither the
-(B, H, W, na, nb) attractor differences nor the (B, H, W, K) probabilities
-are written; both kernels are bound by bytes (each input read once, each
-output written once). On a CPU tensor they run their plain versions.
-``attractor_update.launches`` and ``log_binomial_depth.launches`` count the
-launches.
+Layout: channels last, (B, H, W, na), (B, h, w, nb), (B, H, W, 4), (B, h,
+w, K). The resize is K2's (bilinear, align_corners, the taps of
+``ops/resize``), its result rounded to the input dtype; at equal sizes the
+centres are used as they are. The attractor math runs in the input dtype, as
+the JAX layers write it: each elementwise step is rounded to it, and the
+reduction over the attractors accumulates in float32. The log-binomial math
+runs in float32 and only the depth is rounded to the input dtype.
+
+On a CUDA tensor the functions launch their kernel (or raise), which
+gathers the resize taps itself, so the upsampled centres are never
+written; :func:`launch_plan` and :func:`log_binomial_plan` shape the
+launches. On a CPU tensor they run their plain versions, the resize and
+then the math. ``attractor_update.launches`` and
+``log_binomial_depth.launches`` count the launches.
 
 The log-binomial softmax divides logits of magnitude up to ~600 by a
 temperature down to ``min_temp`` (0.0212 in the flagship), so a 1-ulp
-difference in a logarithm can move a probability by ~1e-4 relative: the
-kernels call libdevice's ``log``, ``exp`` and correctly rounded division,
-the functions PyTorch's CUDA ops use, to stay within that of the plain
-versions.
+difference in a logarithm or a quotient can move a probability by ~1e-4
+relative: the kernel computes ``log``, ``exp`` and the correctly rounded
+division as PyTorch's CUDA ops do, to stay within that of the plain
+version.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from patchrefinerv2_torch.ops import _cuda
+from patchrefinerv2_torch.ops.resize import _alignment, _packed_taps_on, axis_taps, resize_plain
 
-__all__ = ["attractor_update", "attractor_update_plain", "log_binomial_depth",
-           "log_binomial_depth_plain"]
+__all__ = ["attractor_update", "attractor_update_plain", "launch_plan", "log_binomial_depth",
+           "log_binomial_depth_plain", "log_binomial_plan"]
 
 ATTRACTOR_ALPHA = 300.0  # attractor.py's jit-script default, used whatever the config says
 P_EPS = 1e-4
+MAX_BINS = 1024
+BLOCK_THREADS = 256  # the attractor kernel's largest block
+THREADS_PER_SM = 256  # threads an SM the attractor kernel must keep with 16-byte bin vectors
+LB_SMEM = 48 * 1024  # the log-binomial kernel's shared memory at most (bytes)
 
 
 # ---------------------------------------------------------------- plain versions
+def _resized(b, size):
+    """``b`` (B, h, w, C) at ``size`` as K2 resizes it (bilinear,
+    align_corners), or ``b`` itself at its own size."""
+    if tuple(b.shape[1:3]) == tuple(size):
+        return b
+    return resize_plain(b, size, "bilinear", True)
+
+
 def _dist(dx, attractor_type: str):
     if attractor_type == "inv":
         return dx / (1 + ATTRACTOR_ALPHA * dx ** 2)
     return torch.exp(-ATTRACTOR_ALPHA * torch.abs(dx) ** 2) * dx
 
 
-def attractor_update_plain(a, b_centers, kind: str = "mean", attractor_type: str = "inv",
+def attractor_update_plain(a, b_prev, kind: str = "mean", attractor_type: str = "inv",
                            normed: bool = False, min_depth: float = 1e-3, max_depth: float = 10.0):
     """Plain PyTorch version of :func:`attractor_update` (any device), in
     the input dtype as the JAX layers compute it."""
+    b_centers = _resized(b_prev, a.shape[1:3])
     dx = a[..., :, None] - b_centers[..., None, :]
     delta = _dist(dx, attractor_type)
     delta = delta.mean(-2) if kind == "mean" else delta.sum(-2)
@@ -88,6 +107,7 @@ def _log_binom_table(k: int, device) -> torch.Tensor:
 
 def log_binomial_depth_plain(pt, centers, n_bins: int, min_temp: float, max_temp: float):
     """Plain PyTorch version of :func:`log_binomial_depth` (any device)."""
+    centers = _resized(centers, pt.shape[1:3])
     pt32 = pt.float()
     p = pt32[..., :2] + P_EPS
     t = pt32[..., 2:] + P_EPS
@@ -103,119 +123,125 @@ def log_binomial_depth_plain(pt, centers, n_bins: int, min_temp: float, max_temp
     return torch.sum(probs * centers.float(), dim=-1, keepdim=True).to(pt.dtype)
 
 
+# ---------------------------------------------------------------- launch plans
+def launch_plan(batch: int, out_hw, na: int, nb: int, itemsize: int, normed: bool = False,
+                align: int = 16, sms: int = 132) -> dict:
+    """The attractor kernel's plan for ``batch`` images of ``out_hw`` output
+    pixels with ``nb`` bins and ``na`` attractors, elements of ``itemsize``
+    bytes and centres aligned to ``align`` bytes, on a card of ``sms`` SMs.
+    A thread holds ``vec`` bins of one pixel: 16 bytes' worth where that
+    still gives the card ``THREADS_PER_SM`` threads an SM (the largest
+    levels, where a thread's fixed work is then shared by more bins), else
+    2 (a bf16x2 or float2 pair), else 1. A pixel's ``nb / vec`` bin groups
+    lie on ``tpp`` consecutive lanes (a power of two, at most 256), each
+    lane walking ``groups`` of them ``tpp`` apart. A block holds ``pix``
+    consecutive pixels of an output row, as many as keep the grid, ``grid``
+    = (row segments, rows, images), at one block an SM or more (at most 256
+    threads); normed layers sort each pixel's centres in a row of ``np``
+    floats (a power of two) of shared memory."""
+    h_out, w_out = out_hw
+    wide = 16 // itemsize
+    if nb % wide == 0 and align % 16 == 0 and batch * h_out * w_out * (nb // wide) >= sms * THREADS_PER_SM:
+        vec = wide
+    elif nb % 2 == 0 and align % (2 * itemsize) == 0:
+        vec = 2
+    else:
+        vec = 1
+    lanes = nb // vec
+    tpp = min(BLOCK_THREADS, 1 << (lanes - 1).bit_length())
+    rows = batch * h_out
+    pix = max([q for q in range(1, BLOCK_THREADS // tpp + 1) if rows * -(-w_out // q) >= sms] or [1])
+    np_ = 1 << (nb - 1).bit_length() if normed else 0
+    return dict(vec=vec, tpp=tpp, groups=-(-lanes // tpp), pix=pix, threads=pix * tpp,
+                grid=(-(-w_out // pix), h_out, batch), np=np_, smem=4 * pix * np_)
+
+
+def _column_taps(w: int, out: int) -> np.ndarray:
+    """(2, out) source columns of each output column: its two taps, or
+    itself at equal sizes."""
+    if w == out:
+        return np.stack([np.arange(out), np.arange(out)])
+    return axis_taps(w, out, "bilinear", True)[0]
+
+
+def log_binomial_plan(src_hw, out_hw, k: int, batch: int, itemsize: int, aligned: bool = True,
+                      sms: int = 132) -> dict:
+    """The log-binomial kernel's plan for centres of ``src_hw`` resized to
+    ``out_hw`` with ``k`` bins. A block is a segment of ``bw`` pixels of an
+    output row (128, 64 or 32: the widest whose grid holds a block an SM or
+    more). ``staged``: the block resizes its segment's centres along H into
+    shared memory over its ``cols`` source columns (``smem`` bytes), which
+    needs K a multiple of 16 bytes' elements, 16-byte aligned centres and
+    at most ``LB_SMEM`` bytes; else each thread gathers
+    its four taps from device memory (a slower path no configuration
+    takes). ``registers``: K = 64, the logits held in registers."""
+    (_, w), (h_out, w_out) = src_hw, out_hw
+    cols_of = _column_taps(w, w_out)
+    widest = 32 * -(-w_out // 32)
+    widths = sorted({min(b, widest) for b in (128, 64, 32)}, reverse=True)
+    full = [b for b in widths if batch * h_out * -(-w_out // b) >= sms] or widths[-1:]
+    for bw in full:
+        starts = np.arange(0, w_out, bw)
+        ends = np.minimum(starts + bw, w_out) - 1
+        cols = int((cols_of[1][ends] - cols_of[0][starts]).max()) + 1
+        smem = 4 * cols * (k + 4)
+        if aligned and k % (16 // itemsize) == 0 and smem <= LB_SMEM:
+            return dict(bw=bw, staged=True, cols=cols, smem=smem, registers=k == 64,
+                        grid=(len(starts), h_out, batch))
+    bw = full[0]
+    return dict(bw=bw, staged=False, cols=0, smem=0, registers=k == 64,
+                grid=(-(-w_out // bw), h_out, batch))
+
+
+def _taps(src_hw, out_hw, device):
+    """The kernels' packed row and column taps of src_hw -> out_hw, or
+    (None, None) at equal sizes."""
+    if tuple(src_hw) == tuple(out_hw):
+        return None, None
+    return (_packed_taps_on(int(src_hw[0]), int(out_hw[0]), "bilinear", True, None, device),
+            _packed_taps_on(int(src_hw[1]), int(out_hw[1]), "bilinear", True, None, device))
+
+
+def _check_nhwc(x: torch.Tensor, y: torch.Tensor, names: str) -> None:
+    if x.ndim != 4 or y.ndim != 4 or x.shape[0] != y.shape[0]:
+        raise ValueError(f"{names}: expected NHWC tensors of one batch, got {tuple(x.shape)}, "
+                         f"{tuple(y.shape)}")
+
+
 # ---------------------------------------------------------------- kernels
-@functools.lru_cache(maxsize=None)
-def _kernels():
-    import triton
-    import triton.language as tl
-    from triton.language.extra import libdevice
-
-    @triton.jit
-    def attractor_kernel(A, Bc, Bn, Cen, P, NA, NB, na_f, alpha, lo, hi, span,
-                         BLOCK_P: tl.constexpr, BLOCK_B: tl.constexpr, INV: tl.constexpr,
-                         MEAN: tl.constexpr, NORMED: tl.constexpr):
-        rows = tl.program_id(0) * BLOCK_P + tl.arange(0, BLOCK_P)
-        cols = tl.arange(0, BLOCK_B)
-        rmask = rows < P
-        cmask = cols < NB
-        mask = rmask[:, None] & cmask[None, :]
-        rows64 = rows.to(tl.int64)
-        offs = rows64[:, None] * NB + cols[None, :]
-        dt = Bc.dtype.element_ty  # every step is rounded to it, as the eager ops round
-        b = tl.load(Bc + offs, mask=mask, other=0.0).to(tl.float32)
-        acc = tl.zeros([BLOCK_P, BLOCK_B], dtype=tl.float32)
-        for i in range(0, NA):
-            a = tl.load(A + rows64 * NA + i, mask=rmask, other=0.0).to(tl.float32)
-            dx = (a[:, None] - b).to(dt).to(tl.float32)
-            if INV:
-                den = (alpha * (dx * dx).to(dt).to(tl.float32)).to(dt).to(tl.float32)
-                den = (1.0 + den).to(dt).to(tl.float32)
-                acc += libdevice.div_rn(dx, den).to(dt).to(tl.float32)
-            else:
-                ad = tl.abs(dx)
-                e = (-alpha * (ad * ad).to(dt).to(tl.float32)).to(dt).to(tl.float32)
-                e = libdevice.exp(e).to(dt).to(tl.float32)
-                acc += (e * dx).to(dt).to(tl.float32)
-        if MEAN:
-            acc = libdevice.div_rn(acc, na_f)
-        b_new = (b + acc.to(dt).to(tl.float32)).to(dt).to(tl.float32)
-        tl.store(Bn + offs, b_new.to(dt), mask=mask)
-        if NORMED:
-            c = (span * b_new).to(dt).to(tl.float32)
-            c = (c + lo).to(dt).to(tl.float32)
-            c = tl.where(cmask[None, :], c, float("inf"))
-            c = tl.sort(c, dim=1)
-            c = tl.minimum(tl.maximum(c, lo), hi)
-            tl.store(Cen + offs, c.to(dt), mask=mask)
-
-    @triton.jit
-    def log_binomial_kernel(PT, Cen, LB, Out, P, K, min_temp, span, BLOCK_P: tl.constexpr,
-                            BLOCK_K: tl.constexpr):
-        rows = tl.program_id(0) * BLOCK_P + tl.arange(0, BLOCK_P)
-        cols = tl.arange(0, BLOCK_K)
-        rmask = rows < P
-        cmask = cols < K
-        mask = rmask[:, None] & cmask[None, :]
-        rows64 = rows.to(tl.int64)
-        p0 = tl.load(PT + rows64 * 4, mask=rmask, other=1.0).to(tl.float32) + 1e-4
-        p1 = tl.load(PT + rows64 * 4 + 1, mask=rmask, other=1.0).to(tl.float32) + 1e-4
-        t0 = tl.load(PT + rows64 * 4 + 2, mask=rmask, other=1.0).to(tl.float32) + 1e-4
-        t1 = tl.load(PT + rows64 * 4 + 3, mask=rmask, other=1.0).to(tl.float32) + 1e-4
-        p = libdevice.div_rn(p0, p0 + p1)
-        t = span * libdevice.div_rn(t0, t0 + t1) + min_temp
-        p = tl.minimum(tl.maximum(p, 1e-4), 1.0)
-        q = tl.minimum(tl.maximum(1.0 - p, 1e-4), 1.0)
-        k = cols.to(tl.float32)
-        lb = tl.load(LB + cols, mask=cmask, other=0.0)
-        y = (lb[None, :] + k[None, :] * libdevice.log(p)[:, None]
-             + ((K - 1) - k)[None, :] * libdevice.log(q)[:, None])
-        y = libdevice.div_rn(y, t[:, None])
-        y = tl.where(cmask[None, :], y, float("-inf"))
-        e = libdevice.exp(y - tl.max(y, axis=1)[:, None])
-        e = tl.where(cmask[None, :], e, 0.0)
-        prob = libdevice.div_rn(e, tl.sum(e, axis=1)[:, None])
-        c = tl.load(Cen + rows64[:, None] * K + cols[None, :], mask=mask, other=0.0).to(tl.float32)
-        depth = tl.sum(prob * c, axis=1)
-        tl.store(Out + rows64, depth.to(Out.dtype.element_ty), mask=rmask)
-
-    return triton, attractor_kernel, log_binomial_kernel
-
-
-def _blocks(width: int):
-    block = 1 << max(0, (width - 1).bit_length())
-    return max(1, min(128, 4096 // block)), block
-
-
-def attractor_update(a: torch.Tensor, b_centers: torch.Tensor, kind: str = "mean",
+def attractor_update(a: torch.Tensor, b_prev: torch.Tensor, kind: str = "mean",
                      attractor_type: str = "inv", normed: bool = False, min_depth: float = 1e-3,
                      max_depth: float = 10.0):
-    """Attractor shift of the bin centres. ``a``: (..., na) attractor points,
-    ``b_centers``: (..., nb) centres at the same pixels. Returns
-    ``(b_new, centers)``, both (..., nb): ``centers`` is ``b_new`` for
+    """Attractor shift of the bin centres. ``a``: (B, H, W, na) attractor
+    points; ``b_prev``: (B, h, w, nb), the previous centres, resized to (H,
+    W) here (bilinear, align_corners) unless they are at that size. Returns
+    ``(b_new, centers)``, both (B, H, W, nb): ``centers`` is ``b_new`` for
     unnormed layers, and ``b_new`` scaled to [min_depth, max_depth], sorted
     and clipped for normed ones."""
     if kind not in ("mean", "sum") or attractor_type not in ("inv", "exp"):
         raise ValueError(f"unknown attractor kind {kind!r} or type {attractor_type!r}")
     if _cuda.on_cpu(a):
-        return attractor_update_plain(a, b_centers, kind, attractor_type, normed, min_depth, max_depth)
-    na, nb = a.shape[-1], b_centers.shape[-1]
-    if a.shape[:-1] != b_centers.shape[:-1]:
-        raise ValueError(f"a {tuple(a.shape)} and b_centers {tuple(b_centers.shape)} differ in pixels")
-    if nb > 1024:
-        raise ValueError(f"attractor kernel takes at most 1024 bins, got {nb}")
-    _cuda.require_cuda(a, b_centers)
-    _cuda.dtype_code(b_centers.dtype)
-    if a.dtype != b_centers.dtype:
-        raise ValueError("a and b_centers must share a dtype")
-    p = b_centers.numel() // nb
-    b_new = torch.empty_like(b_centers)
-    centers = torch.empty_like(b_centers) if normed else b_new
-    triton, kern, _ = _kernels()
-    block_p, block_b = _blocks(nb)
-    kern[(triton.cdiv(p, block_p),)](
-        a, b_centers, b_new, centers, p, na, nb, float(na), ATTRACTOR_ALPHA, float(min_depth),
-        float(max_depth), float(max_depth - min_depth), BLOCK_P=block_p, BLOCK_B=block_b, INV=attractor_type == "inv",
-        MEAN=kind == "mean", NORMED=bool(normed), num_warps=4)
+        return attractor_update_plain(a, b_prev, kind, attractor_type, normed, min_depth, max_depth)
+    _check_nhwc(a, b_prev, "a and b_prev")
+    (bsz, oh, ow, na), (_, h, w, nb) = a.shape, b_prev.shape
+    if nb > MAX_BINS or na < 1:
+        raise ValueError(f"attractor kernel takes 1 to {MAX_BINS} bins and an attractor, got {nb}, {na}")
+    _cuda.require_cuda(a, b_prev)
+    dt = _cuda.dtype_code(b_prev.dtype)
+    if a.dtype != b_prev.dtype:
+        raise ValueError("a and b_prev must share a dtype")
+    plan = launch_plan(bsz, (oh, ow), na, nb, a.element_size(), normed, _alignment(b_prev),
+                       _cuda.sms(a.device))
+    b_new = torch.empty((bsz, oh, ow, nb), dtype=a.dtype, device=a.device)
+    centers = torch.empty_like(b_new) if normed else b_new
+    ty, tx = _taps((h, w), (oh, ow), a.device)
+    fn = _cuda.bind("bins", "prv2_attractor", 6, 15, 3)
+    rc = fn(_cuda.ptr(a), _cuda.ptr(b_prev), _cuda.ptr(b_new), _cuda.ptr(centers), _cuda.ptr(ty),
+            _cuda.ptr(tx), bsz, oh, ow, h, w, na, nb, plan["vec"], plan["tpp"], plan["pix"],
+            plan["groups"], plan["np"], int(attractor_type == "inv"),
+            int(kind == "mean"), int(bool(normed)), float(min_depth), float(max_depth),
+            float(max_depth - min_depth), dt, _cuda.stream_of(a))
+    _cuda.check(rc, "attractor_update")
     attractor_update.launches += 1
     return b_new, centers
 
@@ -225,27 +251,36 @@ attractor_update.launches = 0
 
 def log_binomial_depth(pt: torch.Tensor, centers: torch.Tensor, n_bins: int, min_temp: float,
                        max_temp: float) -> torch.Tensor:
-    """Depth (..., 1) from the softplus output ``pt`` (..., 4) of
-    ``ConditionalLogBinomial`` and the bin centres (..., K) at the same
-    pixels: the expectation of the centres under the softmax over the K
-    bins of the binomial log-probabilities divided by the temperature."""
+    """Depth (B, H, W, 1) from the softplus output ``pt`` (B, H, W, 4) of
+    ``ConditionalLogBinomial`` and the bin centres (B, h, w, K), resized to
+    (H, W) here (bilinear, align_corners) unless they are at that size: the
+    expectation of the centres under the softmax over the K bins of the
+    binomial log-probabilities divided by the temperature."""
     if _cuda.on_cpu(pt):
         return log_binomial_depth_plain(pt, centers, n_bins, min_temp, max_temp)
-    if pt.shape[-1] != 4 or centers.shape[-1] != n_bins or pt.shape[:-1] != centers.shape[:-1]:
-        raise ValueError(f"expected (..., 4) and (..., {n_bins}), got {tuple(pt.shape)}, {tuple(centers.shape)}")
-    if n_bins > 1024:
-        raise ValueError(f"log-binomial kernel takes at most 1024 bins, got {n_bins}")
+    _check_nhwc(pt, centers, "pt and centers")
+    (bsz, oh, ow, four), (_, h, w, k) = pt.shape, centers.shape
+    if four != 4 or k != n_bins:
+        raise ValueError(f"expected (B, H, W, 4) and (B, h, w, {n_bins}), got {tuple(pt.shape)}, "
+                         f"{tuple(centers.shape)}")
+    if n_bins > MAX_BINS:
+        raise ValueError(f"log-binomial kernel takes at most {MAX_BINS} bins, got {n_bins}")
     _cuda.require_cuda(pt, centers)
-    _cuda.dtype_code(pt.dtype)
+    dt = _cuda.dtype_code(pt.dtype)
     if centers.dtype != pt.dtype:
         raise ValueError("pt and centers must share a dtype")
-    p = centers.numel() // n_bins
-    out = torch.empty(pt.shape[:-1] + (1,), dtype=pt.dtype, device=pt.device)
-    triton, _, kern = _kernels()
-    block_p, block_k = _blocks(n_bins)
-    kern[(triton.cdiv(p, block_p),)](
-        pt, centers, _log_binom_table(n_bins, pt.device), out, p, n_bins, float(min_temp),
-        float(max_temp - min_temp), BLOCK_P=block_p, BLOCK_K=block_k, num_warps=4)
+    if pt.data_ptr() % (4 * pt.element_size()):
+        raise ValueError("log-binomial kernel reads pt a pixel (4 elements) at a time: it must be aligned to it")
+    plan = log_binomial_plan((h, w), (oh, ow), k, bsz, pt.element_size(), _alignment(centers) == 16,
+                             _cuda.sms(pt.device))
+    out = torch.empty((bsz, oh, ow, 1), dtype=pt.dtype, device=pt.device)
+    ty, tx = _taps((h, w), (oh, ow), pt.device)
+    fn = _cuda.bind("bins", "prv2_log_binomial", 7, 9, 2)
+    rc = fn(_cuda.ptr(pt), _cuda.ptr(centers), _cuda.ptr(_log_binom_table(k, pt.device)),
+            _cuda.ptr(_log_binom_table(k, torch.device("cpu"))), _cuda.ptr(out), _cuda.ptr(ty),
+            _cuda.ptr(tx), bsz, oh, ow, h, w, k, plan["bw"], int(plan["staged"]), plan["cols"],
+            float(min_temp), float(max_temp - min_temp), dt, _cuda.stream_of(pt))
+    _cuda.check(rc, "log_binomial_depth")
     log_binomial_depth.launches += 1
     return out
 

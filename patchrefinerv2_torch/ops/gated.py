@@ -19,8 +19,6 @@ and registers. In bfloat16 it is a persistent kernel that streams tiles of
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from patchrefinerv2_torch.ops import _cuda
@@ -52,11 +50,6 @@ def launch_plan(rows: int, c: int, sms: int = 132) -> dict:
     tiles = -(-rows // tile_rows)
     return dict(tile_rows=tile_rows, stages=stages, smem=FIXED + c * c * 2 + stages * stage,
                 tiles=tiles, grid=max(1, min(tiles, sms)))
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def gate_tail_plain(f, out, weight, ln_weight, ln_bias, eps: float = 1e-6):
@@ -93,7 +86,7 @@ def gate_tail(f: torch.Tensor, out: torch.Tensor | None, weight: torch.Tensor,
     dt = _cuda.dtype_code(f.dtype)
     y = torch.empty_like(f)
     rows = f.numel() // c
-    plan = launch_plan(rows, c, _sms(f.device)) if f.dtype == torch.bfloat16 else dict(stages=0, grid=0)
+    plan = launch_plan(rows, c, _cuda.sms(f.device)) if f.dtype == torch.bfloat16 else dict(stages=0, grid=0)
     fn = _cuda.bind("gated_conv", "prv2_gate_tail", 6, 4, 1)
     rc = fn(_cuda.ptr(f), _cuda.ptr(out), _cuda.ptr(w), _cuda.ptr(ln_weight), _cuda.ptr(ln_bias),
             _cuda.ptr(y), rows, c, plan["stages"], plan["grid"], float(eps), dt, _cuda.stream_of(f))
