@@ -88,15 +88,34 @@ Phases (each prints one or more lines; any failure exits non-zero):
    composed int8 bars;
    and the Cityscapes metrics of one
    full-size frame whose prediction has edges on the card against the CPU,
-   then the time of its ``get_metrics`` on the card and of each part.
+   then the time of its ``get_metrics`` on the card and of each part;
+8. training, the refiner pretraining stage (``pretrain_eff_m0s1``: batch 4
+   of 384x512 images against 2160x3840 depth, float32 with TF32 off, remat
+   on): (A) every site of K2, K5, K6 and K9 in one full-width step
+   (recorded from a step on the card), each ``torch.autograd.Function``'s
+   output and gradients against autograd through its plain version (input
+   gradients 1e-5, parameter gradients 1e-4 of the magnitude), with the
+   times of its backward, of the plain version's and of the one library
+   call that computes the gradient where there is one; (B) three steps
+   through ``Trainer.run`` with the launch counters set to 0 before each
+   step and read after it (K2, K5, K6 and K9 in every step, no other
+   kernel, no call of a plain version), finite losses and gradients, the
+   parameters and BatchNorm statistics moved and a checkpoint written;
+   then ms a step over 5 steps with the batch on the card, images/s, peak
+   memory with remat on and off, and one profiled step (device ms by
+   group, each Function's backward, the optimizer); (C) a tiny step (48x64,
+   batch 2) on the card against the CPU within the CPU tests' float32 bars.
 
 The line before the last is one JSON object with a record per kernel: its
 launches in each main-path run and their sum, and its times, bound and
 largest error summed over the shapes of every path in the dtypes the path
 runs (``PATH_DTYPES``), with each path's own under ``<path>_<dtype>``
 (``flagship_bf16``, ``da2_bf16``, ``r32_bf16``, ``r32_f32``,
-``cityscapes_eval_bf16``, ``_f32``, ``_f64``); the last line is
-``{"ok": true, "device": {...}}``.
+``cityscapes_eval_bf16``, ``_f32``, ``_f64``; K2, K5, K6 and K9 also
+``train_backward_f32``: their Functions' backwards over a training step's
+sites, kept out of the sums, the error there relative to each gradient's
+magnitude); ``launches_by_run`` has ``train_f32``, the launches of one
+training step. The last line is ``{"ok": true, "device": {...}}``.
 The script imports nothing of JAX. It exits non-zero and prints no result
 without a CUDA device or without the package beside it.
 """
@@ -104,6 +123,7 @@ without a CUDA device or without the package beside it.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -179,7 +199,8 @@ PATHS = {
 # runs canny in float64 (the JAX host path's dtype). r32 is the flagship's
 # r32 frame's raw-canvas work.
 PATH_DTYPES = {"flagship": ("bfloat16",), "da2": ("bfloat16",), "r32": ("bfloat16", "float32"),
-               "cityscapes_eval": ("bfloat16", "float32", "float64")}
+               "cityscapes_eval": ("bfloat16", "float32", "float64"),
+               "train_backward": ("float32",)}
 SHORT = {"bfloat16": "bf16", "float32": "f32", "float64": "f64"}
 
 
@@ -191,11 +212,13 @@ class Checks:
         self.rec = {}
 
     def add(self, name, path, dtype, err, tol, kernel_ms, plain_ms, library_ms, nbytes, flops,
-            peak=F32_FLOPS, main=True, extra=None):
+            peak=F32_FLOPS, main=True, extra=None, in_sum=True):
         """Log one check and raise if it fails; record it unless ``main`` is
         false (a dtype that the path does not run at these shapes).
         ``extra``: more times of the check, logged and summed into the
-        record under their names."""
+        record under their names. ``in_sum=False`` keeps it out of the sum
+        over the paths (the training backwards are another function than
+        the kernel's)."""
         dname = str(dtype).replace("torch.", "")
         ok = err <= tol
         b, by = bound_ms(nbytes, flops, peak)
@@ -208,7 +231,7 @@ class Checks:
                                  f"{err} > {tol}")
         if not main or dname not in PATH_DTYPES[path]:  # keep the path's dtypes only
             return
-        for key in (f"{path}_{SHORT[dname]}", "both"):
+        for key in (f"{path}_{SHORT[dname]}",) + (("both",) if in_sum else ()):
             r = self.rec.setdefault(name, {}).setdefault(key, dict(
                 max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, by={}, extra={}))
             r["max_abs_err"] = max(r["max_abs_err"], err)
@@ -234,7 +257,7 @@ class Checks:
 
 
 def err_of(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
 
 
 def tol_of(ref, dtype) -> float:
@@ -1948,6 +1971,465 @@ def eval_gpu_vs_cpu(dev) -> None:
          "pred_edge_pixels": int(edges.sum())})
 
 
+# ------------------------------------------------------------------ training
+PRETRAIN_CONFIG = "configs/patchrefinerv2_zoedepth/pretrain_eff_m0s1.py"
+TRAIN_KERNELS = ("resize", "layer_norm", "gate_tail", "tail_conv")  # the pretraining step's
+# the smoke run's training work dir (listed in .gitignore, removed after the run)
+WORK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_work")
+
+
+def pretrain_config(batch: int = 4, steps: int = 3, patch=None):
+    """The pretraining stage (``pretrain_eff_m0s1``: batch 4, 384x512 images,
+    2160x3840 depth, remat on) over ``steps`` batches of SyntheticDataset in
+    one epoch; ``patch`` shrinks the image and depth sizes."""
+    from patchrefinerv2_torch.config import Config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = Config.fromfile(os.path.join(here, PRETRAIN_CONFIG))
+    ds = dict(type="SyntheticDataset", mode="train", length=batch * steps)
+    if patch is not None:
+        h, w = patch
+        cfg.model.config.update(patch_process_shape=[h, w], image_raw_shape=[2 * h, 2 * w])
+        ds.update(image_raw_shape=[2 * h, 2 * w], network_process_size=[h, w], patch_raw_shape=[h, w])
+    cfg.merge_from_options({"train_dataloader.dataset": ds, "train_dataloader.batch_size": batch,
+                            "val_dataloader": None, "train_cfg.max_epochs": 1,
+                            "train_cfg.log_interval": 1, "train_cfg.save_checkpoint_interval": 1})
+    cfg["seed"] = 0
+    return cfg
+
+
+def pretrain_trainer(dev, cfg, work_dir):
+    from patchrefinerv2_torch.datasets.base import DataLoader
+    from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
+    from patchrefinerv2_torch.train import build_dataset
+    from patchrefinerv2_torch.training.trainer import Trainer
+
+    model = PatchRefinerPlus(cfg.model.config, device=dev, seed=0)
+    loader = DataLoader(build_dataset(cfg.train_dataloader.dataset),
+                        batch_size=cfg.train_dataloader.batch_size, shuffle=True, seed=0)
+    return Trainer(cfg, model, loader, work_dir=work_dir)
+
+
+class SiteRecorder:
+    """Records the arguments of every call of the four training Functions
+    (their ``apply``) while it is on: the training sites' shapes."""
+
+    def __init__(self):
+        import importlib
+
+        self.mods = {k: importlib.import_module(f"patchrefinerv2_torch.ops.{m}") for k, m in
+                     (("resize", "resize"), ("layer_norm", "layer_norm"), ("gate_tail", "gated"),
+                      ("tail_conv", "tail_conv"))}
+        self.fns = {"resize": "_Resize", "layer_norm": "_LayerNorm", "gate_tail": "_GateTail",
+                    "tail_conv": "_TailConv"}
+        self.sites = {k: {} for k in self.fns}
+
+    def __enter__(self):
+        self.saved = {}
+        for k, cls in self.fns.items():
+            fn = getattr(self.mods[k], cls)
+            self.saved[k] = fn.apply
+
+            def rec(*args, _k=k, _apply=fn.apply):
+                key = self.key(_k, args)
+                self.sites[_k][key] = self.sites[_k].get(key, 0) + 1
+                return _apply(*args)
+
+            fn.apply = rec
+        return self
+
+    def __exit__(self, *exc):
+        for k, cls in self.fns.items():
+            getattr(self.mods[k], cls).apply = self.saved[k]
+
+    @staticmethod
+    def key(kind, args):
+        """A hashable description of one call: shapes and flags."""
+        shape = lambda t: None if t is None else tuple(t.shape)  # noqa: E731
+        if kind == "resize":
+            x, size, ac, _ = args
+            return (shape(x), tuple(size), ac)
+        if kind == "layer_norm":
+            return (shape(args[0]),)
+        if kind == "gate_tail":
+            return (shape(args[0]), args[1] is not None)
+        cfg, w, b, res, lw, _, *parts = args
+        return (tuple(shape(p) for p in parts), shape(w), b is not None,
+                None if res is None else ("x" if res is parts[0] else "map"), lw is not None, *cfg)
+
+
+def _train_case(kind, key, dev, g):
+    """(function of the tensors, plain function, tensors, indices of the
+    parameters, library backward or None) of one recorded training site,
+    with seeded float32 inputs. A K9 site whose epilogue ends in a ReLU
+    (without LN) gets as its plain function the plain conv and epilogue
+    without the ReLU, which the caller multiplies by the kernel output's
+    mask: the kernel and the plain version sum in other orders, so a
+    pre-activation within rounding of 0 can pass the ReLU on one side only,
+    and the gradients are compared at the same activation pattern."""
+    import torch
+    import torch.nn.functional as F
+
+    from patchrefinerv2_torch.ops.gated import gate_tail, gate_tail_plain
+    from patchrefinerv2_torch.ops.layer_norm import layer_norm, layer_norm_plain
+    from patchrefinerv2_torch.ops.resize import resize, resize_plain
+    from patchrefinerv2_torch.ops.tail_conv import tail_conv, tail_conv_plain
+
+    def randn(*s, scale=1.0):
+        return torch.randn(s, generator=g, device=dev) * scale
+
+    if kind == "resize":
+        shp, size, ac = key
+        x = randn(*shp)
+        lib = lambda gy: torch.ops.aten.upsample_bilinear2d_backward(  # noqa: E731
+            gy.permute(0, 3, 1, 2), list(size), [shp[0], shp[3], shp[1], shp[2]], ac, None, None)
+        return (lambda t: resize(t, size, "bilinear", ac),
+                lambda t: resize_plain(t, size, "bilinear", ac), [x], [], lib)
+    if kind == "layer_norm":
+        (shp,) = key
+        c = shp[-1]
+        ts = [randn(*shp, scale=2.0) + 0.3, torch.rand((c,), generator=g, device=dev) + 0.5,
+              randn(c, scale=0.1)]
+        xs = ts[0].reshape(-1, c)
+        mean, rstd = xs.mean(-1), torch.rsqrt(xs.var(-1, unbiased=False) + 1e-6)
+        lib = lambda gy: torch.ops.aten.native_layer_norm_backward(  # noqa: E731
+            gy.reshape(-1, c), xs, [c], mean[:, None], rstd[:, None], ts[1], ts[2],
+            [True, True, True])
+        return layer_norm, layer_norm_plain, ts, [1, 2], lib
+    if kind == "gate_tail":
+        shp, gate = key
+        c = shp[-1]
+        ts = [randn(*shp, scale=2.0) + 0.3, randn(*shp), randn(c, c, 1, 1, scale=c ** -0.5),
+              torch.rand((c,), generator=g, device=dev) + 0.5, randn(c, scale=0.1)]
+        o = (lambda t: t) if gate else (lambda t: None)
+        return (lambda f, out, w, lw, lb: gate_tail(f, o(out), w, lw, lb),
+                lambda f, out, w, lw, lb: gate_tail_plain(f, o(out), w, lw, lb), ts, [2, 3, 4], None)
+    part_shapes, wshape, has_bias, res, has_ln, act, relu_in, eps = key
+    cout, cin, k = wshape[0], wshape[1], wshape[-1]
+    parts = [torch.rand(p, generator=g, device=dev) * 10 if p[-1] == 1 else randn(*p)
+             for p in part_shapes]
+    ts = [randn(*wshape, scale=(k * k * cin) ** -0.5), randn(cout, scale=0.1),
+          torch.rand((*part_shapes[0][:3], cout), generator=g, device=dev) * 10,
+          torch.rand((cout,), generator=g, device=dev) + 0.5, randn(cout, scale=0.1), *parts]
+
+    def fn(impl, act=act):
+        def run(w, b, r, lw, lb, *ps):
+            resid = ps[0] if res == "x" else r if res == "map" else None
+            return impl(list(ps), w, b if has_bias else None, resid, (lw, lb) if has_ln else None,
+                        act=act, relu_in=relu_in, eps=eps)
+        return run
+
+    xin = torch.cat(parts, -1).permute(0, 3, 1, 2)
+    lib = lambda gy: torch.ops.aten.convolution_backward(  # noqa: E731
+        gy.permute(0, 3, 1, 2), xin, ts[0], None, [1, 1], [k // 2] * 2, [1, 1], False, [0, 0], 1,
+        [True, True, False])
+    params = [0] + ([1] if has_bias else []) + ([3, 4] if has_ln else [])
+    masked = act == "relu" and not has_ln
+    return fn(tail_conv), fn(tail_conv_plain, "none" if masked else act), ts, params, lib
+
+
+def _backward_work(kind, key, ts) -> tuple[float, float]:
+    """(bytes, operations) of a backward: its inputs (the saved tensors and
+    the output gradient) read once, each gradient written once; operations
+    of the gradients' products (the conv's data and weight gradients, the
+    1x1's two products and its recomputed output, 10 a tap of a resize)."""
+    in_bytes = 4 * sum(t.numel() for t in ts)
+    if kind == "resize":
+        shp, size, _ = key
+        out = shp[0] * size[0] * size[1] * shp[3]
+        return 4 * (out + shp[0] * shp[1] * shp[2] * shp[3]), 8.0 * out
+    if kind == "layer_norm":
+        return 3 * 4 * ts[0].numel(), 12.0 * ts[0].numel()
+    if kind == "gate_tail":
+        rows, c = ts[0].numel() // ts[0].shape[-1], ts[0].shape[-1]
+        return 2 * in_bytes, (6 if key[1] else 4) * rows * c * c + 30.0 * rows * c
+    part_shapes, wshape = key[0], key[1]
+    npx = part_shapes[0][0] * part_shapes[0][1] * part_shapes[0][2]
+    k2cc = wshape[1] * wshape[0] * wshape[2] * wshape[3]
+    recompute = 2 if key[4] or key[5] == "gelu" else 0
+    return 2 * in_bytes, (4 + recompute) * npx * k2cc
+
+
+def check_training_sites(chk: Checks, dev) -> dict:
+    """Phase A: every site of the four training Functions in one step of the
+    full-width pretraining run (recorded from a step on the card), each at
+    its shapes in float32 (TF32 off): the Function's output and gradients
+    against autograd through the plain version, and the times of the
+    Function's backward, the plain version's autograd backward and, where
+    one library call computes the gradient, that call
+    (``upsample_bilinear2d_backward`` for K2, ``native_layer_norm_backward``
+    for K6, ``convolution_backward`` of the concatenated input for K9; K5
+    has none). Tolerances: the output and the input gradients 1e-5 of the
+    plain version's magnitude, the parameter gradients 1e-4 of it (sums over
+    up to 786,432 pixels in another order). Each site's times count once
+    for each of its backwards in a step. Returns each kind's sites with
+    those counts."""
+    import torch
+
+    with SiteRecorder() as rec:
+        tr = pretrain_trainer(dev, pretrain_config(steps=1), os.path.join(WORK_DIR, "sites"))
+        tr.model.train()
+        tr.model.net.remat = False  # one forward call a backward: the counts are a step's backwards
+        batch = tr.device_batch(next(iter(tr.train_loader)))
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+    del tr, batch
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(13)
+    for kind, sites in rec.sites.items():
+        for key, calls in sites.items():
+            fn, plain, ts, params, lib = _train_case(kind, key, dev, g)
+            ts = [t.requires_grad_(True) for t in ts]
+            y, yp = fn(*ts), plain(*ts)
+            if kind == "tail_conv" and key[-3] == "relu" and not key[4]:
+                yp = yp * (y.detach() > 0)  # the kernel's ReLU mask (``_train_case``)
+            gy = torch.randn(y.shape, generator=g, device=dev)
+            got = torch.autograd.grad(y, ts, gy, retain_graph=True, allow_unused=True)
+            ref = torch.autograd.grad(yp, ts, gy, retain_graph=True, allow_unused=True)
+            rel = {"out": err_of(y, yp) / max(float(yp.abs().max()), 1e-30)}
+            for i, r in enumerate(ref):
+                if r is not None:
+                    rel[i] = err_of(got[i], r) / max(float(r.abs().max()), 1e-30)
+            over = {i: e for i, e in rel.items() if e > (1e-4 if i in params else 1e-5)}
+            if over:
+                raise AssertionError(f"training {kind} {key}: relative errors over the bars {over}")
+            ms = time_ms(lambda: torch.autograd.grad(y, ts, gy, retain_graph=True, allow_unused=True))
+            plain_ms = time_ms(lambda: torch.autograd.grad(yp, ts, gy, retain_graph=True,
+                                                           allow_unused=True))
+            lib_ms = time_ms(lambda: lib(gy)) if lib is not None else None
+            nbytes, ops = _backward_work(kind, key, ts)
+            # the record's error is relative (to each gradient's magnitude):
+            # the sites' gradients differ in magnitude by orders
+            chk.add(kind, "train_backward", torch.float32, max(rel.values()), 1e-4, calls * ms,
+                    calls * plain_ms, None if lib_ms is None else calls * lib_ms, calls * nbytes,
+                    calls * ops, in_sum=False)
+            log({"training_site": kind, "key": [str(k) for k in key], "backwards_in_step": calls,
+                 "rel_err": {str(k): v for k, v in rel.items()}, "backward_ms": ms,
+                 "plain_backward_ms": plain_ms, "library_backward_ms": lib_ms})
+            del fn, plain, ts, y, yp, gy, got, ref
+    torch.cuda.empty_cache()
+    return rec.sites
+
+
+class PlainCalls:
+    """Counts the calls of the four training kernels' plain versions while
+    it is on (through their modules' globals, which the wrappers call)."""
+
+    NAMES = (("resize", "resize_plain"), ("layer_norm", "layer_norm_plain"),
+             ("gated", "gate_tail_plain"), ("tail_conv", "tail_conv_plain"))
+
+    def __enter__(self):
+        import importlib
+
+        self.count, self.saved = 0, []
+        for mod, name in self.NAMES:
+            m = importlib.import_module(f"patchrefinerv2_torch.ops.{mod}")
+            orig = getattr(m, name)
+            self.saved.append((m, name, orig))
+
+            def counted(*a, _orig=orig, **kw):
+                self.count += 1
+                return _orig(*a, **kw)
+
+            setattr(m, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, orig in self.saved:
+            setattr(m, name, orig)
+
+
+TRAIN_GROUPS = ("_ResizeBackward", "_LayerNormBackward", "_GateTailBackward", "_TailConvBackward")
+
+
+def profile_train_step(tr, batch, step_ms: float) -> None:
+    """One step (loss and backward; the optimizer timed apart with CUDA
+    events) under torch.profiler: device ms by group (the forward kernels by
+    their K groups; cuDNN forward, data and weight gradients; BatchNorm;
+    elementwise and the rest) and each training Function's backward (the
+    device time under its autograd node), the optimizer's ms, and the busy
+    share of the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    tr.model.train()
+
+    def fwd_bwd():
+        for p in tr.model.net.parameters():
+            p.grad = None
+        loss, _ = tr.model.loss(batch, generator=tr.generator, update_stats=True)
+        loss["total_loss"].backward()
+
+    fwd_bwd()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fwd_bwd()
+        torch.cuda.synchronize()
+    groups, total, by_fn, kernels = {}, 0.0, {}, []
+    conv_kinds = (("dgrad", "conv dgrad"), ("wgrad", "conv wgrad"))
+    for e in prof.key_averages():
+        name = e.key
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            for fn_name in TRAIN_GROUPS:
+                if fn_name in name:
+                    by_fn[fn_name] = by_fn.get(fn_name, 0.0) + float(
+                        getattr(e, "device_time_total", 0.0) or 0.0) / 1e3
+            continue
+        us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+        low = name.lower()
+        group = next((lbl for frag, lbl in conv_kinds if frag in low), None) or next(
+            (g for g, keys in KERNEL_GROUPS if any(k in low for k in keys)), "other")
+        if group == "convolution":
+            group = "conv forward"
+        groups[group] = groups.get(group, 0.0) + us / 1e3
+        total += us / 1e3
+        kernels.append((us / 1e3, e.count, name[:90]))
+    opt_ms = time_ms(lambda: tr.optimizer.step(), iters=3, warmup=1)
+    log({"phase": "train_step_profile", "device_ms_loss_and_backward": total, "optimizer_ms": opt_ms,
+         "step_ms": step_ms, "device_busy_share": (total + opt_ms) / step_ms,
+         "by_group_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+         "function_backward_device_ms": by_fn,
+         "top_kernels_ms_calls_name": sorted(kernels, reverse=True)[:15]})
+
+
+def pretrain_run(dev) -> dict:
+    """Phase B: the pretraining stage at full width through ``Trainer.run``
+    (3 steps of batch 4: 384x512 images, 2160x3840 depth, float32, TF32
+    off, remat on), the launch counters set to 0 just before each step and
+    read just after: K2, K5, K6 and K9 launch in every step, no other
+    kernel and no plain version runs; losses and gradients finite, the
+    parameters and the BatchNorm statistics move. Then, with one batch on
+    the card: ms a step over 5 steps, images/s, peak memory with remat on
+    and off (2 steps), and one profiled step. Returns the first step's
+    launch counts."""
+    import shutil
+
+    import torch
+
+    from patchrefinerv2_torch import ops
+
+    work = os.path.join(WORK_DIR, "pretrain")
+    tr = pretrain_trainer(dev, pretrain_config(), work)
+    log({"phase": "pretrain_build", "params": sum(p.numel() for p in tr.model.net.parameters()),
+         "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+         "tf32_cudnn": torch.backends.cudnn.allow_tf32, "remat": tr.model.net.remat})
+    before = {k: v.detach().clone() for k, v in tr.model.net.state_dict().items()}
+    steps, step = [], tr.train_step
+
+    def counted(batch):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with PlainCalls() as plain:
+            out = step(batch)
+            torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        losses = {k: float(v) for k, v in out.items()}
+        finite = all(math.isfinite(v) for v in losses.values())
+        grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in tr.model.net.parameters()
+                           if p.grad is not None)
+        steps.append(counts)
+        log({"phase": f"pretrain_step_{len(steps)}", "ms": (time.time() - t0) * 1e3, "losses": losses,
+             "grads_finite": grads_finite, "plain_calls": plain.count, "launches": counts})
+        idle = [k for k in TRAIN_KERNELS if counts[k] == 0]
+        other = {k: v for k, v in counts.items() if k not in TRAIN_KERNELS and v}
+        if idle or other or plain.count or not grads_finite or not finite:
+            raise AssertionError(f"pretraining step {len(steps)}: idle {idle}, other kernels "
+                                 f"{other}, {plain.count} plain calls, finite grads {grads_finite}, "
+                                 f"losses {losses}")
+        return out
+
+    tr.train_step = counted
+    t0 = time.time()
+    tr.run()
+    log({"phase": "pretrain_trainer_run", "seconds": time.time() - t0, "steps": tr.step})
+    del tr.train_step
+    after = tr.model.net.state_dict()
+    changed = [k for k in before if not torch.equal(before[k], after[k])]
+    moved = dict(bn_buffers=sum("running_" in k for k in changed),
+                 params=sum(k in dict(tr.model.net.named_parameters()) for k in changed))
+    log({"phase": "pretrain_moved", **moved, "of": len(before)})
+    if not all(moved.values()) or not os.path.exists(os.path.join(work, "checkpoint_01")):
+        raise AssertionError(f"pretraining moved {moved} or wrote no checkpoint")
+
+    batch = tr.device_batch(next(iter(tr.train_loader)))
+    times = {}
+    for remat, n in ((True, 5), (False, 2)):
+        tr.model.net.remat = remat
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        for _ in range(n):
+            tr.train_step(batch)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3 / n
+        times.setdefault(remat, []).append(dict(ms_per_step=ms, images_per_s=4e3 / ms,
+                                                peak_bytes=torch.cuda.max_memory_allocated()))
+    log({"phase": "pretrain_step_timing", "batch": 4, "remat_on": times[True],
+         "remat_off": times[False]})
+    tr.model.net.remat = True
+    profile_train_step(tr, batch, times[True][0]["ms_per_step"])
+    del tr, batch
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return steps[0]
+
+
+def tiny_train_gpu_vs_cpu(dev) -> None:
+    """Phase C: one pretraining step of 48x64 patches (batch 2) on the card
+    against the CPU from the same weights, batch and hacked features: loss
+    max rel <= 1e-5, the whole gradient within 2e-2 of its norm (the CPU
+    tests' float32 bars: at this size the step's gradient is
+    ill-conditioned, tests/test_torch_train_slice.py) and each BatchNorm
+    statistic within 1e-4 of its leaf's largest value, a running mean's
+    leaf scale floored at the largest running standard deviation."""
+    import numpy as np
+    import torch
+
+    from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
+
+    cfg = pretrain_config(batch=2, steps=1, patch=(48, 64)).model.config
+    rng = np.random.RandomState(5)
+    batch = dict(image_lr=rng.rand(2, 48, 64, 3).astype(np.float32),
+                 depth_gt=(1.0 + 20.0 * rng.rand(2, 96, 128, 1)).astype(np.float32))
+    out = {}
+    for d in (dev, "cpu"):
+        m = PatchRefinerPlus(cfg, device=d, seed=3).train()
+        with torch.no_grad():
+            feats, _ = m.net.refiner_fine_branch(torch.zeros((2, 3, 48, 64), device=d))
+        g = torch.Generator().manual_seed(9)
+        cf = [torch.randn((2, f.shape[2], f.shape[3], c), generator=g).to(d).permute(0, 3, 1, 2)
+              for f, c in zip(feats, m.net.hack_chl)]
+        ld, _ = m.loss(batch, update_stats=True, coarse_features=cf)
+        ld["total_loss"].backward()
+        out[str(d)] = (float(ld["total_loss"].detach()),
+                       {k: p.grad.detach().double().cpu() for k, p in m.net.named_parameters()
+                        if p.grad is not None},
+                       {k: v.double().cpu() for k, v in m.net.state_dict().items() if "running_" in k})
+    (lg, gg, sg), (lc, gc, sc) = out[str(dev)], out["cpu"]
+    d = float(torch.sqrt(sum(((gg[k] - gc[k]) ** 2).sum() for k in gc)))
+    n = float(torch.sqrt(sum((gc[k] ** 2).sum() for k in gc)))
+    # a running mean is measured in the activations' spread: with zero-mean
+    # inputs (a BatchNorm's output with bias 0 before a 1x1 conv) it is 0 but
+    # for rounding, ~1e-7
+    def scale(k):
+        if k.endswith("running_mean"):
+            return max(float(sc[k].abs().max()), float(sc[k[:-4] + "var"].sqrt().max()))
+        return float(sc[k].abs().max())
+
+    bn_rel = {k: float((sg[k] - sc[k]).abs().max()) / scale(k) for k in sc}
+    worst = max(bn_rel, key=bn_rel.get)
+    bn = bn_rel[worst]
+    i = int((sg[worst] - sc[worst]).abs().argmax())
+    log({"phase": "tiny_train_gpu_vs_cpu", "loss_rel": abs(lg - lc) / abs(lc), "grad_rel": d / n,
+         "bn_rel_of_leaf_max": bn, "bars": [1e-5, 2e-2, 1e-4], "grad_leaves": len(gc),
+         "bn_worst": [worst, float(sg[worst][i]), float(sc[worst][i]), float(sc[worst].abs().max())],
+         "bn_leaves_over_bar": sorted(k for k, v in bn_rel.items() if v > 1e-4)[:12]})
+    if not (abs(lg - lc) <= 1e-5 * abs(lc) and d <= 2e-2 * n and bn <= 1e-4 and set(gg) == set(gc)):
+        raise AssertionError("the tiny pretraining step on the card disagrees with the CPU")
+
+
 def record_resize_plans() -> dict:
     """Wrap ``ops/resize._launch_plan`` so that every later K2 launch counts
     its (channels, element bytes, vec, vstore) in the returned dict."""
@@ -2008,6 +2490,15 @@ def main() -> int:
          "channels_itemsize_vec_vstore_launches": sorted([*k, n] for k, n in plans.items())})
     small_gpu_vs_cpu(dev)
     eval_gpu_vs_cpu(dev)
+    try:
+        sites = check_training_sites(chk, dev)
+        log({"phase": "training_sites", **{k: len(v) for k, v in sites.items()}})
+        counts["train_f32"] = pretrain_run(dev)
+        tiny_train_gpu_vs_cpu(dev)
+    finally:
+        import shutil
+
+        shutil.rmtree(WORK_DIR, ignore_errors=True)
 
     kernels = []
     for name, k in ops.KERNELS.items():

@@ -1,11 +1,12 @@
 """Dataset base and a single-process batch loader, the port of
 ``patchrefinerv2_tpu/datasets/base.py`` (``DepthDataset`` :17,
-``default_collate`` :59, ``DataLoader`` :72 with batches of 1 and without
-shuffling, prefetch threads and process sharding). Batches are dicts of NHWC
-numpy arrays."""
+``default_collate`` :59, ``DataLoader`` :72 without prefetch threads and
+process sharding: batches load in the calling thread). Batches are dicts of
+NHWC numpy arrays."""
 
 from __future__ import annotations
 
+import random
 from typing import Any, Iterator
 
 import numpy as np
@@ -52,15 +53,36 @@ def default_collate(samples: list[dict]) -> dict:
 
 
 class DataLoader:
-    """One collated sample (a batch of 1) per step, loaded in the calling
-    thread: ``PatchRefinerPlus.infer`` tiles one frame at a time."""
+    """Batches of ``batch_size`` samples; with ``shuffle`` the order is
+    ``random.Random(seed + epoch)``'s shuffle of the indices (the JAX
+    loader's, ``set_epoch`` sets the epoch); ``drop_last`` drops a short
+    last batch."""
 
-    def __init__(self, dataset):
+    def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False, drop_last: bool = True,
+                 seed: int = 0):
         self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def _indices(self) -> list[int]:
+        idx = list(range(len(self.dataset)))
+        if self.shuffle:
+            random.Random(self.seed + self.epoch).shuffle(idx)
+        if self.drop_last:
+            idx = idx[:len(idx) // self.batch_size * self.batch_size]
+        return idx
 
     def __len__(self) -> int:
-        return len(self.dataset)
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[dict]:
-        for i in range(len(self.dataset)):
-            yield default_collate([self.dataset[i]])
+        idx = self._indices()
+        for i in range(0, len(idx), self.batch_size):
+            yield default_collate([self.dataset[j] for j in idx[i:i + self.batch_size]])

@@ -8,8 +8,9 @@ timm's module layout and key names: ``conv_stem``/``bn1``, then
 blocks (``conv_dw``, ``bn1``, ``se``, ``conv_pw``, ``bn2``), the others
 inverted residuals (``conv_pw``, ``bn1``, ``conv_dw``, ``bn2``, ``se``,
 ``conv_pwl``, ``bn3``). TF-SAME padding (asymmetric for stride 2), SiLU,
-squeeze-excite over a quarter of the block input, eval-mode BatchNorm with
-eps 1e-3. ``in_ch=4`` is the coarse-depth-conditioned stem. The 1x1 convs
+squeeze-excite over a quarter of the block input, BatchNorm with eps 1e-3
+(:class:`BatchNorm`: flax's train mode, whose running statistics update once
+a step). ``in_ch=4`` is the coarse-depth-conditioned stem. The 1x1 convs
 that the reference routes through its int8 dispatcher (``pconv``,
 encoders.py:122-146) are int8 sites (``models/int8.py``): ``conv_pw`` and
 ``conv_pwl`` of an inverted residual, ``conv_pw`` of a depthwise-separable
@@ -57,8 +58,47 @@ def _pconv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return conv(x) if y is None else y
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-3)
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's ``nn.BatchNorm`` (momentum 0.9) in
+    train mode (encoders.py:55-74): the batch is normalised with its own
+    float32 moments, and the running statistics move by ``ra = 0.9 ra + 0.1
+    batch`` with the *biased* batch variance ``max(E[x^2] - mean^2, 0)``
+    (``nn.BatchNorm2d`` uses the unbiased one). The running update happens
+    only in a forward armed by :func:`arm_stat_updates` and only once: the
+    counterpart of flax's ``mutable=["batch_stats"]``, and the guard that
+    keeps a rematerialised forward (``torch.utils.checkpoint`` runs the
+    forward again in the backward) from updating twice. Eval mode uses the
+    running statistics."""
+
+    def __init__(self, c: int, eps: float = 1e-3):
+        super().__init__(c, eps=eps, momentum=0.1)
+        self.armed = False
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        if self.armed:
+            self.armed = False
+            with torch.no_grad():
+                xf = x.to(torch.promote_types(x.dtype, torch.float32))
+                mean = xf.mean((0, 2, 3))
+                var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+                self.running_mean.mul_(0.9).add_(0.1 * mean)
+                self.running_var.mul_(0.9).add_(0.1 * var)
+                self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+def arm_stat_updates(module: nn.Module) -> None:
+    """Let each :class:`BatchNorm` of ``module`` update its running
+    statistics in its next train-mode forward, once."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.armed = True
+
+
+def _bn(c: int) -> BatchNorm:
+    return BatchNorm(c, eps=1e-3)
 
 
 class SqueezeExcite(nn.Module):

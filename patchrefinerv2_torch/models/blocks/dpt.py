@@ -1,7 +1,7 @@
 """DPT-style decoder blocks, the port of
 ``patchrefinerv2_tpu/models/blocks/dpt.py`` (``upsample_bilinear_ac`` :29,
 ``GatedConvUnit`` :96, ``GatedFusionBlock`` :196, ``FeatureFusionBlock``
-:235, ``C2FModule`` :302). ``tail=True`` marks the full-resolution head
+:235, ``SimpleDPTHead`` :266, ``C2FModule`` :302). ``tail=True`` marks the full-resolution head
 instance, which the JAX package runs in space-to-depth form
 (``s2d``/``s2d_tail``): there every convolution is a K9 launch
 (``ops/tail_conv.py``) with its epilogue fused and its concatenated inputs
@@ -128,6 +128,47 @@ class FeatureFusionBlock(nn.Module):
             out = out + self.resConfUnit1(skip)
         out = self.resConfUnit2(out)
         return self.out_conv(upsample_bilinear_ac(out, size=size))
+
+
+class SimpleDPTHead(nn.Module):
+    """The refiner's 5-level DPT decoder (``with_decoder``, reference
+    lightweight_refiner.py:61-137): 3x3 no-bias projections of the five
+    encoder levels to ``features`` (``Scratch``), FeatureFusionBlocks from
+    the lowest resolution up (each upsample K2), then ``output_conv1``
+    (3x3, features / 2), ``output_conv2`` (3x3 to 32, ReLU) and the 1x1
+    ``output_conv3``, all at the patch resolution. Returns (feats [l5_rn,
+    p5, p4, p3, p2, last_feat], low to high resolution; out (B, 1, h, w)).
+    ``output_conv3``'s weight is drawn normal with mean 1.0
+    (:func:`init_output_conv3_`), as the reference initialises it."""
+
+    def __init__(self, in_chl, features: int = 256):
+        super().__init__()
+        s = nn.Module()
+        for k in range(1, 6):
+            setattr(s, f"layer{k}_rn", nn.Conv2d(in_chl[k - 1], features, 3, 1, 1, bias=False))
+        for k in range(1, 6):
+            setattr(s, f"refinenet{k}", FeatureFusionBlock(features, skip=(k != 5)))
+        s.output_conv1 = conv3(features, features // 2)
+        s.output_conv2 = nn.Sequential(conv3(features // 2, 32), nn.ReLU())
+        s.output_conv3 = nn.Sequential(nn.Conv2d(32, 1, 1))
+        self.scratch = s
+        self.channels = [features] * 5
+
+    def init_output_conv3_(self, generator: torch.Generator) -> None:
+        w = self.scratch.output_conv3[0].weight
+        with torch.no_grad():
+            w.copy_(torch.randn(w.shape, generator=generator) + 1.0)
+
+    def forward(self, feats):
+        s = self.scratch
+        l1, l2, l3, l4, l5 = (getattr(s, f"layer{k + 1}_rn")(f) for k, f in enumerate(feats))
+        p5 = s.refinenet5(l5, size=l4.shape[2:])
+        p4 = s.refinenet4(p5, l4, size=l3.shape[2:])
+        p3 = s.refinenet3(p4, l3, size=l2.shape[2:])
+        p2 = s.refinenet2(p3, l2, size=l1.shape[2:])
+        p1 = s.refinenet1(p2, l1)
+        last_feat = s.output_conv2(s.output_conv1(p1))
+        return [l5, p5, p4, p3, p2, last_feat], s.output_conv3(last_feat)
 
 
 class C2FModule(nn.Module):

@@ -19,6 +19,12 @@ The module tree keeps the reference's torch state-dict names
 (``coarse_branch``, ``refiner_fine_branch``, ``refiner_fusion_model``), so
 ``utils/jax_weights.load_jax_params`` can load the JAX package's variables.
 
+In the pretraining stage (``pretrain_stage``, ``patchrefinerplus.py:316-336,
+373-377, 503-519``) the net has no coarse branch: ``PatchRefinerPlus.loss``
+runs the refiner with its decoder and the fusion head on hacked coarse
+features, under ``torch.utils.checkpoint`` when the config sets ``remat``,
+and SILog against the full-resolution depth.
+
 The int8 serving mode (``patchrefinerplus.py:770-867`` and ``ops/quant.py``
 in the JAX package) routes the convolutions that the gate selects to K10
 (``models/int8.py``): calibrated (``calibrate_int8``, then ``set_int8``) or
@@ -36,14 +42,17 @@ import torch.nn as nn
 from patchrefinerv2_torch import resolve_device
 from patchrefinerv2_torch.config import ConfigDict
 from patchrefinerv2_torch.models.backbones.dpt import DepthAnythingV2
+from patchrefinerv2_torch.models.backbones.encoders import arm_stat_updates
 from patchrefinerv2_torch.models.backbones.vit import DinoViT
 from patchrefinerv2_torch.models.backbones.zoedepth import ZoeDepthBEiT
 from patchrefinerv2_torch.models.blocks.convs import to_nchw, to_nhwc
+from patchrefinerv2_torch.models.blocks.dpt import SimpleDPTHead
 from patchrefinerv2_torch.models.blocks.fusion import BiDirectionalFusion
 from patchrefinerv2_torch.models.blocks.refiner import LightWeightRefiner
 from patchrefinerv2_torch.models.int8 import (
     MIN_HW, MIN_KC, SCALES, Int8Calibration, calibration, record, serve,
 )
+from patchrefinerv2_torch.models.losses import build_loss
 from patchrefinerv2_torch.models.tiling import (
     _BATCH_GRANULE, TileCfg, merge_all_passes, random_pass_boxes, random_pass_starts, regular_pass,
 )
@@ -87,7 +96,10 @@ def build_coarse_branch(cfg, min_depth: float, max_depth: float, img_size):
 
 
 class PRPlusNet(nn.Module):
-    """The compute graph; the tiling orchestration lives in PatchRefinerPlus."""
+    """The compute graph; the tiling orchestration lives in PatchRefinerPlus.
+    In the pretraining stage it has no coarse branch: the refiner (with its
+    decoder) and the fusion head run on hacked coarse features
+    (:meth:`pretrain_forward`)."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -95,8 +107,17 @@ class PRPlusNet(nn.Module):
         self.patch_process_shape = tuple(cfg.patch_process_shape)
         self.strategy_refiner_target = cfg.get("strategy_refiner_target", "offset_coarse")
         self.fusion_feat_level = cfg.get("fusion_feat_level", 6)
-        self.coarse_branch = build_coarse_branch(
-            cfg.coarse_branch, self.min_depth, self.max_depth, self.patch_process_shape)
+        self.remat = bool(cfg.get("remat", False))
+        if cfg.get("pretrain_stage", False):
+            # the hacked coarse features' widths, highest resolution first
+            # (patchrefinerplus.py:320-328)
+            is_da2 = cfg.get("coarse_branch", {}).get("type") == "DA2"
+            coarse_chl = [128 if is_da2 else 32] + [256] * 5
+            self.hack_chl = coarse_chl[::-1]
+        else:
+            self.coarse_branch = build_coarse_branch(
+                cfg.coarse_branch, self.min_depth, self.max_depth, self.patch_process_shape)
+            coarse_chl = self.coarse_branch.coarse_chl
         fine = dict(cfg.refiner.fine_branch)
         if fine.pop("type") != "LightWeightRefiner":
             raise NotImplementedError("the port's refiner is LightWeightRefiner")
@@ -107,8 +128,10 @@ class PRPlusNet(nn.Module):
         fus = dict(cfg.refiner.fusion_model)
         if fus.pop("type") != "BiDirectionalFusion":
             raise NotImplementedError("the port's fusion model is BiDirectionalFusion")
+        # the widths come from the stage: the coarse branch's levels or the
+        # hacked ones, the encoder's levels or the decoder's
         self.refiner_fusion_model = BiDirectionalFusion(
-            coarse_chl=self.coarse_branch.coarse_chl,
+            coarse_chl=coarse_chl,
             fine_chl=self.refiner_fine_branch.channels,
             temp_chl=tuple(fus.get("temp_chl", (32, 64, 64, 128, 256, 512))),
             dec_chl=tuple(fus.get("dec_chl", (512, 256, 128, 64, 32))),
@@ -118,6 +141,37 @@ class PRPlusNet(nn.Module):
             c2f_features=fus.get("c2f_features", 256),
             head2_features=list(fus.get("coarse_chl", [32]))[0],
         )
+
+    def _checkpointed(self, module, *args):
+        """``module(*args)``, rematerialised in the backward when the config
+        sets ``remat`` (the JAX package's ``nn.remat`` of the refiner and the
+        fusion head, patchrefinerplus.py:382-402)."""
+        if self.remat and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(module, *args, use_reentrant=False)
+        return module(*args)
+
+    def pretrain_forward(self, image_lr, hack_strategy: str, generator=None, coarse_features=None):
+        """Refiner pretraining with hacked coarse features
+        (patchrefinerplus.py:316-336): ``image_lr`` NHWC (B, h, w, 3) ->
+        relu(fusion output) (B, 1, h, w). The refiner's BatchNorm runs in
+        the module's mode (train mode in training). ``coarse_features``: the
+        hacked levels (low -> high resolution, NCHW), else drawn here:
+        ``mean_0_std_1`` normals from ``generator`` (on the image's device),
+        ``constant`` ones."""
+        feats, r_depth = self._checkpointed(self.refiner_fine_branch, to_nchw(image_lr))
+        if coarse_features is None:
+            coarse_features = []
+            for f, c in zip(feats, self.hack_chl):
+                b, _, h, w = f.shape
+                if hack_strategy == "mean_0_std_1":
+                    x = torch.randn((b, h, w, c), generator=generator, device=f.device, dtype=f.dtype)
+                else:
+                    x = torch.ones((b, h, w, c), device=f.device, dtype=f.dtype)
+                coarse_features.append(to_nchw(x))
+        pred1 = torch.zeros_like(r_depth)
+        depth = self._checkpointed(self.refiner_fusion_model, list(coarse_features)[::-1],
+                                   list(feats)[::-1], pred1, r_depth)
+        return torch.relu(depth)
 
     def coarse_forward(self, image_lr):
         """image_lr NHWC -> (6 coarse levels, coarse depth), NCHW channels_last."""
@@ -158,7 +212,8 @@ class PRPlusNet(nn.Module):
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights from ``generator``: every conv and linear weight
     uniform in +-1/sqrt(fan_in) and its bias zero, a DINOv2 position
-    embedding normal with std 0.02 (as the JAX package initialises it);
+    embedding normal with std 0.02 (as the JAX package initialises it), the
+    refiner decoder's ``output_conv3`` normal with mean 1;
     norms, layer scales, the cls token, q/v biases and the relative-position
     tables keep their initial values (ones, 1e-5 or 1, and zeros)."""
     with torch.no_grad():
@@ -170,13 +225,17 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                     m.bias.zero_()
             if isinstance(m, DinoViT):
                 m.pos_embed.copy_(torch.randn(m.pos_embed.shape, generator=generator) * 0.02)
+            if isinstance(m, SimpleDPTHead):
+                m.init_output_conv3_(generator)
     return module
 
 
 class PatchRefinerPlus:
-    """Config-built orchestrator for tiled inference on one device.
+    """Config-built orchestrator for tiled inference and, in the pretraining
+    stage (``pretrain_stage``), for the training loss, on one device.
 
-    ``device=None`` means the card, and raises when there is none."""
+    ``device=None`` means the card, and raises when there is none. The
+    network starts in eval mode; :meth:`train` switches it."""
 
     def __init__(self, config: dict, device=None, seed: int = 0):
         self.device = resolve_device(device)
@@ -185,8 +244,14 @@ class PatchRefinerPlus:
         self.patch_process_shape = tuple(cfg.patch_process_shape)
         self.tile_cfg = TileCfg(tuple(cfg.image_raw_shape), tuple(cfg.patch_split_num),
                                 self.patch_process_shape)
-        if cfg.get("pretrain_stage", False):
-            raise NotImplementedError("the pretrain stage is not ported")
+        self.pretrain_stage = bool(cfg.get("pretrain_stage", False))
+        self.hack_strategy = cfg.get("hack_strategy", "mean_0_std_1")
+        if self.hack_strategy not in ("mean_0_std_1", "constant"):
+            raise ValueError(f"unknown hack_strategy {self.hack_strategy!r}")
+        if cfg.get("train_dtype", "float32") != "float32":
+            raise NotImplementedError("the port trains in float32 only")
+        self.min_depth, self.max_depth = cfg.min_depth, cfg.max_depth
+        self.sigloss = build_loss(cfg.get("sigloss", {"type": "SILogLoss"}))
         self.infer_dtype = _DTYPES[cfg.get("infer_dtype", "float32")]
         net = PRPlusNet(cfg)
         init_random_(net, torch.Generator().manual_seed(seed))
@@ -204,6 +269,50 @@ class PatchRefinerPlus:
         self.infer_dtype = dtype
         self.net.to(dtype)
         self._attach_int8()
+
+    def train(self, mode: bool = True) -> "PatchRefinerPlus":
+        """Train mode (``mode``) or eval mode of the network: its BatchNorm
+        normalises with the batch's moments in train mode."""
+        self.net.train(mode)
+        return self
+
+    def eval(self) -> "PatchRefinerPlus":
+        return self.train(False)
+
+    def loss(self, batch: dict, generator: torch.Generator | None = None,
+             update_stats: bool = False, coarse_features=None):
+        """(loss_dict, aux) of a training batch, the pretraining branch of
+        ``patchrefinerplus.py:503-519``: the refiner and the fusion head on
+        hacked coarse features (drawn from ``generator``, a generator on the
+        model's device, or ``coarse_features`` as :meth:`PRPlusNet.pretrain_forward`
+        takes them), ``relu`` of the fusion output as the depth, and SILog
+        against ``depth_gt``. ``batch``: ``image_lr`` (B, h, w, 3) and
+        ``depth_gt`` (B, H, W, 1), NHWC tensors or arrays. The refiner's
+        BatchNorm runs in train mode and updates its running statistics once
+        (``update_stats``, flax's ``mutable=["batch_stats"]``); without
+        ``update_stats`` it raises, as the JAX package's immutable
+        ``apply`` does. aux: ``depth_pred`` (B, h, w, 1).
+
+        Outside the pretraining stage the loss (``train_forward``) raises:
+        its gradient runs through K1, K3 and K8, which have no backward."""
+        if not self.pretrain_stage:
+            raise NotImplementedError(
+                "the port trains the pretraining stage only: train_forward's gradient runs through "
+                "roi_align, attention and the bins head, which have no backward")
+        if not update_stats:
+            raise RuntimeError(
+                "the pretraining stage runs the refiner's BatchNorm in train mode, which updates its "
+                "running statistics: pass update_stats=True")
+        if not self.net.training:
+            raise RuntimeError("the pretraining loss runs BatchNorm in train mode: call train() first")
+        dt = next(self.net.parameters()).dtype
+        image_lr = torch.as_tensor(batch["image_lr"]).to(self.device, dt)
+        depth_gt = torch.as_tensor(batch["depth_gt"]).to(self.device, dt)
+        arm_stat_updates(self.net)
+        depth = self.net.pretrain_forward(image_lr, self.hack_strategy, generator, coarse_features)
+        depth = to_nhwc(depth)
+        sig = self.sigloss(depth, depth_gt, self.min_depth, self.max_depth)
+        return {"sig_fine_loss": sig, "total_loss": sig}, {"depth_pred": depth}
 
     def _tile(self, tile_cfg) -> TileCfg:
         return self.tile_cfg if tile_cfg is None else TileCfg(
@@ -307,6 +416,8 @@ class PatchRefinerPlus:
         from ``random_starts`` ((N // process_num, process_num, 2) int [h, w]).
         Returns (depth float32 on the reensemble canvas (H', W') for m1 and
         m2, on the raw (H, W) canvas for rN; coarse depth (1, h, w, 1))."""
+        if self.pretrain_stage:
+            raise NotImplementedError("the pretraining stage builds no coarse branch to infer with")
         cal = self._int8[0] if self._int8 is not None else None
         if cal is not None and cal.dtype != self.infer_dtype:
             raise RuntimeError(f"the int8 calibration was made in {cal.dtype}, the model "

@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from patchrefinerv2_torch.ops import _cuda
+from patchrefinerv2_torch.ops._grad import forbid_grad
 
 __all__ = ["attention", "attention_plain", "relative_position_bias"]
 
@@ -98,6 +99,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     """softmax(q k^T * scale + bias) v for (B, H, S, D) q, k, v. With
     ``rel_table`` ((num_rel + 3, H)) and ``grid`` ((gh, gw), S = gh*gw + 1)
     the BEiT relative-position bias is added; without, no bias."""
+    forbid_grad("attention", q, k, v, rel_table)
     if _cuda.on_cpu(q):
         return attention_plain(q, k, v, scale, rel_table, grid)
     _check(q, k, v, rel_table, grid)

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from patchrefinerv2_torch.ops import _cuda
+from patchrefinerv2_torch.ops._grad import forbid_grad
 from patchrefinerv2_torch.ops.resize import _alignment, _packed_taps_on, axis_taps, resize_plain
 
 __all__ = ["attractor_update", "attractor_update_plain", "launch_plan", "log_binomial_depth",
@@ -220,6 +221,7 @@ def attractor_update(a: torch.Tensor, b_prev: torch.Tensor, kind: str = "mean",
     and clipped for normed ones."""
     if kind not in ("mean", "sum") or attractor_type not in ("inv", "exp"):
         raise ValueError(f"unknown attractor kind {kind!r} or type {attractor_type!r}")
+    forbid_grad("attractor_update", a, b_prev)
     if _cuda.on_cpu(a):
         return attractor_update_plain(a, b_prev, kind, attractor_type, normed, min_depth, max_depth)
     _check_nhwc(a, b_prev, "a and b_prev")
@@ -256,6 +258,7 @@ def log_binomial_depth(pt: torch.Tensor, centers: torch.Tensor, n_bins: int, min
     (H, W) here (bilinear, align_corners) unless they are at that size: the
     expectation of the centres under the softmax over the K bins of the
     binomial log-probabilities divided by the temperature."""
+    forbid_grad("log_binomial_depth", pt, centers)
     if _cuda.on_cpu(pt):
         return log_binomial_depth_plain(pt, centers, n_bins, min_temp, max_temp)
     _check_nhwc(pt, centers, "pt and centers")

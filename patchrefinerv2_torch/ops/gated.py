@@ -15,6 +15,11 @@ and registers. In bfloat16 it is a persistent kernel that streams tiles of
 ``f`` through a ring in shared memory and runs the 1x1 on ``wgmma``;
 :func:`launch_plan` sizes its tiles, ring and grid. On a CPU tensor it runs
 :func:`gate_tail_plain`. ``gate_tail.launches`` counts the kernel launches.
+
+Under autograd :func:`gate_tail` is a ``torch.autograd.Function``
+(``_GateTail``): the forward as above, the backward in PyTorch ops from the
+saved inputs (the LayerNorm, the 1x1 and the sigmoid recomputed, the 1x1's
+gradients as two matmuls).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from patchrefinerv2_torch.ops import _cuda
+from patchrefinerv2_torch.ops._grad import ln_backward, ln_stats, require_float, wants_grad, wide
 from patchrefinerv2_torch.ops.layer_norm import layer_norm_plain
 
 __all__ = ["gate_tail", "gate_tail_plain"]
@@ -56,7 +62,7 @@ def gate_tail_plain(f, out, weight, ln_weight, ln_bias, eps: float = 1e-6):
     """Plain PyTorch version of :func:`gate_tail` (any device)."""
     h = torch.relu(layer_norm_plain(f, ln_weight, ln_bias, eps))
     w = weight.reshape(weight.shape[0], -1)
-    z = torch.matmul(h.float(), w.float().t()).to(f.dtype)
+    z = torch.matmul(wide(h), wide(w).t()).to(f.dtype)
     return z if out is None else out * torch.sigmoid(z)
 
 
@@ -65,6 +71,14 @@ def gate_tail(f: torch.Tensor, out: torch.Tensor | None, weight: torch.Tensor,
     """``f``, ``out``: (..., C) rows (NHWC); ``out=None`` turns the gate off
     and returns the 1x1 output. ``weight``: the (C, C) or (C, C, 1, 1) 1x1
     conv weight; ``ln_weight``, ``ln_bias``: (C,)."""
+    if wants_grad(f, out, weight, ln_weight, ln_bias):
+        require_float("gate_tail", f, out, weight, ln_weight, ln_bias)
+        return _GateTail.apply(f.contiguous(), None if out is None else out.contiguous(), weight,
+                               ln_weight, ln_bias, eps)
+    return _forward(f, out, weight, ln_weight, ln_bias, eps)
+
+
+def _forward(f, out, weight, ln_weight, ln_bias, eps):
     if _cuda.on_cpu(f):
         return gate_tail_plain(f, out, weight, ln_weight, ln_bias, eps)
     c = f.shape[-1]
@@ -93,6 +107,37 @@ def gate_tail(f: torch.Tensor, out: torch.Tensor | None, weight: torch.Tensor,
     _cuda.check(rc, "gate_tail")
     gate_tail.launches += 1
     return y
+
+
+class _GateTail(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, f, out, weight, ln_weight, ln_bias, eps):
+        ctx.save_for_backward(f, out, weight, ln_weight, ln_bias)
+        ctx.eps = eps
+        return _forward(f, out, weight, ln_weight, ln_bias, eps)
+
+    @staticmethod
+    def backward(ctx, gy):
+        f, out, weight, lw, lb = ctx.saved_tensors
+        c = f.shape[-1]
+        x = f.reshape(-1, c)
+        mean, rstd, _ = ln_stats(x, ctx.eps)
+        ln = (x - mean) * (rstd * lw) + lb
+        h = torch.relu(ln)
+        w = weight.reshape(c, c)
+        g = gy.reshape(-1, c)
+        dout = None
+        if out is None:
+            dz = g
+        else:
+            s = torch.sigmoid(torch.matmul(h, w.t()))
+            dz = g * out.reshape(-1, c) * (s * (1.0 - s))
+            if ctx.needs_input_grad[1]:
+                dout = (g * s).reshape(out.shape)
+        dw = torch.matmul(dz.t(), h).reshape(weight.shape)
+        dln = torch.matmul(dz, w) * (ln > 0)
+        df, dlw, dlb = ln_backward(dln, x, lw, ctx.eps)
+        return df.reshape(f.shape), dout, dw, dlw, dlb, None
 
 
 gate_tail.launches = 0

@@ -16,6 +16,10 @@ rows, reduces each row in float32 registers and writes the affine result.
 It is bound by bytes: each element is read once and written once. On a CPU
 tensor :func:`layer_norm` runs :func:`layer_norm_plain`.
 ``layer_norm.launches`` counts the kernel launches.
+
+Under autograd :func:`layer_norm` is a ``torch.autograd.Function``
+(``_LayerNorm``): the forward as above, the backward in PyTorch ops from
+the saved input (mean and rstd recomputed, ``ops/_grad.ln_backward``).
 """
 
 from __future__ import annotations
@@ -25,16 +29,17 @@ import functools
 import torch
 
 from patchrefinerv2_torch.ops import _cuda
+from patchrefinerv2_torch.ops._grad import ln_backward, require_float, wants_grad, wide
 
 __all__ = ["layer_norm", "layer_norm_plain"]
 
 
 def layer_norm_plain(x, weight, bias, eps: float = 1e-6):
     """Plain PyTorch version of :func:`layer_norm` (any device)."""
-    xf = x.float()
+    xf = wide(x)
     mean = xf.mean(-1, keepdim=True)
     var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
-    y = (xf - mean) * (torch.rsqrt(var + eps) * weight.float()) + bias.float()
+    y = (xf - mean) * (torch.rsqrt(var + eps) * wide(weight)) + wide(bias)
     return y.to(x.dtype)
 
 
@@ -69,9 +74,7 @@ def _blocks(c: int):
     return block_m, block_c, num_warps
 
 
-def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm over the last axis of ``x`` (any leading shape)."""
+def _forward(x, weight, bias, eps):
     if _cuda.on_cpu(x):
         return layer_norm_plain(x, weight, bias, eps)
     c = x.shape[-1]
@@ -90,6 +93,30 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         BLOCK_M=block_m, BLOCK_C=block_c, num_warps=num_warps)
     layer_norm.launches += 1
     return y
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _forward(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, weight = ctx.saved_tensors
+        c = x.shape[-1]
+        dx, dw, db = ln_backward(gy.reshape(-1, c), x.reshape(-1, c), weight, ctx.eps)
+        return dx.reshape(x.shape), dw, db, None
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the last axis of ``x`` (any leading shape)."""
+    if wants_grad(x, weight, bias):
+        require_float("layer_norm", x, weight, bias)
+        return _LayerNorm.apply(x.contiguous(), weight, bias, eps)
+    return _forward(x, weight, bias, eps)
 
 
 layer_norm.launches = 0

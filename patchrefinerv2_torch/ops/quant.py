@@ -69,6 +69,7 @@ import torch
 import torch.nn.functional as F
 
 from patchrefinerv2_torch.ops import _cuda
+from patchrefinerv2_torch.ops._grad import forbid_grad
 
 __all__ = [
     "quant_conv", "quant_conv_plain", "quantize", "act_scale", "quantize_per_out_channel",
@@ -302,6 +303,7 @@ def quant_conv(parts, kq: torch.Tensor, sx: torch.Tensor | None, scale: torch.Te
     Cout) or None; ``wf``: ``format_weight(kq)`` when the caller keeps it.
     Returns (N, H, W, Cout) in the input dtype."""
     parts = list(parts)
+    forbid_grad("quant_conv", *parts, residual)
     if _cuda.on_cpu(parts[0]):
         return quant_conv_plain(parts, kq, sx, scale, bias, relu_in, residual, relu_out, dynamic)
     if not 1 <= len(parts) <= MAX_PARTS:

@@ -15,6 +15,12 @@ On a CUDA tensor the functions launch the kernel (or raise); on a CPU
 tensor they run the plain PyTorch version, which applies the same taps
 with indexing. ``resize.launches`` and ``crop_resize.launches`` count the
 kernel launches.
+
+Under autograd a bilinear :func:`resize` is a ``torch.autograd.Function``
+(``_Resize``): the forward as above, the backward
+``aten.upsample_bilinear2d_backward``, the transpose of the same taps
+(torch computes them as ``axis_taps`` does). The other modes and
+:func:`crop_resize` raise when asked for a gradient.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 
 from patchrefinerv2_torch.ops import _cuda
+from patchrefinerv2_torch.ops._grad import forbid_grad, require_float, wants_grad, wide
 
 __all__ = ["axis_taps", "resize", "resize_plain", "crop_resize", "crop_resize_plain"]
 
@@ -158,7 +165,7 @@ def resize_plain(x, size, mode="bilinear", align_corners=False, scale_override=N
     dev = x.device
     iy, wy = _taps_on(h, oh, mode, bool(align_corners), sh, dev)
     ix, wx = _taps_on(w, ow, mode, bool(align_corners), sw, dev)
-    y = _apply_axis(x.float(), 1, iy, wy)
+    y = _apply_axis(wide(x), 1, iy, wy)
     y = _apply_axis(y, 2, ix, wx)
     return y.to(x.dtype)
 
@@ -174,12 +181,23 @@ def resize(x: torch.Tensor, size, mode: str = "bilinear", align_corners: bool = 
         return resize(x[None], size, mode, align_corners, scale_override)[0]
     if x.ndim != 4:
         raise ValueError(f"expected NHWC, got shape {tuple(x.shape)}")
-    n, h, w, c = x.shape
+    h, w = x.shape[1:3]
     oh, ow = int(size[0]), int(size[1])
-    sh, sw = _scales(scale_override)
-    axis_taps(h, oh, mode, bool(align_corners), sh)  # validates the mode
+    axis_taps(h, oh, mode, bool(align_corners), _scales(scale_override)[0])  # validates the mode
     if (h, w) == (oh, ow) and mode != "nearest":
         return x
+    if wants_grad(x):
+        if mode != "bilinear":
+            raise NotImplementedError(f"resize has a backward for bilinear only, not {mode!r}")
+        require_float("resize", x)
+        return _Resize.apply(x, (oh, ow), bool(align_corners), scale_override)
+    return _forward(x, (oh, ow), mode, align_corners, scale_override)
+
+
+def _forward(x, size, mode, align_corners, scale_override):
+    n, h, w, c = x.shape
+    oh, ow = size
+    sh, sw = _scales(scale_override)
     if _cuda.on_cpu(x):
         return resize_plain(x, size, mode, align_corners, scale_override)
     _cuda.require_cuda(x)
@@ -189,6 +207,22 @@ def resize(x: torch.Tensor, size, mode: str = "bilinear", align_corners: bool = 
     _cuda.check(_launch(x, y, th, tw, None, n, h, w, c, h * w * c, mode == "nearest"), "resize")
     resize.launches += 1
     return y
+
+
+class _Resize(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, size, align_corners, scale_override):
+        ctx.in_shape, ctx.size, ctx.ac = tuple(x.shape), size, align_corners
+        ctx.scales = _scales(scale_override)
+        return _forward(x.contiguous(), size, "bilinear", align_corners, scale_override)
+
+    @staticmethod
+    def backward(ctx, gy):
+        n, h, w, c = ctx.in_shape
+        g = gy.contiguous().permute(0, 3, 1, 2)  # NCHW view of the NHWC gradient
+        gx = torch.ops.aten.upsample_bilinear2d_backward(
+            g, list(ctx.size), [n, c, h, w], ctx.ac, *ctx.scales)
+        return gx.permute(0, 2, 3, 1), None, None, None
 
 
 resize.launches = 0
@@ -212,6 +246,7 @@ def crop_resize(image: torch.Tensor, starts: torch.Tensor, patch_raw_shape, out_
         raise ValueError(f"expected an (H, W, C) image, got {tuple(image.shape)}")
     if starts.ndim != 2 or starts.shape[1] != 2:
         raise ValueError(f"expected (N, 2) starts, got {tuple(starts.shape)}")
+    forbid_grad("crop_resize", image)
     prh, prw = int(patch_raw_shape[0]), int(patch_raw_shape[1])
     oh, ow = int(out_shape[0]), int(out_shape[1])
     if _cuda.on_cpu(image):

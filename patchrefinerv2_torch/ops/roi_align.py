@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from patchrefinerv2_torch.ops import _cuda
+from patchrefinerv2_torch.ops._grad import forbid_grad
 
 __all__ = ["roi_align", "roi_align_plain", "launch_plan"]
 
@@ -82,6 +83,7 @@ def roi_align(features, boxes, box_idx, output_size, spatial_scale: float = 1.0,
               sampling_ratio: int = 1):
     """Aligned RoI-Align of NHWC ``features`` -> (N, out_h, out_w, C) in the
     features' dtype (float32 or bfloat16)."""
+    forbid_grad("roi_align", features)
     if sampling_ratio != 1:
         raise NotImplementedError("roi_align is ported for sampling_ratio=1 (every call site)")
     if features.ndim != 4 or boxes.ndim != 2 or boxes.shape[1] != 4 or \

@@ -33,6 +33,13 @@ would round float32 to TF32). The weights are laid out once per weight
 tensor (:func:`formatted_weight`, re-formatted when the tensor changes).
 On a CPU tensor it runs :func:`tail_conv_plain`. ``tail_conv.launches``
 counts the kernel launches.
+
+Under autograd :func:`tail_conv` is a ``torch.autograd.Function``
+(``_TailConv``): the forward as above, the backward in PyTorch ops: the
+epilogue's gradient (the ReLU's from the saved output; the GELU's and the
+LayerNorm's from the conv output, recomputed with one ``F.conv2d``), then
+``aten.convolution_backward`` for the data and weight gradients of the
+concatenated input, split back into its parts.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from patchrefinerv2_torch.ops import _cuda
+from patchrefinerv2_torch.ops._grad import ln_backward, ln_stats, require_float, wants_grad, wide
 
 __all__ = ["tail_conv", "tail_conv_plain", "launch_plan", "format_weight", "formatted_weight"]
 
@@ -121,19 +129,19 @@ def tail_conv_plain(parts, weight, bias=None, residual=None, ln=None, act: str =
     where the kernel does: every step in float32, one rounding to the
     input dtype at the end."""
     dt = parts[0].dtype
-    x = torch.cat([p.float() for p in parts], dim=-1).permute(0, 3, 1, 2)
+    x = torch.cat([wide(p) for p in parts], dim=-1).permute(0, 3, 1, 2)
     if relu_in:
         x = torch.relu(x)
     k = weight.shape[-1]
-    y = F.conv2d(x, weight.float(), padding=k // 2).permute(0, 2, 3, 1)
+    y = F.conv2d(x, wide(weight), padding=k // 2).permute(0, 2, 3, 1)
     if bias is not None:
-        y = y + bias.float()
+        y = y + wide(bias)
     if residual is not None:
-        y = y + residual.float()
+        y = y + wide(residual)
     if ln is not None:
         mean = y.mean(-1, keepdim=True)
         var = torch.clamp((y * y).mean(-1, keepdim=True) - mean * mean, min=0.0)
-        y = (y - mean) * (torch.rsqrt(var + eps) * ln[0].float()) + ln[1].float()
+        y = (y - mean) * (torch.rsqrt(var + eps) * wide(ln[0])) + wide(ln[1])
     if act == "relu":
         y = torch.relu(y)
     elif act == "gelu":
@@ -191,6 +199,15 @@ def tail_conv(parts, weight: torch.Tensor, bias: torch.Tensor | None = None,
     channel LayerNorm or None; ``act``: "none", "relu" or "gelu". Returns
     (N, H, W, Cout)."""
     parts = list(parts)
+    lw, lb = ln if ln is not None else (None, None)
+    if wants_grad(*parts, weight, bias, residual, lw, lb):
+        require_float("tail_conv", *parts, weight, bias, residual, lw, lb)
+        return _TailConv.apply((act, bool(relu_in), eps), weight, bias, residual, lw, lb,
+                               *(p.contiguous() for p in parts))
+    return _forward(parts, weight, bias, residual, ln, act, relu_in, eps)
+
+
+def _forward(parts, weight, bias, residual, ln, act, relu_in, eps):
     if _cuda.on_cpu(parts[0]):
         return tail_conv_plain(parts, weight, bias, residual, ln, act, relu_in, eps)
     if not 1 <= len(parts) <= MAX_PARTS:
@@ -237,6 +254,73 @@ def tail_conv(parts, weight: torch.Tensor, bias: torch.Tensor | None = None,
     _cuda.check(rc, "tail_conv")
     tail_conv.launches += 1
     return y
+
+
+class _TailConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cfg, weight, bias, residual, ln_w, ln_b, *parts):
+        act, relu_in, eps = cfg
+        ln = None if ln_w is None else (ln_w, ln_b)
+        y = _forward(list(parts), weight, bias, residual, ln, act, relu_in, eps)
+        ctx.cfg, ctx.has_bias = cfg, bias is not None
+        # the ReLU's mask comes from the output; the GELU and the LayerNorm
+        # need the conv output, recomputed in the backward from the inputs
+        recompute = ln is not None or act == "gelu"
+        ctx.save_for_backward(weight, bias if recompute else None,
+                              residual if recompute else None, ln_w, ln_b,
+                              y if act == "relu" and ln is None else None, *parts)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        act, relu_in, eps = ctx.cfg
+        weight, bias, residual, ln_w, ln_b, y, *parts = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        k = weight.shape[-1]
+        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+        xin = torch.relu(x) if relu_in else x
+        xin_nchw = xin.permute(0, 3, 1, 2)
+        g = gy.contiguous()
+        dln_w = dln_b = None
+        if ln_w is not None or act == "gelu":
+            pre = F.conv2d(xin_nchw, weight, bias, padding=k // 2).permute(0, 2, 3, 1)
+            if residual is not None:
+                pre = pre + residual
+            cout = pre.shape[-1]
+            rows = pre.reshape(-1, cout)
+            z = rows
+            if ln_w is not None:
+                mean, rstd, _ = ln_stats(rows, eps)
+                z = (rows - mean) * (rstd * ln_w) + ln_b
+            gz = g.reshape(-1, cout)
+            if act == "gelu":
+                gz = torch.ops.aten.gelu_backward(gz, z, approximate="none")
+            elif act == "relu":
+                gz = gz * (z > 0)
+            if ln_w is not None:
+                gz, dln_w, dln_b = ln_backward(gz, rows, ln_w, eps)
+            dpre = gz.reshape(g.shape)
+        elif act == "relu":
+            dpre = g * (y > 0)
+        else:
+            dpre = g
+        dbias = dpre.sum((0, 1, 2)) if ctx.has_bias and need[2] else None
+        dres = dpre if need[3] else None
+        want_x = any(need[6:])
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            dpre.permute(0, 3, 1, 2), xin_nchw, weight, None, [1, 1], [k // 2, k // 2], [1, 1],
+            False, [0, 0], 1, [want_x, need[1], False])
+        dparts = [None] * len(parts)
+        if want_x:
+            dx = dx.permute(0, 2, 3, 1)
+            if relu_in:
+                dx = dx * (x > 0)
+            lo = 0
+            for i, p in enumerate(parts):
+                if need[6 + i]:
+                    dparts[i] = dx[..., lo:lo + p.shape[-1]]
+                lo += p.shape[-1]
+        return (None, dw, dbias, dres, dln_w, dln_b, *dparts)
 
 
 tail_conv.launches = 0

@@ -1,0 +1,84 @@
+"""Training entry point, the port's counterpart of ``tools/train.py``:
+
+    python -m patchrefinerv2_torch.train CONFIG --work-dir D [--cfg-option k=v ...]
+                                         [--device cpu] [--seed S] [--resume-from P]
+
+It builds ``PatchRefinerPlus`` from the config's ``model`` (random weights
+from the seed; the port trains the pretraining stage, e.g.
+``configs/patchrefinerv2_zoedepth/pretrain_eff_m0s1.py``), the config's
+train dataset (of the port's datasets, ``SyntheticDataset``:
+``--cfg-option train_dataloader.dataset.type=SyntheticDataset``), a
+shuffled loader of its ``batch_size``, and runs ``Trainer.run``. The
+validation dataset is skipped when it is not one the port has. It runs on
+the card unless ``--device cpu`` is given, and raises when there is none.
+Float32 matmuls and convolutions run without TF32 (set here, and printed).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import random
+
+import numpy as np
+import torch
+
+from patchrefinerv2_torch.config import Config
+from patchrefinerv2_torch.datasets.base import DataLoader
+from patchrefinerv2_torch.datasets.synthetic import SyntheticDataset
+from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
+from patchrefinerv2_torch.training.trainer import Trainer
+from patchrefinerv2_torch.utils.logging import print_log
+
+DATASETS = {"SyntheticDataset": SyntheticDataset}
+
+
+def build_dataset(cfg: dict):
+    cfg = dict(cfg)
+    kind = cfg.pop("type")
+    if kind not in DATASETS:
+        raise NotImplementedError(f"dataset {kind!r} is not ported ({sorted(DATASETS)} are)")
+    return DATASETS[kind](**cfg)
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("config")
+    parser.add_argument("--work-dir", default=None)
+    parser.add_argument("--tag", default="")
+    parser.add_argument("--seed", type=int, default=621)
+    parser.add_argument("--resume-from", default=None)
+    parser.add_argument("--device", default=None, help="cpu runs the plain versions of the kernels")
+    parser.add_argument("--cfg-option", nargs="+", default=None, help="dotted key=value overrides")
+    args = parser.parse_args(argv)
+
+    cfg = Config.fromfile(args.config)
+    cfg.merge_from_options(args.cfg_option)
+    cfg["seed"] = args.seed
+    if args.resume_from:
+        cfg["resume_from"] = args.resume_from
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+    torch.manual_seed(args.seed)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    work_dir = args.work_dir or os.path.join(
+        "./work_dir", os.path.splitext(os.path.basename(args.config))[0], args.tag)
+
+    if cfg.model.get("type", "PatchRefinerPlus") != "PatchRefinerPlus":
+        raise NotImplementedError(f"model {cfg.model.type!r} is not ported (PatchRefinerPlus is)")
+    model = PatchRefinerPlus(cfg.model.config, device=args.device, seed=args.seed)
+    train_loader = DataLoader(build_dataset(cfg.train_dataloader.dataset),
+                              batch_size=cfg.train_dataloader.get("batch_size", 4), shuffle=True,
+                              seed=args.seed)
+    val_loader = None
+    if cfg.get("val_dataloader"):
+        try:
+            val_loader = DataLoader(build_dataset(cfg.val_dataloader.dataset), batch_size=1)
+        except NotImplementedError as e:
+            print_log(f"val dataset unavailable ({e}); skipping validation")
+    Trainer(cfg, model, train_loader, val_loader, work_dir=work_dir).run()
+
+
+if __name__ == "__main__":
+    main()

@@ -70,13 +70,28 @@ def _dpt_scratch(sd: _SD, s: str, P) -> None:
     decoder; refinenet4 has one input, so only its second unit."""
     for k in range(1, 5):
         sd.conv(f"{s}layer{k}_rn", P[f"layer{k}_rn"])
-        node, base = P[f"refinenet{k}"], f"{s}refinenet{k}"
-        units = ("resConfUnit2",) if k == 4 else ("resConfUnit1", "resConfUnit2")
-        for ui, unit in enumerate(units):
-            rcu = node[f"ResidualConvUnit_{ui}"]
-            sd.conv(f"{base}.{unit}.conv1", rcu["Conv_0"])
-            sd.conv(f"{base}.{unit}.conv2", rcu["Conv_1"])
-        sd.conv(base + ".out_conv", node["Conv_0"])
+        _ffb(sd, f"{s}refinenet{k}", P[f"refinenet{k}"], single=k == 4)
+
+
+def _ffb(sd: _SD, base: str, node, single: bool) -> None:
+    """A FeatureFusionBlock: with one input only its second unit."""
+    units = ("resConfUnit2",) if single else ("resConfUnit1", "resConfUnit2")
+    for ui, unit in enumerate(units):
+        rcu = node[f"ResidualConvUnit_{ui}"]
+        sd.conv(f"{base}.{unit}.conv1", rcu["Conv_0"])
+        sd.conv(f"{base}.{unit}.conv2", rcu["Conv_1"])
+    sd.conv(base + ".out_conv", node["Conv_0"])
+
+
+def _refiner_decoder(sd: _SD, s: str, P) -> None:
+    """The refiner's SimpleDPTHead (``with_decoder``): Scratch projections,
+    refinenet5 (one input) .. refinenet1 and the three output convs."""
+    for k in range(1, 6):
+        sd.conv(f"{s}layer{k}_rn", P["Scratch_0"][f"layer{k}_rn"])
+        _ffb(sd, f"{s}refinenet{k}", P[f"refinenet{k}"], single=k == 5)
+    sd.conv(s + "output_conv1", P["output_conv1"])
+    sd.conv(s + "output_conv2.0", P["output_conv2"])
+    sd.conv(s + "output_conv3.0", P["output_conv3"])
 
 
 def _beit_midas(sd: _SD, p: str, P) -> None:
@@ -249,14 +264,21 @@ def _fusion(sd: _SD, p: str, P) -> None:
 
 
 def _prplusnet(sd: _SD, P, S) -> None:
-    if "depth_head" in P["coarse"]:  # a DepthAnythingV2 coarse branch
+    """The whole net; in the pretraining stage it has no coarse branch and
+    its refiner has a decoder."""
+    if "coarse" in P and "depth_head" in P["coarse"]:  # a DepthAnythingV2 coarse branch
         _da2(sd, "coarse_branch.", P["coarse"])
-    else:  # ZoeDepth: the BEiT MiDaS core and the bins head
+    elif "coarse" in P:  # ZoeDepth: the BEiT MiDaS core and the bins head
         _beit_midas(sd, "coarse_branch.core.core.", P["coarse"]["core"])
         _zoe_head(sd, "coarse_branch.", P["coarse"]["head"])
-    _effnet(sd, "refiner_fine_branch.refiner_encoder.", P["fine"]["refiner_encoder"],
-            S["fine"]["refiner_encoder"])
+    _refiner(sd, "refiner_fine_branch.", P["fine"], S["fine"])
     _fusion(sd, "refiner_fusion_model.", P["fusion"])
+
+
+def _refiner(sd: _SD, p: str, P, S) -> None:
+    _effnet(sd, p + "refiner_encoder.", P["refiner_encoder"], S["refiner_encoder"])
+    if "decoder" in P:
+        _refiner_decoder(sd, p + "decoder.scratch.", P["decoder"])
 
 
 # JAX module -> how its variables ({params}, {batch_stats}) fill the port's
@@ -269,8 +291,8 @@ PARTS = {
     "DepthAnythingV2": lambda sd, P, S: _da2(sd, "", P),
     "EfficientNetB5Features": lambda sd, P, S: _effnet(sd, "", P, S),
     "MBConv": lambda sd, P, S: _mbconv(sd, "", P, S),
-    "LightWeightRefiner": lambda sd, P, S: _effnet(
-        sd, "refiner_encoder.", P["refiner_encoder"], S["refiner_encoder"]),
+    "LightWeightRefiner": lambda sd, P, S: _refiner(sd, "", P, S),
+    "SimpleDPTHead": lambda sd, P, S: _refiner_decoder(sd, "scratch.", P),
     "BiDirectionalFusion": lambda sd, P, S: _fusion(sd, "", P),
     "C2FModule": lambda sd, P, S: _fusion_c2f(sd, "", P),
     "GatedConvUnit": lambda sd, P, S: _gated_unit(sd, "", P),
