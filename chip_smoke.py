@@ -90,32 +90,44 @@ Phases (each prints one or more lines; any failure exits non-zero):
    full-size frame whose prediction has edges on the card against the CPU,
    then the time of its ``get_metrics`` on the card and of each part;
 8. training, the refiner pretraining stage (``pretrain_eff_m0s1``: batch 4
-   of 384x512 images against 2160x3840 depth, float32 with TF32 off, remat
-   on): (A) every site of K2, K5, K6 and K9 in one full-width step
-   (recorded from a step on the card), each ``torch.autograd.Function``'s
-   output and gradients against autograd through its plain version (input
-   gradients 1e-5, parameter gradients 1e-4 of the magnitude), with the
-   times of its backward, of the plain version's and of the one library
-   call that computes the gradient where there is one; (B) three steps
-   through ``Trainer.run`` with the launch counters set to 0 before each
-   step and read after it (K2, K5, K6 and K9 in every step, no other
-   kernel, no call of a plain version), finite losses and gradients, the
-   parameters and BatchNorm statistics moved and a checkpoint written;
+   of 384x512 images against 2160x3840 depth) and stage 3 (``v2_eff_u4k``
+   with ``e2e_training``: batch 4 of a 384x512 image and a 540x960 crop
+   resized to 384x512 against its depth), float32 with TF32 off, remat on:
+   (A) every site of the training Functions in one full-width step of each
+   stage (recorded from a step on the card): K2, K5, K6 and K9 in both, K1,
+   K3 and K8 in stage 3, each ``torch.autograd.Function``'s output and
+   gradients against autograd through its plain version (input gradients
+   1e-5, parameter gradients 1e-4 of the magnitude), with the times of its
+   backward, of the plain version's and of the one library call that
+   computes the gradient where there is one; (B) the pretraining stage,
+   three steps through ``Trainer.run`` with the launch counters set to 0
+   before each step and read after it (K2, K5, K6 and K9 in every step, no
+   other kernel, no call of a plain version), finite losses and gradients,
+   the parameters and BatchNorm statistics moved and a checkpoint written;
    then ms a step over 5 steps with the batch on the card, images/s, peak
    memory with remat on and off, and one profiled step (device ms by
-   group, each Function's backward, the optimizer); (C) a tiny step (48x64,
-   batch 2) on the card against the CPU within the CPU tests' float32 bars.
+   group, each Function's backward, the optimizer); (C) a tiny pretraining
+   step (48x64, batch 2) on the card against the CPU within the CPU tests'
+   float32 bars; (D) stage 3 from (B)'s checkpoint (``pretrained``: its
+   merged and kept tensor counts printed), three steps through
+   ``Trainer.run`` counted as in (B) with K1 7 and K8 4 + 1 times a step
+   exactly, K3 in every step and the coarse branch moved, then the m1
+   validation of one 2160x3840 frame in float32, the step times, peak
+   memory and a profiled step as in (B); (E) a tiny stage-3 step on the
+   card against the CPU within the same bars.
 
 The line before the last is one JSON object with a record per kernel: its
 launches in each main-path run and their sum, and its times, bound and
 largest error summed over the shapes of every path in the dtypes the path
 runs (``PATH_DTYPES``), with each path's own under ``<path>_<dtype>``
 (``flagship_bf16``, ``da2_bf16``, ``r32_bf16``, ``r32_f32``,
-``cityscapes_eval_bf16``, ``_f32``, ``_f64``; K2, K5, K6 and K9 also
-``train_backward_f32``: their Functions' backwards over a training step's
-sites, kept out of the sums, the error there relative to each gradient's
-magnitude); ``launches_by_run`` has ``train_f32``, the launches of one
-training step. The last line is ``{"ok": true, "device": {...}}``.
+``cityscapes_eval_bf16``, ``_f32``, ``_f64``; the training Functions also
+``train_backward_f32`` (the pretraining step's sites: K2, K5, K6, K9) and
+``train_e2e_backward_f32`` (stage 3's: those four and K1, K3, K8): their
+backwards over a step's sites, kept out of the sums, the error there
+relative to each gradient's magnitude); ``launches_by_run`` has
+``train_f32`` and ``train_e2e_f32``, the launches of one step of each
+stage. The last line is ``{"ok": true, "device": {...}}``.
 The script imports nothing of JAX. It exits non-zero and prints no result
 without a CUDA device or without the package beside it.
 """
@@ -200,7 +212,7 @@ PATHS = {
 # r32 frame's raw-canvas work.
 PATH_DTYPES = {"flagship": ("bfloat16",), "da2": ("bfloat16",), "r32": ("bfloat16", "float32"),
                "cityscapes_eval": ("bfloat16", "float32", "float64"),
-               "train_backward": ("float32",)}
+               "train_backward": ("float32",), "train_e2e_backward": ("float32",)}
 SHORT = {"bfloat16": "bf16", "float32": "f32", "float64": "f64"}
 
 
@@ -1699,6 +1711,20 @@ def depth_anything_v2(dev) -> dict:
     return dict(da2_m1=counts, **int8_frames(fr, "da2_", d16, False, INT8_IDLE_OK + bins))
 
 
+# the small composed graphs' flagship topology: a tiny BEiT ZoeDepth coarse
+# branch with the EfficientNet-B5 refiner and BiDirectionalFusion
+TINY_REFINER = dict(fine_branch=dict(type="LightWeightRefiner", encoder_name="tf_efficientnet_b5_ap"))
+TINY_ZOE = dict(
+    image_raw_shape=[96, 128], patch_process_shape=[48, 64], patch_split_num=[2, 2],
+    fusion_feat_level=6, min_depth=1e-3, max_depth=80, strategy_refiner_target="offset_coarse",
+    coarse_branch=dict(type="ZoeDepth", n_bins=16, bin_embedding_dim=16, attractor_kind="mean",
+                       attractor_type="inv",
+                       trunk=dict(embed_dim=64, depth=4, num_heads=4, taps=[0, 1, 2, 3],
+                                  features=32, out_channels=[24, 32, 48, 48])),
+    refiner=dict(TINY_REFINER, fusion_model=dict(type="BiDirectionalFusion",
+                                                 coarse_chl=[32, 16, 16, 16, 16, 32])))
+
+
 def small_gpu_vs_cpu(dev) -> None:
     """The composed graph at a small size, kernels on the card against the
     plain versions on the CPU, float32: a tiny BEiT ZoeDepth coarse branch
@@ -1708,16 +1734,7 @@ def small_gpu_vs_cpu(dev) -> None:
 
     from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
 
-    refiner = dict(fine_branch=dict(type="LightWeightRefiner", encoder_name="tf_efficientnet_b5_ap"))
-    zoe = dict(
-        image_raw_shape=[96, 128], patch_process_shape=[48, 64], patch_split_num=[2, 2],
-        fusion_feat_level=6, min_depth=1e-3, max_depth=80, strategy_refiner_target="offset_coarse",
-        coarse_branch=dict(type="ZoeDepth", n_bins=16, bin_embedding_dim=16, attractor_kind="mean",
-                           attractor_type="inv",
-                           trunk=dict(embed_dim=64, depth=4, num_heads=4, taps=[0, 1, 2, 3],
-                                      features=32, out_channels=[24, 32, 48, 48])),
-        refiner=dict(refiner, fusion_model=dict(type="BiDirectionalFusion",
-                                                coarse_chl=[32, 16, 16, 16, 16, 32])))
+    refiner, zoe = TINY_REFINER, TINY_ZOE
     da2 = dict(
         zoe, image_raw_shape=[112, 168], patch_process_shape=[56, 84],
         coarse_branch=dict(type="DA2", model_cfg=dict(encoder="vitt", features=64)),
@@ -1998,7 +2015,38 @@ def pretrain_config(batch: int = 4, steps: int = 3, patch=None):
     return cfg
 
 
-def pretrain_trainer(dev, cfg, work_dir):
+STAGE3_CONFIG = "configs/patchrefinerv2_zoedepth/v2_eff_u4k.py"
+STAGE3_KERNELS = TRAIN_KERNELS + ("roi_align", "attention", "attractor_update", "log_binomial_depth")
+# the launches a stage-3 step makes, exactly: K1 at the six coarse levels and
+# the coarse depth, K8 at the four attractor layers and the log-binomial
+STAGE3_EXACT = {"roi_align": 7, "attractor_update": 4, "log_binomial_depth": 1}
+
+
+def stage3_config(batch: int = 4, steps: int = 3, pretrained=None, val: bool = False):
+    """Stage 3 (``v2_eff_u4k``: BEiT-L + ZoeDepth trained end to end, batch
+    4 of a 384x512 image and a 540x960 crop resized to 384x512 against its
+    depth, remat on) over ``steps`` batches of SyntheticDataset in one
+    epoch, from the ``pretrained`` checkpoint; ``val``: one 2160x3840 m1
+    validation frame after the epoch."""
+    from patchrefinerv2_torch.config import Config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = Config.fromfile(os.path.join(here, STAGE3_CONFIG))
+    cfg.merge_from_options({
+        "train_dataloader.dataset": dict(type="SyntheticDataset", mode="train", length=batch * steps),
+        "train_dataloader.batch_size": batch,
+        "val_dataloader": dict(batch_size=1, dataset=dict(type="SyntheticDataset", mode="infer",
+                                                          length=1)) if val else None,
+        "train_cfg.max_epochs": 1, "train_cfg.log_interval": 1,
+        "train_cfg.save_checkpoint_interval": 1, "train_cfg.val_interval": 1,
+        "model.config.pretrained": pretrained})
+    cfg["seed"] = 0
+    return cfg
+
+
+def make_trainer(dev, cfg, work_dir):
+    """A Trainer of ``cfg`` (either stage) on the card, its validation
+    loader when the config has one."""
     from patchrefinerv2_torch.datasets.base import DataLoader
     from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
     from patchrefinerv2_torch.train import build_dataset
@@ -2007,21 +2055,29 @@ def pretrain_trainer(dev, cfg, work_dir):
     model = PatchRefinerPlus(cfg.model.config, device=dev, seed=0)
     loader = DataLoader(build_dataset(cfg.train_dataloader.dataset),
                         batch_size=cfg.train_dataloader.batch_size, shuffle=True, seed=0)
-    return Trainer(cfg, model, loader, work_dir=work_dir)
+    val = cfg.get("val_dataloader")
+    val = DataLoader(build_dataset(val.dataset), batch_size=1) if val else None
+    return Trainer(cfg, model, loader, val, work_dir=work_dir)
+
+
+# each training Function: its kernel's name, module and class
+TRAIN_FUNCTIONS = {"resize": ("resize", "_Resize"), "layer_norm": ("layer_norm", "_LayerNorm"),
+                   "gate_tail": ("gated", "_GateTail"), "tail_conv": ("tail_conv", "_TailConv"),
+                   "roi_align": ("roi_align", "_RoiAlign"), "attention": ("attention", "_Attention"),
+                   "attractor_update": ("bins", "_Attractor"),
+                   "log_binomial_depth": ("bins", "_LogBinomial")}
 
 
 class SiteRecorder:
-    """Records the arguments of every call of the four training Functions
-    (their ``apply``) while it is on: the training sites' shapes."""
+    """Records the arguments of every call of the training Functions (their
+    ``apply``) while it is on: the training sites' shapes."""
 
     def __init__(self):
         import importlib
 
-        self.mods = {k: importlib.import_module(f"patchrefinerv2_torch.ops.{m}") for k, m in
-                     (("resize", "resize"), ("layer_norm", "layer_norm"), ("gate_tail", "gated"),
-                      ("tail_conv", "tail_conv"))}
-        self.fns = {"resize": "_Resize", "layer_norm": "_LayerNorm", "gate_tail": "_GateTail",
-                    "tail_conv": "_TailConv"}
+        self.mods = {k: importlib.import_module(f"patchrefinerv2_torch.ops.{m}")
+                     for k, (m, _) in TRAIN_FUNCTIONS.items()}
+        self.fns = {k: cls for k, (_, cls) in TRAIN_FUNCTIONS.items()}
         self.sites = {k: {} for k in self.fns}
 
     def __enter__(self):
@@ -2053,6 +2109,16 @@ class SiteRecorder:
             return (shape(args[0]),)
         if kind == "gate_tail":
             return (shape(args[0]), args[1] is not None)
+        if kind == "roi_align":
+            f, boxes, _, size, scale = args
+            return (shape(f), boxes.shape[0], tuple(size), scale)
+        if kind == "attention":
+            q, _, _, table, scale, grid = args
+            return (shape(q), shape(table), scale, None if grid is None else tuple(grid))
+        if kind == "attractor_update":
+            return (shape(args[0]), shape(args[1]), *args[2:])
+        if kind == "log_binomial_depth":
+            return (shape(args[0]), shape(args[1]), *args[2:])
         cfg, w, b, res, lw, _, *parts = args
         return (tuple(shape(p) for p in parts), shape(w), b is not None,
                 None if res is None else ("x" if res is parts[0] else "map"), lw is not None, *cfg)
@@ -2096,6 +2162,8 @@ def _train_case(kind, key, dev, g):
             gy.reshape(-1, c), xs, [c], mean[:, None], rstd[:, None], ts[1], ts[2],
             [True, True, True])
         return layer_norm, layer_norm_plain, ts, [1, 2], lib
+    if kind in ("roi_align", "attention", "attractor_update", "log_binomial_depth"):
+        return _coarse_train_case(kind, key, dev, g)
     if kind == "gate_tail":
         shp, gate = key
         c = shp[-1]
@@ -2128,6 +2196,76 @@ def _train_case(kind, key, dev, g):
     return fn(tail_conv), fn(tail_conv_plain, "none" if masked else act), ts, params, lib
 
 
+def _coarse_train_case(kind, key, dev, g):
+    """``_train_case`` of the Functions that only stage 3 trains: K1 (the
+    crops' boxes of a stage-3 batch in the process frame, one an image),
+    K3/K4, K8. Library backwards: ``F.grid_sample``'s (bilinear, border) for
+    K1, as its forward row times it; ``F.scaled_dot_product_attention``'s
+    with the bias as a float mask that takes a gradient for K3; K8 has
+    none."""
+    import torch
+    import torch.nn.functional as F
+
+    from patchrefinerv2_torch.ops.attention import attention, attention_plain, relative_position_bias
+    from patchrefinerv2_torch.ops.bins import (
+        attractor_update, attractor_update_plain, log_binomial_depth, log_binomial_depth_plain,
+    )
+    from patchrefinerv2_torch.ops.roi_align import roi_align, roi_align_plain
+
+    def randn(*s, scale=1.0):
+        return torch.randn(s, generator=g, device=dev) * scale
+
+    def rand(*s, scale=1.0):
+        return torch.rand(s, generator=g, device=dev) * scale
+
+    if kind == "roi_align":
+        shp, n, size, scale = key
+        ph, pw = 384, 512  # the process frame; crops of 540x960 in 2160x3840
+        bh, bw = ph * 540 / 2160, pw * 960 / 3840
+        xy = rand(n, 2) * torch.tensor([pw - bw, ph - bh], device=dev)
+        boxes = torch.cat([xy, xy + torch.tensor([bw, bh], device=dev)], 1)
+        idx = torch.arange(n, dtype=torch.int32, device=dev)
+        x = randn(*shp)
+        grid = roi_grid(boxes, size, scale, shp[1:3])
+        xs = x.detach().permute(0, 3, 1, 2)[idx.long()].requires_grad_(True)
+        ys = F.grid_sample(xs, grid, mode="bilinear", padding_mode="border", align_corners=False)
+        lib = lambda gy: torch.autograd.grad(ys, xs, gy.permute(0, 3, 1, 2),  # noqa: E731
+                                             retain_graph=True)
+        return (lambda t: roi_align(t, boxes, idx, size, scale),
+                lambda t: roi_align_plain(t, boxes, idx, size, scale), [x], [], lib)
+    if kind == "attention":
+        shp, tshape, scale, grid = key
+        ts = [randn(*shp) for _ in range(3)] + ([randn(*tshape, scale=0.5)] if tshape else [])
+        lq = [t.detach().clone().requires_grad_(True) for t in ts[:3]]
+        mask = None
+        if tshape:
+            mask = relative_position_bias(ts[3], grid)[None].detach().requires_grad_(True)
+        ys = F.scaled_dot_product_attention(*lq, attn_mask=mask, scale=scale)
+        lib = lambda gy: torch.autograd.grad(ys, lq + ([mask] if tshape else []), gy,  # noqa: E731
+                                             retain_graph=True)
+        if tshape:
+            return (lambda q, k, v, t: attention(q, k, v, scale, t, grid),
+                    lambda q, k, v, t: attention_plain(q, k, v, scale, t, grid), ts, [3], lib)
+        return (lambda q, k, v: attention(q, k, v, scale), lambda q, k, v: attention_plain(q, k, v, scale),
+                ts, [], lib)
+    if kind == "attractor_update":
+        ashape, bshape, *rest = key
+        normed = rest[2]
+
+        def one(fn):
+            def run(a, b):
+                out = fn(a, b, *rest)
+                return torch.cat(out, -1) if normed else out[0]
+            return run
+
+        ts = [rand(*ashape, scale=3.0), rand(*bshape, scale=3.0)]
+        return one(attractor_update), one(attractor_update_plain), ts, [], None
+    pshape, cshape, *rest = key
+    ts = [F.softplus(randn(*pshape, scale=2.0)), rand(*cshape, scale=20.0)]
+    return (lambda p, c: log_binomial_depth(p, c, *rest),
+            lambda p, c: log_binomial_depth_plain(p, c, *rest), ts, [], None)
+
+
 def _backward_work(kind, key, ts) -> tuple[float, float]:
     """(bytes, operations) of a backward: its inputs (the saved tensors and
     the output gradient) read once, each gradient written once; operations
@@ -2143,6 +2281,28 @@ def _backward_work(kind, key, ts) -> tuple[float, float]:
     if kind == "gate_tail":
         rows, c = ts[0].numel() // ts[0].shape[-1], ts[0].shape[-1]
         return 2 * in_bytes, (6 if key[1] else 4) * rows * c * c + 30.0 * rows * c
+    if kind == "roi_align":
+        (b, h, w, c), n, (oh, ow), _ = key
+        out = n * oh * ow * c
+        return 4.0 * (out + b * h * w * c), 8.0 * out  # two taps an axis, a product and a sum each
+    if kind == "attention":
+        (b, nh, s, d), tshape = key[0], key[1]
+        # read q, k, v, O, dO; write dq, dk, dv (and the table's gradient);
+        # S recomputed, dv, dO v^T, dq, dk: five S x S x D products
+        table = 8 * tshape[0] * tshape[1] if tshape else 0
+        return 4.0 * 8 * b * nh * s * d + table, 10.0 * b * nh * s * s * d + 10.0 * b * nh * s * s
+    if kind == "attractor_update":
+        (b, h, w, na), (_, sh, sw, nb) = key[0], key[1]
+        px = b * h * w
+        # read a, b_new and the gradient, b_prev; write da, db_prev; per
+        # (pixel, attractor, bin) the difference, dist' and the two sums
+        return 4.0 * (2 * px * na + 2 * px * nb + 2 * b * sh * sw * nb), 14.0 * px * na * nb
+    if kind == "log_binomial_depth":
+        (b, h, w, _), (_, sh, sw, k) = key[0], key[1]
+        px = b * h * w
+        # read pt, the centres and the gradient; write dpt and dcentres; per
+        # (pixel, bin) the logits, the softmax, its gradient and the resizes
+        return 4.0 * (2 * 4 * px + px + 2 * b * sh * sw * k), 30.0 * px * k
     part_shapes, wshape = key[0], key[1]
     npx = part_shapes[0][0] * part_shapes[0][1] * part_shapes[0][2]
     k2cc = wshape[1] * wshape[0] * wshape[2] * wshape[3]
@@ -2151,33 +2311,49 @@ def _backward_work(kind, key, ts) -> tuple[float, float]:
 
 
 def check_training_sites(chk: Checks, dev) -> dict:
-    """Phase A: every site of the four training Functions in one step of the
-    full-width pretraining run (recorded from a step on the card), each at
-    its shapes in float32 (TF32 off): the Function's output and gradients
+    """Phase A: every site of the training Functions in one step of each
+    full-width training stage (recorded from a step on the card): the
+    pretraining stage (K2, K5, K6, K9; path ``train_backward``) and stage 3
+    (the same four at the coarse branch's widths and in BEiT and its DPT
+    neck, and K1, K3 and K8; path ``train_e2e_backward``), each at its
+    shapes in float32 (TF32 off): the Function's output and gradients
     against autograd through the plain version, and the times of the
     Function's backward, the plain version's autograd backward and, where
     one library call computes the gradient, that call
     (``upsample_bilinear2d_backward`` for K2, ``native_layer_norm_backward``
-    for K6, ``convolution_backward`` of the concatenated input for K9; K5
-    has none). Tolerances: the output and the input gradients 1e-5 of the
-    plain version's magnitude, the parameter gradients 1e-4 of it (sums over
-    up to 786,432 pixels in another order). Each site's times count once
-    for each of its backwards in a step. Returns each kind's sites with
-    those counts."""
+    for K6, ``convolution_backward`` of the concatenated input for K9,
+    ``F.grid_sample``'s backward for K1, ``scaled_dot_product_attention``'s
+    with a float mask for K3; K5 and K8 have none). Tolerances: the output
+    and the input gradients 1e-5 of the plain version's magnitude, the
+    parameter gradients (and K3's table) 1e-4 of it (sums over up to 786,432
+    pixels in another order). Each site's times count once for each of its
+    backwards in a step. Returns each stage's sites with those counts."""
     import torch
 
-    with SiteRecorder() as rec:
-        tr = pretrain_trainer(dev, pretrain_config(steps=1), os.path.join(WORK_DIR, "sites"))
-        tr.model.train()
-        tr.model.net.remat = False  # one forward call a backward: the counts are a step's backwards
-        batch = tr.device_batch(next(iter(tr.train_loader)))
-        tr.train_step(batch)
-        torch.cuda.synchronize()
-    del tr, batch
-    torch.cuda.empty_cache()
+    stages = (("train_backward", lambda: pretrain_config(steps=1)),
+              ("train_e2e_backward", lambda: stage3_config(steps=1)))
+    out = {}
+    for path, config in stages:
+        with SiteRecorder() as rec:
+            tr = make_trainer(dev, config(), os.path.join(WORK_DIR, "sites"))
+            tr.model.train()
+            tr.model.net.remat = False  # one forward call a backward: the counts are a step's backwards
+            batch = tr.device_batch(next(iter(tr.train_loader)))
+            tr.train_step(batch)
+            torch.cuda.synchronize()
+        del tr, batch
+        torch.cuda.empty_cache()
+        out[path] = rec.sites
+        check_sites(chk, dev, path, rec.sites)
+    return out
+
+
+def check_sites(chk: Checks, dev, path: str, sites: dict) -> None:
+    import torch
+
     g = torch.Generator(device=dev).manual_seed(13)
-    for kind, sites in rec.sites.items():
-        for key, calls in sites.items():
+    for kind, kind_sites in sites.items():
+        for key, calls in kind_sites.items():
             fn, plain, ts, params, lib = _train_case(kind, key, dev, g)
             ts = [t.requires_grad_(True) for t in ts]
             y, yp = fn(*ts), plain(*ts)
@@ -2200,23 +2376,24 @@ def check_training_sites(chk: Checks, dev) -> dict:
             nbytes, ops = _backward_work(kind, key, ts)
             # the record's error is relative (to each gradient's magnitude):
             # the sites' gradients differ in magnitude by orders
-            chk.add(kind, "train_backward", torch.float32, max(rel.values()), 1e-4, calls * ms,
+            chk.add(kind, path, torch.float32, max(rel.values()), 1e-4, calls * ms,
                     calls * plain_ms, None if lib_ms is None else calls * lib_ms, calls * nbytes,
                     calls * ops, in_sum=False)
-            log({"training_site": kind, "key": [str(k) for k in key], "backwards_in_step": calls,
-                 "rel_err": {str(k): v for k, v in rel.items()}, "backward_ms": ms,
-                 "plain_backward_ms": plain_ms, "library_backward_ms": lib_ms})
-            del fn, plain, ts, y, yp, gy, got, ref
+            log({"training_site": kind, "path": path, "key": [str(k) for k in key],
+                 "backwards_in_step": calls, "rel_err": {str(k): v for k, v in rel.items()},
+                 "backward_ms": ms, "plain_backward_ms": plain_ms, "library_backward_ms": lib_ms})
+            del fn, plain, ts, y, yp, gy, got, ref, lib
     torch.cuda.empty_cache()
-    return rec.sites
 
 
 class PlainCalls:
-    """Counts the calls of the four training kernels' plain versions while
-    it is on (through their modules' globals, which the wrappers call)."""
+    """Counts the calls of the training kernels' plain versions while it is
+    on (through their modules' globals, which the wrappers call)."""
 
     NAMES = (("resize", "resize_plain"), ("layer_norm", "layer_norm_plain"),
-             ("gated", "gate_tail_plain"), ("tail_conv", "tail_conv_plain"))
+             ("gated", "gate_tail_plain"), ("tail_conv", "tail_conv_plain"),
+             ("roi_align", "roi_align_plain"), ("attention", "attention_plain"),
+             ("bins", "attractor_update_plain"), ("bins", "log_binomial_depth_plain"))
 
     def __enter__(self):
         import importlib
@@ -2239,10 +2416,10 @@ class PlainCalls:
             setattr(m, name, orig)
 
 
-TRAIN_GROUPS = ("_ResizeBackward", "_LayerNormBackward", "_GateTailBackward", "_TailConvBackward")
+TRAIN_GROUPS = tuple(f"{cls}Backward" for _, cls in TRAIN_FUNCTIONS.values())
 
 
-def profile_train_step(tr, batch, step_ms: float) -> None:
+def profile_train_step(tr, batch, step_ms: float, label: str = "pretrain") -> None:
     """One step (loss and backward; the optimizer timed apart with CUDA
     events) under torch.profiler: device ms by group (the forward kernels by
     their K groups; cuDNN forward, data and weight gradients; BatchNorm;
@@ -2285,11 +2462,14 @@ def profile_train_step(tr, batch, step_ms: float) -> None:
         total += us / 1e3
         kernels.append((us / 1e3, e.count, name[:90]))
     opt_ms = time_ms(lambda: tr.optimizer.step(), iters=3, warmup=1)
-    log({"phase": "train_step_profile", "device_ms_loss_and_backward": total, "optimizer_ms": opt_ms,
+    log({"phase": f"{label}_step_profile", "device_ms_loss_and_backward": total, "optimizer_ms": opt_ms,
          "step_ms": step_ms, "device_busy_share": (total + opt_ms) / step_ms,
          "by_group_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
          "function_backward_device_ms": by_fn,
          "top_kernels_ms_calls_name": sorted(kernels, reverse=True)[:15]})
+
+
+PRETRAINED = os.path.join(WORK_DIR, "pretrain", "checkpoint_01")  # the pretraining run's
 
 
 def pretrain_run(dev) -> dict:
@@ -2301,18 +2481,36 @@ def pretrain_run(dev) -> dict:
     parameters and the BatchNorm statistics move. Then, with one batch on
     the card: ms a step over 5 steps, images/s, peak memory with remat on
     and off (2 steps), and one profiled step. Returns the first step's
-    launch counts."""
-    import shutil
+    launch counts. Its checkpoint stays for stage 3 (``PRETRAINED``)."""
+    import torch
 
+    work = os.path.dirname(PRETRAINED)
+    tr = make_trainer(dev, pretrain_config(), work)
+    log({"phase": "pretrain_build", "params": sum(p.numel() for p in tr.model.net.parameters()),
+         "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+         "tf32_cudnn": torch.backends.cudnn.allow_tf32, "remat": tr.model.net.remat})
+    steps = run_counted(tr, "pretrain", TRAIN_KERNELS)
+    batch = tr.device_batch(next(iter(tr.train_loader)))
+    times = step_times(tr, batch, "pretrain")
+    tr.model.net.remat = True
+    profile_train_step(tr, batch, times[True][0]["ms_per_step"], "pretrain")
+    del tr, batch
+    torch.cuda.empty_cache()
+    return steps[0]
+
+
+def run_counted(tr, label: str, kernels, exact=None, moves=("bn_buffers", "params")) -> list:
+    """``tr.run()`` with the launch counters set to 0 just before each step
+    and read just after it: each kernel of ``kernels`` launches in every
+    step (``exact``: that many times), no other kernel and no plain version
+    runs; losses and gradients finite; then what ``moves`` names (the
+    parameters, the BatchNorm statistics, the coarse branch's parameters)
+    must have moved and a checkpoint be written. Returns each step's
+    counts."""
     import torch
 
     from patchrefinerv2_torch import ops
 
-    work = os.path.join(WORK_DIR, "pretrain")
-    tr = pretrain_trainer(dev, pretrain_config(), work)
-    log({"phase": "pretrain_build", "params": sum(p.numel() for p in tr.model.net.parameters()),
-         "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
-         "tf32_cudnn": torch.backends.cudnn.allow_tf32, "remat": tr.model.net.remat})
     before = {k: v.detach().clone() for k, v in tr.model.net.state_dict().items()}
     steps, step = [], tr.train_step
 
@@ -2329,30 +2527,41 @@ def pretrain_run(dev) -> dict:
         grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in tr.model.net.parameters()
                            if p.grad is not None)
         steps.append(counts)
-        log({"phase": f"pretrain_step_{len(steps)}", "ms": (time.time() - t0) * 1e3, "losses": losses,
+        log({"phase": f"{label}_step_{len(steps)}", "ms": (time.time() - t0) * 1e3, "losses": losses,
              "grads_finite": grads_finite, "plain_calls": plain.count, "launches": counts})
-        idle = [k for k in TRAIN_KERNELS if counts[k] == 0]
-        other = {k: v for k, v in counts.items() if k not in TRAIN_KERNELS and v}
-        if idle or other or plain.count or not grads_finite or not finite:
-            raise AssertionError(f"pretraining step {len(steps)}: idle {idle}, other kernels "
-                                 f"{other}, {plain.count} plain calls, finite grads {grads_finite}, "
-                                 f"losses {losses}")
+        idle = [k for k in kernels if counts[k] == 0]
+        other = {k: v for k, v in counts.items() if k not in kernels and v}
+        wrong = {k: counts[k] for k, n in (exact or {}).items() if counts[k] != n}
+        if idle or other or wrong or plain.count or not grads_finite or not finite:
+            raise AssertionError(f"{label} step {len(steps)}: idle {idle}, other kernels {other}, "
+                                 f"counts off {wrong}, {plain.count} plain calls, finite grads "
+                                 f"{grads_finite}, losses {losses}")
         return out
 
     tr.train_step = counted
     t0 = time.time()
     tr.run()
-    log({"phase": "pretrain_trainer_run", "seconds": time.time() - t0, "steps": tr.step})
+    log({"phase": f"{label}_trainer_run", "seconds": time.time() - t0, "steps": tr.step})
     del tr.train_step
     after = tr.model.net.state_dict()
     changed = [k for k in before if not torch.equal(before[k], after[k])]
     moved = dict(bn_buffers=sum("running_" in k for k in changed),
-                 params=sum(k in dict(tr.model.net.named_parameters()) for k in changed))
-    log({"phase": "pretrain_moved", **moved, "of": len(before)})
-    if not all(moved.values()) or not os.path.exists(os.path.join(work, "checkpoint_01")):
-        raise AssertionError(f"pretraining moved {moved} or wrote no checkpoint")
+                 params=sum(k in dict(tr.model.net.named_parameters()) for k in changed),
+                 coarse_params=sum(k.startswith("coarse_branch.") for k in changed))
+    log({"phase": f"{label}_moved", **moved, "of": len(before)})
+    if not all(moved[k] for k in moves) or \
+            not os.path.exists(os.path.join(tr.work_dir, "checkpoint_01")):
+        raise AssertionError(f"{label} moved {moved} or wrote no checkpoint")
+    return steps
 
-    batch = tr.device_batch(next(iter(tr.train_loader)))
+
+def step_times(tr, batch, label: str, batch_size: int = 4) -> dict:
+    """ms a step (host clock, the batch on the card, ended by a
+    synchronise), images/s and peak memory, with remat on (5 steps) and
+    off (2 steps), each after a warm step."""
+    import torch
+
+    tr.model.train()  # the validation after the epoch leaves eval mode
     times = {}
     for remat, n in ((True, 5), (False, 2)):
         tr.model.net.remat = remat
@@ -2364,52 +2573,77 @@ def pretrain_run(dev) -> dict:
             tr.train_step(batch)
         torch.cuda.synchronize()
         ms = (time.time() - t0) * 1e3 / n
-        times.setdefault(remat, []).append(dict(ms_per_step=ms, images_per_s=4e3 / ms,
+        times.setdefault(remat, []).append(dict(ms_per_step=ms, images_per_s=batch_size * 1e3 / ms,
                                                 peak_bytes=torch.cuda.max_memory_allocated()))
-    log({"phase": "pretrain_step_timing", "batch": 4, "remat_on": times[True],
+    log({"phase": f"{label}_step_timing", "batch": batch_size, "remat_on": times[True],
          "remat_off": times[False]})
+    return times
+
+
+def stage3_run(dev) -> dict:
+    """Phase D: stage 3 (``v2_eff_u4k``) at full width through
+    ``Trainer.run``, from the pretraining run's checkpoint (``pretrained``;
+    the merged and kept tensor counts are printed): 3 steps of batch 4
+    (384x512 images and crops, 540x960 crop depths, float32, TF32 off,
+    remat on), the launch counters set to 0 before each step and read after
+    it: K1 7 and K8 4 + 1 times exactly, K2, K3, K5, K6 and K9 in every
+    step, no other kernel and no plain version; losses and gradients
+    finite, the coarse branch, the other parameters and the BatchNorm
+    statistics move; then the default m1 validation of one 2160x3840 frame
+    in float32 on the trained model (timed, its metrics finite). Then, with
+    one batch on the card: ms a step, images/s and peak memory with remat
+    on and off, and one profiled step. Returns the first step's counts."""
+    import torch
+
+    tr = make_trainer(dev, stage3_config(pretrained=PRETRAINED, val=True),
+                          os.path.join(WORK_DIR, "stage3"))
+    log({"phase": "stage3_build", "params": sum(p.numel() for p in tr.model.net.parameters()),
+         "pretrained": tr.pretrained_report, "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+         "tf32_cudnn": torch.backends.cudnn.allow_tf32, "remat": tr.model.net.remat,
+         "e2e_training": tr.model.net.e2e_training})
+    report = tr.pretrained_report.get("pretrained", {})
+    if not report.get("taken") or not report.get("kept"):
+        raise AssertionError(f"stage 3 took no tensor of the pretraining checkpoint: {report}")
+    val_epoch, val = tr.val_epoch, {}
+
+    def timed_val():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        val.update(val_epoch())
+        torch.cuda.synchronize()
+        val["ms"] = (time.time() - t0) * 1e3
+        return val
+
+    tr.val_epoch = timed_val
+    steps = run_counted(tr, "stage3", STAGE3_KERNELS, STAGE3_EXACT,
+                        ("bn_buffers", "params", "coarse_params"))
+    del tr.val_epoch
+    log({"phase": "stage3_val_m1_float32", **val})
+    if not val or not all(math.isfinite(v) for v in val.values()):
+        raise AssertionError(f"stage 3's m1 validation frame gave {val}")
+    batch = tr.device_batch(next(iter(tr.train_loader)))
+    times = step_times(tr, batch, "stage3")
     tr.model.net.remat = True
-    profile_train_step(tr, batch, times[True][0]["ms_per_step"])
+    profile_train_step(tr, batch, times[True][0]["ms_per_step"], "stage3")
     del tr, batch
-    shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     return steps[0]
 
 
-def tiny_train_gpu_vs_cpu(dev) -> None:
-    """Phase C: one pretraining step of 48x64 patches (batch 2) on the card
-    against the CPU from the same weights, batch and hacked features: loss
-    max rel <= 1e-5, the whole gradient within 2e-2 of its norm (the CPU
-    tests' float32 bars: at this size the step's gradient is
-    ill-conditioned, tests/test_torch_train_slice.py) and each BatchNorm
-    statistic within 1e-4 of its leaf's largest value, a running mean's
-    leaf scale floored at the largest running standard deviation."""
-    import numpy as np
+def compare_train_steps(label: str, got: tuple, ref: tuple) -> None:
+    """A step on the card (``got``) against the CPU (``ref``), each (loss,
+    gradients, running statistics): loss max rel <= 1e-5, the whole
+    gradient within 2e-2 of its norm (the CPU tests' float32 bars: at test
+    sizes the step's gradient is ill-conditioned,
+    tests/test_torch_train_slice.py) and each BatchNorm statistic within
+    1e-4 of its leaf's largest value, a running mean's leaf scale floored
+    at the largest running standard deviation."""
     import torch
 
-    from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
-
-    cfg = pretrain_config(batch=2, steps=1, patch=(48, 64)).model.config
-    rng = np.random.RandomState(5)
-    batch = dict(image_lr=rng.rand(2, 48, 64, 3).astype(np.float32),
-                 depth_gt=(1.0 + 20.0 * rng.rand(2, 96, 128, 1)).astype(np.float32))
-    out = {}
-    for d in (dev, "cpu"):
-        m = PatchRefinerPlus(cfg, device=d, seed=3).train()
-        with torch.no_grad():
-            feats, _ = m.net.refiner_fine_branch(torch.zeros((2, 3, 48, 64), device=d))
-        g = torch.Generator().manual_seed(9)
-        cf = [torch.randn((2, f.shape[2], f.shape[3], c), generator=g).to(d).permute(0, 3, 1, 2)
-              for f, c in zip(feats, m.net.hack_chl)]
-        ld, _ = m.loss(batch, update_stats=True, coarse_features=cf)
-        ld["total_loss"].backward()
-        out[str(d)] = (float(ld["total_loss"].detach()),
-                       {k: p.grad.detach().double().cpu() for k, p in m.net.named_parameters()
-                        if p.grad is not None},
-                       {k: v.double().cpu() for k, v in m.net.state_dict().items() if "running_" in k})
-    (lg, gg, sg), (lc, gc, sc) = out[str(dev)], out["cpu"]
+    (lg, gg, sg), (lc, gc, sc) = got, ref
     d = float(torch.sqrt(sum(((gg[k] - gc[k]) ** 2).sum() for k in gc)))
     n = float(torch.sqrt(sum((gc[k] ** 2).sum() for k in gc)))
+
     # a running mean is measured in the activations' spread: with zero-mean
     # inputs (a BatchNorm's output with bias 0 before a 1x1 conv) it is 0 but
     # for rounding, ~1e-7
@@ -2422,12 +2656,68 @@ def tiny_train_gpu_vs_cpu(dev) -> None:
     worst = max(bn_rel, key=bn_rel.get)
     bn = bn_rel[worst]
     i = int((sg[worst] - sc[worst]).abs().argmax())
-    log({"phase": "tiny_train_gpu_vs_cpu", "loss_rel": abs(lg - lc) / abs(lc), "grad_rel": d / n,
+    log({"phase": label, "loss_rel": abs(lg - lc) / abs(lc), "grad_rel": d / n,
          "bn_rel_of_leaf_max": bn, "bars": [1e-5, 2e-2, 1e-4], "grad_leaves": len(gc),
          "bn_worst": [worst, float(sg[worst][i]), float(sc[worst][i]), float(sc[worst].abs().max())],
          "bn_leaves_over_bar": sorted(k for k, v in bn_rel.items() if v > 1e-4)[:12]})
     if not (abs(lg - lc) <= 1e-5 * abs(lc) and d <= 2e-2 * n and bn <= 1e-4 and set(gg) == set(gc)):
-        raise AssertionError("the tiny pretraining step on the card disagrees with the CPU")
+        raise AssertionError(f"{label}: the step on the card disagrees with the CPU")
+
+
+def _step_result(m, loss_dict) -> tuple:
+    loss_dict["total_loss"].backward()
+    return (float(loss_dict["total_loss"].detach()),
+            {k: p.grad.detach().double().cpu() for k, p in m.net.named_parameters()
+             if p.grad is not None},
+            {k: v.double().cpu() for k, v in m.net.state_dict().items() if "running_" in k})
+
+
+def tiny_train_gpu_vs_cpu(dev) -> None:
+    """Phase C: one pretraining step of 48x64 patches (batch 2) on the card
+    against the CPU from the same weights, batch and hacked features,
+    within ``compare_train_steps``' bars."""
+    import numpy as np
+    import torch
+
+    from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
+
+    cfg = pretrain_config(batch=2, steps=1, patch=(48, 64)).model.config
+    rng = np.random.RandomState(5)
+    batch = dict(image_lr=rng.rand(2, 48, 64, 3).astype(np.float32),
+                 depth_gt=(1.0 + 20.0 * rng.rand(2, 96, 128, 1)).astype(np.float32))
+    out = []
+    for d in (dev, "cpu"):
+        m = PatchRefinerPlus(cfg, device=d, seed=3).train()
+        with torch.no_grad():
+            feats, _ = m.net.refiner_fine_branch(torch.zeros((2, 3, 48, 64), device=d))
+        g = torch.Generator().manual_seed(9)
+        cf = [torch.randn((2, f.shape[2], f.shape[3], c), generator=g).to(d).permute(0, 3, 1, 2)
+              for f, c in zip(feats, m.net.hack_chl)]
+        out.append(_step_result(m, m.loss(batch, update_stats=True, coarse_features=cf)[0]))
+    compare_train_steps("tiny_train_gpu_vs_cpu", *out)
+
+
+def tiny_stage3_gpu_vs_cpu(dev) -> None:
+    """Phase E: one stage-3 step of the tiny flagship topology (a 4-block
+    BEiT with head dim 16, the ZoeDepth head with 16 bins, the EfficientNet-B5
+    refiner and BiDirectionalFusion; 48x64 patches, batch 2, remat on) on
+    the card (K1, K3, K8 and the rest) against the CPU (the plain versions),
+    from the same weights and batch, within ``compare_train_steps``' bars."""
+    import numpy as np
+
+    from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
+
+    cfg = dict(TINY_ZOE, e2e_training=True, remat=True)
+    rng = np.random.RandomState(5)
+    batch = dict(image_lr=rng.rand(2, 48, 64, 3).astype(np.float32),
+                 crops_image_hr=rng.rand(2, 48, 64, 3).astype(np.float32),
+                 crop_depths=(1.0 + 20.0 * rng.rand(2, 72, 96, 1)).astype(np.float32),
+                 bboxs=np.array([[0.0, 0.0, 32.0, 24.0], [16.0, 16.0, 48.0, 40.0]], np.float32))
+    out = []
+    for d in (dev, "cpu"):
+        m = PatchRefinerPlus(cfg, device=d, seed=3).train()
+        out.append(_step_result(m, m.loss(batch, update_stats=True)[0]))
+    compare_train_steps("tiny_stage3_gpu_vs_cpu", *out)
 
 
 def record_resize_plans() -> dict:
@@ -2492,9 +2782,12 @@ def main() -> int:
     eval_gpu_vs_cpu(dev)
     try:
         sites = check_training_sites(chk, dev)
-        log({"phase": "training_sites", **{k: len(v) for k, v in sites.items()}})
+        log({"phase": "training_sites", **{path: {k: len(v) for k, v in s.items()}
+                                          for path, s in sites.items()}})
         counts["train_f32"] = pretrain_run(dev)
         tiny_train_gpu_vs_cpu(dev)
+        counts["train_e2e_f32"] = stage3_run(dev)
+        tiny_stage3_gpu_vs_cpu(dev)
     finally:
         import shutil
 

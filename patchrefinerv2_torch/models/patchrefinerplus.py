@@ -19,11 +19,18 @@ The module tree keeps the reference's torch state-dict names
 (``coarse_branch``, ``refiner_fine_branch``, ``refiner_fusion_model``), so
 ``utils/jax_weights.load_jax_params`` can load the JAX package's variables.
 
-In the pretraining stage (``pretrain_stage``, ``patchrefinerplus.py:316-336,
-373-377, 503-519``) the net has no coarse branch: ``PatchRefinerPlus.loss``
-runs the refiner with its decoder and the fusion head on hacked coarse
-features, under ``torch.utils.checkpoint`` when the config sets ``remat``,
-and SILog against the full-resolution depth.
+Training (``PatchRefinerPlus.loss``): in the pretraining stage
+(``pretrain_stage``, ``patchrefinerplus.py:316-336, 373-377, 503-519``) the
+net has no coarse branch, and the loss runs the refiner with its decoder and
+the fusion head on hacked coarse features, then SILog against the
+full-resolution depth. Otherwise (stage 3, ``patchrefinerplus.py:296-314,
+519-556``) it runs ``train_forward``: the coarse branch on ``image_lr``
+(under no gradient when ``e2e_training`` is off, as ``stop_gradient`` cuts
+it there), roi_align of its levels and depth at each crop's box (K1, whose
+gradient reaches the coarse branch), the refiner and the fusion head on the
+crops, then SILog and GradMatch against ``crop_depths``. The refiner and
+the fusion head run under ``torch.utils.checkpoint`` when the config sets
+``remat``.
 
 The int8 serving mode (``patchrefinerplus.py:770-867`` and ``ops/quant.py``
 in the JAX package) routes the convolutions that the gate selects to K10
@@ -108,6 +115,7 @@ class PRPlusNet(nn.Module):
         self.strategy_refiner_target = cfg.get("strategy_refiner_target", "offset_coarse")
         self.fusion_feat_level = cfg.get("fusion_feat_level", 6)
         self.remat = bool(cfg.get("remat", False))
+        self.e2e_training = bool(cfg.get("e2e_training", False))
         if cfg.get("pretrain_stage", False):
             # the hacked coarse features' widths, highest resolution first
             # (patchrefinerplus.py:320-328)
@@ -142,13 +150,16 @@ class PRPlusNet(nn.Module):
             head2_features=list(fus.get("coarse_chl", [32]))[0],
         )
 
-    def _checkpointed(self, module, *args):
-        """``module(*args)``, rematerialised in the backward when the config
-        sets ``remat`` (the JAX package's ``nn.remat`` of the refiner and the
-        fusion head, patchrefinerplus.py:382-402)."""
+    def _checkpointed(self, module, *args, **kwargs):
+        """``module(*args, **kwargs)``, rematerialised in the backward when
+        the config sets ``remat`` (the JAX package's ``nn.remat`` of the
+        refiner and the fusion head, patchrefinerplus.py:382-402). A train-mode
+        BatchNorm updates its statistics in the first forward only: the loss
+        arms it once (``arm_stat_updates``), and the recompute finds it
+        disarmed."""
         if self.remat and torch.is_grad_enabled():
-            return torch.utils.checkpoint.checkpoint(module, *args, use_reentrant=False)
-        return module(*args)
+            return torch.utils.checkpoint.checkpoint(module, *args, use_reentrant=False, **kwargs)
+        return module(*args, **kwargs)
 
     def pretrain_forward(self, image_lr, hack_strategy: str, generator=None, coarse_features=None):
         """Refiner pretraining with hacked coarse features
@@ -174,8 +185,12 @@ class PRPlusNet(nn.Module):
         return torch.relu(depth)
 
     def coarse_forward(self, image_lr):
-        """image_lr NHWC -> (6 coarse levels, coarse depth), NCHW channels_last."""
-        out = self.coarse_branch(to_nchw(image_lr))
+        """image_lr NHWC -> (6 coarse levels, coarse depth), NCHW channels_last.
+        Without ``e2e_training`` the branch runs under no gradient: its
+        outputs are detached, as the JAX package's ``stop_gradient`` makes
+        them (patchrefinerplus.py:200-207)."""
+        with torch.set_grad_enabled(torch.is_grad_enabled() and self.e2e_training):
+            out = self.coarse_branch(to_nchw(image_lr))
         return out["coarse_features"], out["metric_depth"]
 
     def _roi(self, coarse_pred, coarse_feats, bboxes, box_idx):
@@ -187,17 +202,21 @@ class PRPlusNet(nn.Module):
         return rois[:-1], rois[-1]
 
     def refine(self, imgs_crop, coarse_feat_rois, coarse_pred_roi):
-        """Refiner + fusion on a batch of NCHW patches."""
+        """Refiner + fusion on a batch of NCHW patches
+        (patchrefinerplus.py:242-293). The refiner's BatchNorm runs in the
+        module's mode; under a gradient with ``remat`` the refiner and the
+        fusion head are rematerialised in the backward (``_checkpointed``),
+        as :meth:`pretrain_forward` runs them."""
         cdt = imgs_crop.dtype
         coarse_pred_roi = coarse_pred_roi.to(cdt)
         coarse_feat_rois = [f.to(cdt) for f in coarse_feat_rois]
-        r_feats, r_depth = self.refiner_fine_branch(imgs_crop, coarse_pred_roi)
+        r_feats, r_depth = self._checkpointed(self.refiner_fine_branch, imgs_crop, coarse_pred_roi)
         update_base = {"offset_fine": r_depth, "offset_coarse": coarse_pred_roi}.get(
             self.strategy_refiner_target)
         L = self.fusion_feat_level
-        depth = self.refiner_fusion_model(
-            list(coarse_feat_rois)[-L:][::-1], list(r_feats)[-L:][::-1], coarse_pred_roi, r_depth,
-            update_base=update_base)
+        depth = self._checkpointed(
+            self.refiner_fusion_model, list(coarse_feat_rois)[-L:][::-1], list(r_feats)[-L:][::-1],
+            coarse_pred_roi, r_depth, update_base=update_base)
         if self.strategy_refiner_target == "direct":
             depth = torch.sigmoid(depth) * self.max_depth
         return depth
@@ -207,6 +226,16 @@ class PRPlusNet(nn.Module):
         idx = torch.zeros(bboxes.shape[0], dtype=torch.int32, device=bboxes.device)
         feat_rois, pred_roi = self._roi(coarse_pred, coarse_feats, bboxes, idx)
         return self.refine(to_nchw(imgs_crop), feat_rois, pred_roi)
+
+    def train_forward(self, image_lr, crops, bboxes):
+        """The training graph up to the depth (patchrefinerplus.py:296-314):
+        ``image_lr`` NHWC (B, h, w, 3) through the coarse branch, the crops
+        NHWC (B, h, w, 3) with one box (B, 4) each in their own image.
+        Returns (depth (B, 1, h, w), coarse depth (B, 1, h, w))."""
+        coarse_feats, coarse_pred = self.coarse_forward(image_lr)
+        idx = torch.arange(bboxes.shape[0], dtype=torch.int32, device=bboxes.device)
+        feat_rois, pred_roi = self._roi(coarse_pred, coarse_feats, bboxes, idx)
+        return self.refine(to_nchw(crops), feat_rois, pred_roi), coarse_pred
 
 
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -231,8 +260,9 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 class PatchRefinerPlus:
-    """Config-built orchestrator for tiled inference and, in the pretraining
-    stage (``pretrain_stage``), for the training loss, on one device.
+    """Config-built orchestrator for tiled inference and the training loss
+    (the pretraining stage, and stage 3 with a ZoeDepth coarse branch), on
+    one device.
 
     ``device=None`` means the card, and raises when there is none. The
     network starts in eval mode; :meth:`train` switches it."""
@@ -252,6 +282,9 @@ class PatchRefinerPlus:
             raise NotImplementedError("the port trains in float32 only")
         self.min_depth, self.max_depth = cfg.min_depth, cfg.max_depth
         self.sigloss = build_loss(cfg.get("sigloss", {"type": "SILogLoss"}))
+        self.gmloss = build_loss(cfg.get("gmloss", {"type": "GradMatchLoss"}))
+        self.sigweight = float(cfg.get("sigweight", 1.0))
+        self.pre_norm_bbox = bool(cfg.get("pre_norm_bbox", True))
         self.infer_dtype = _DTYPES[cfg.get("infer_dtype", "float32")]
         net = PRPlusNet(cfg)
         init_random_(net, torch.Generator().manual_seed(seed))
@@ -281,38 +314,70 @@ class PatchRefinerPlus:
 
     def loss(self, batch: dict, generator: torch.Generator | None = None,
              update_stats: bool = False, coarse_features=None):
-        """(loss_dict, aux) of a training batch, the pretraining branch of
-        ``patchrefinerplus.py:503-519``: the refiner and the fusion head on
-        hacked coarse features (drawn from ``generator``, a generator on the
-        model's device, or ``coarse_features`` as :meth:`PRPlusNet.pretrain_forward`
-        takes them), ``relu`` of the fusion output as the depth, and SILog
-        against ``depth_gt``. ``batch``: ``image_lr`` (B, h, w, 3) and
-        ``depth_gt`` (B, H, W, 1), NHWC tensors or arrays. The refiner's
-        BatchNorm runs in train mode and updates its running statistics once
-        (``update_stats``, flax's ``mutable=["batch_stats"]``); without
-        ``update_stats`` it raises, as the JAX package's immutable
-        ``apply`` does. aux: ``depth_pred`` (B, h, w, 1).
+        """(loss_dict, aux) of a training batch (``patchrefinerplus.py:503-556``),
+        NHWC tensors or arrays. The refiner's BatchNorm updates its running
+        statistics once with ``update_stats`` (flax's
+        ``mutable=["batch_stats"]``), which needs :meth:`train` first.
 
-        Outside the pretraining stage the loss (``train_forward``) raises:
-        its gradient runs through K1, K3 and K8, which have no backward."""
-        if not self.pretrain_stage:
-            raise NotImplementedError(
-                "the port trains the pretraining stage only: train_forward's gradient runs through "
-                "roi_align, attention and the bins head, which have no backward")
-        if not update_stats:
-            raise RuntimeError(
-                "the pretraining stage runs the refiner's BatchNorm in train mode, which updates its "
-                "running statistics: pass update_stats=True")
-        if not self.net.training:
-            raise RuntimeError("the pretraining loss runs BatchNorm in train mode: call train() first")
+        Pretraining stage: the refiner and the fusion head on hacked coarse
+        features (drawn from ``generator``, a generator on the model's
+        device, or ``coarse_features`` as :meth:`PRPlusNet.pretrain_forward`
+        takes them), ``relu`` of the fusion output as the depth, and SILog
+        against ``depth_gt``. Its BatchNorm always runs in train mode, so
+        without ``update_stats`` it raises, as the JAX package's immutable
+        ``apply`` does. ``batch``: ``image_lr`` (B, h, w, 3), ``depth_gt``
+        (B, H, W, 1). aux: ``depth_pred`` (B, h, w, 1).
+
+        Otherwise (stage 3): :meth:`PRPlusNet.train_forward` of ``image_lr``
+        (B, h, w, 3), ``crops_image_hr`` (B, h, w, 3) and ``bboxs`` (B, 4),
+        scaled from the raw frame to the process frame unless
+        ``pre_norm_bbox``; SILog and GradMatch of the depth against
+        ``crop_depths`` (B, H, W, 1), ``total = sigweight * sig + (1 -
+        sigweight) * gm`` (GradMatch computed at ``sigweight`` 1 too). Without
+        ``update_stats`` BatchNorm runs on its running statistics, as JAX's
+        ``train=bool(mutable)`` makes it. aux: ``depth_pred`` and
+        ``coarse_prediction`` (B, h, w, 1)."""
+        if update_stats and not self.net.training:
+            raise RuntimeError("update_stats runs BatchNorm in train mode: call train() first")
         dt = next(self.net.parameters()).dtype
-        image_lr = torch.as_tensor(batch["image_lr"]).to(self.device, dt)
-        depth_gt = torch.as_tensor(batch["depth_gt"]).to(self.device, dt)
-        arm_stat_updates(self.net)
-        depth = self.net.pretrain_forward(image_lr, self.hack_strategy, generator, coarse_features)
-        depth = to_nhwc(depth)
-        sig = self.sigloss(depth, depth_gt, self.min_depth, self.max_depth)
-        return {"sig_fine_loss": sig, "total_loss": sig}, {"depth_pred": depth}
+
+        def dev(key):
+            return torch.as_tensor(batch[key]).to(self.device, dt)
+
+        if self.pretrain_stage:
+            if not update_stats:
+                raise RuntimeError(
+                    "the pretraining stage runs the refiner's BatchNorm in train mode, which updates "
+                    "its running statistics: pass update_stats=True")
+            arm_stat_updates(self.net)
+            depth = self.net.pretrain_forward(dev("image_lr"), self.hack_strategy, generator,
+                                              coarse_features)
+            depth = to_nhwc(depth)
+            sig = self.sigloss(depth, dev("depth_gt"), self.min_depth, self.max_depth)
+            return {"sig_fine_loss": sig, "total_loss": sig}, {"depth_pred": depth}
+        if not isinstance(self.net.coarse_branch, ZoeDepthBEiT):
+            raise NotImplementedError("the port trains stage 3 with a ZoeDepth coarse branch only")
+        bboxes = torch.as_tensor(batch["bboxs"]).to(self.device, torch.float32)
+        if not self.pre_norm_bbox:
+            (rh, rw), (ph, pw) = self.tile_cfg.image_raw_shape, self.patch_process_shape
+            bboxes = bboxes * torch.tensor([pw / rw, ph / rh, pw / rw, ph / rh],
+                                           dtype=torch.float32, device=self.device)
+        mode = self.net.training
+        self.net.train(update_stats)
+        try:
+            if update_stats:
+                arm_stat_updates(self.net)
+            depth, coarse_pred = self.net.train_forward(dev("image_lr"), dev("crops_image_hr"), bboxes)
+        finally:
+            self.net.train(mode)
+        # the JAX package takes the losses of float32 predictions
+        depth, coarse_pred = to_nhwc(depth).float(), to_nhwc(coarse_pred).float()
+        target = dev("crop_depths")
+        sig = self.sigloss(depth, target, self.min_depth, self.max_depth)
+        gm = self.gmloss(depth, target, self.min_depth, self.max_depth)
+        total = self.sigweight * sig + (1.0 - self.sigweight) * gm
+        return ({"sig_fine_loss": sig, "gm_loss": gm, "total_loss": total},
+                {"depth_pred": depth, "coarse_prediction": coarse_pred})
 
     def _tile(self, tile_cfg) -> TileCfg:
         return self.tile_cfg if tile_cfg is None else TileCfg(

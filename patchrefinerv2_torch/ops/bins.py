@@ -32,6 +32,17 @@ launches. On a CPU tensor they run their plain versions, the resize and
 then the math. ``attractor_update.launches`` and
 ``log_binomial_depth.launches`` count the launches.
 
+Under autograd both functions are ``torch.autograd.Function``s whose
+backwards are written in PyTorch ops (:func:`attractor_backward`,
+:func:`log_binomial_backward`), for every form the forward takes (inv and
+exp, mean and sum, unnormed and normed with its sort and clip): the
+centres' resize is recomputed by K2 (its kernel on the card, one launch),
+the gradient is taken at that size and then carried back to the previous
+size by the transpose of K2's taps (``index_add_``). It is the transpose of
+the resize the forward computed: ``aten.upsample_bilinear2d_backward``
+(K2's ``_Resize``) takes its weights in the gradient's dtype, which in
+float64 differ from K2's float32 taps by ~1e-7.
+
 The log-binomial softmax divides logits of magnitude up to ~600 by a
 temperature down to ``min_temp`` (0.0212 in the flagship), so a 1-ulp
 difference in a logarithm or a quotient can move a probability by ~1e-4
@@ -48,11 +59,14 @@ import numpy as np
 import torch
 
 from patchrefinerv2_torch.ops import _cuda
-from patchrefinerv2_torch.ops._grad import forbid_grad
-from patchrefinerv2_torch.ops.resize import _alignment, _packed_taps_on, axis_taps, resize_plain
+from patchrefinerv2_torch.ops._grad import require_float, wants_grad, wide
+from patchrefinerv2_torch.ops.resize import (
+    _alignment, _packed_taps_on, _taps_on, axis_taps, resize, resize_plain,
+)
 
-__all__ = ["attractor_update", "attractor_update_plain", "launch_plan", "log_binomial_depth",
-           "log_binomial_depth_plain", "log_binomial_plan"]
+__all__ = ["attractor_backward", "attractor_update", "attractor_update_plain", "launch_plan",
+           "log_binomial_backward", "log_binomial_depth", "log_binomial_depth_plain",
+           "log_binomial_plan"]
 
 ATTRACTOR_ALPHA = 300.0  # attractor.py's jit-script default, used whatever the config says
 P_EPS = 1e-4
@@ -106,22 +120,131 @@ def _log_binom_table(k: int, device) -> torch.Tensor:
     return log_binom(torch.tensor(k - 1, dtype=torch.float32), idx).to(device)
 
 
-def log_binomial_depth_plain(pt, centers, n_bins: int, min_temp: float, max_temp: float):
-    """Plain PyTorch version of :func:`log_binomial_depth` (any device)."""
-    centers = _resized(centers, pt.shape[1:3])
-    pt32 = pt.float()
-    p = pt32[..., :2] + P_EPS
-    t = pt32[..., 2:] + P_EPS
+def _log_binomial_logits(pt, n_bins: int, min_temp: float, max_temp: float):
+    """(p, t, one_minus_p, y): the binomial parameter, the temperature, the
+    clipped 1 - p and the log-probabilities (B, H, W, K) of the softplus
+    output ``pt``, in float32 (float64 for float64)."""
+    pt = wide(pt)
+    p = pt[..., :2] + P_EPS
+    t = pt[..., 2:] + P_EPS
     p = p[..., :1] / (p[..., :1] + p[..., 1:2])
     t = t[..., :1] / (t[..., :1] + t[..., 1:2])
     t = (max_temp - min_temp) * t + min_temp
-    k = torch.arange(n_bins, dtype=torch.float32, device=pt.device)
+    k = torch.arange(n_bins, dtype=pt.dtype, device=pt.device)
     p = torch.clamp(p, 1e-4, 1.0)
     one_minus_p = torch.clamp(1.0 - p, 1e-4, 1.0)
-    y = (_log_binom_table(n_bins, pt.device) + k * torch.log(p)
+    y = (_log_binom_table(n_bins, pt.device).to(pt.dtype) + k * torch.log(p)
          + (n_bins - 1 - k) * torch.log(one_minus_p))
+    return p, t, one_minus_p, y
+
+
+def log_binomial_depth_plain(pt, centers, n_bins: int, min_temp: float, max_temp: float):
+    """Plain PyTorch version of :func:`log_binomial_depth` (any device)."""
+    centers = _resized(centers, pt.shape[1:3])
+    _, t, _, y = _log_binomial_logits(pt, n_bins, min_temp, max_temp)
     probs = torch.softmax(y / t, dim=-1)
-    return torch.sum(probs * centers.float(), dim=-1, keepdim=True).to(pt.dtype)
+    return torch.sum(probs * wide(centers), dim=-1, keepdim=True).to(pt.dtype)
+
+
+# ---------------------------------------------------------------- backwards
+def _resize_back(g, src_shape):
+    """The gradient of the (B, h, w, C) ``src_shape`` centres from the
+    gradient ``g`` (B, H, W, C) of their resize: the transpose of K2's taps
+    (bilinear, align_corners), each output's gradient added into its two
+    sources along W, then along H; ``g`` itself at equal sizes."""
+    n, h, w, c = src_shape
+    if tuple(g.shape[1:3]) == (h, w):
+        return g
+    for axis, size in ((2, w), (1, h)):
+        idx, wt = _taps_on(size, g.shape[axis], "bilinear", True, None, g.device)
+        shape = [1] * g.ndim
+        shape[axis] = -1
+        out_shape = list(g.shape)
+        out_shape[axis] = size
+        out = torch.zeros(out_shape, dtype=g.dtype, device=g.device)
+        for t in range(idx.shape[0]):
+            out.index_add_(axis, idx[t].long(), g * wt[t].view(shape))
+        g = out
+    return g
+
+
+def attractor_backward(g_new, g_centers, a, b_prev, b_new, kind: str = "mean",
+                       attractor_type: str = "inv", normed: bool = False, min_depth: float = 1e-3,
+                       max_depth: float = 10.0):
+    """(da, db_prev) of :func:`attractor_update` for the gradients of its
+    outputs (``g_new`` of ``b_new``, ``g_centers`` of the normed centres;
+    either may be None), from the inputs, the forward's ``b_new`` and the
+    centres resized again by K2. With
+    ``dist`` the attractor function (alpha 300, gamma 2), ``dist'(dx)`` is
+    ``(1 - alpha dx^2) / (1 + alpha dx^2)^2`` (inv) or ``exp(-alpha dx^2)
+    (1 - 2 alpha dx^2)`` (exp); the normed centres' gradient goes back
+    through the clip (where the centre lies inside [min_depth, max_depth])
+    and the sort (to each centre's bin before it)."""
+    bc = wide(resize(b_prev, a.shape[1:3], "bilinear", True))
+    dt = bc.dtype
+    g = torch.zeros_like(bc) if g_new is None else wide(g_new).clone()
+    if normed and g_centers is not None:
+        c = (max_depth - min_depth) * wide(b_new) + min_depth
+        sc, order = torch.sort(c, dim=-1)
+        gs = wide(g_centers) * ((sc >= min_depth) & (sc <= max_depth))
+        g += (max_depth - min_depth) * torch.zeros_like(gs).scatter_(-1, order, gs)
+    dx = wide(a)[..., :, None] - bc[..., None, :]
+    dx2 = dx * dx
+    if attractor_type == "inv":
+        den = 1 + ATTRACTOR_ALPHA * dx2
+        dd = (1 - ATTRACTOR_ALPHA * dx2) / (den * den)
+    else:
+        dd = torch.exp(-ATTRACTOR_ALPHA * dx2) * (1 - 2 * ATTRACTOR_ALPHA * dx2)
+    if kind == "mean":
+        dd /= a.shape[-1]
+    gd = g[..., None, :] * dd
+    da = gd.sum(-1)
+    g -= gd.sum(-2)
+    return da.to(a.dtype), _resize_back(g, b_prev.shape).to(b_prev.dtype)
+
+
+def log_binomial_backward(g, pt, centers, n_bins: int, min_temp: float, max_temp: float):
+    """(dpt, dcenters) of :func:`log_binomial_depth` for the depth's
+    gradient ``g`` (B, H, W, 1), with the probabilities (float32; float64
+    for float64) and the centres' resize (K2) recomputed. For ``z = y / t``
+    and the depth ``d = sum_k P_k c_k``: ``dc_k = g P_k``, ``dz_k = g P_k
+    (c_k - d)``, then through the temperature, the two logarithms, the
+    clips (where the value lies inside them) and the two ratios of ``pt``."""
+    cu = wide(resize(centers, pt.shape[1:3], "bilinear", True))
+    p, t, omp, y = _log_binomial_logits(pt, n_bins, min_temp, max_temp)
+    probs = torch.softmax(y / t, dim=-1)
+    g = wide(g)
+    dcu = g * probs
+    dz = dcu * (cu - (probs * cu).sum(-1, keepdim=True))
+    del probs
+    dy = dz / t
+    dtemp = -(dz * y).sum(-1, keepdim=True) / (t * t)
+    k = torch.arange(n_bins, dtype=dy.dtype, device=dy.device)
+    dp = (dy * k).sum(-1, keepdim=True) / p
+    domp = (dy * (n_bins - 1 - k)).sum(-1, keepdim=True) / omp
+    one_minus = 1.0 - p
+    dp = dp - domp * ((one_minus >= 1e-4) & (one_minus <= 1.0))
+    pt_w = wide(pt)
+    dp = dp * _raw_inside(pt_w[..., :2])
+    dtraw = dtemp * (max_temp - min_temp)
+    dpt = torch.cat([_ratio_back(dp, pt_w[..., :2]), _ratio_back(dtraw, pt_w[..., 2:])], dim=-1)
+    return dpt.to(pt.dtype), _resize_back(dcu, centers.shape).to(centers.dtype)
+
+
+def _raw_inside(pair):
+    """1 where the ratio of the (x0, x1) ``pair`` (each plus P_EPS) lies
+    inside the clip to [1e-4, 1], else 0."""
+    a, b = pair[..., :1] + P_EPS, pair[..., 1:2] + P_EPS
+    r = a / (a + b)
+    return ((r >= 1e-4) & (r <= 1.0)).to(pair.dtype)
+
+
+def _ratio_back(g, pair):
+    """The gradient of the (x0, x1) ``pair`` from ``g``, the gradient of
+    ``(x0 + eps) / (x0 + x1 + 2 eps)``."""
+    a, b = pair[..., :1] + P_EPS, pair[..., 1:2] + P_EPS
+    s2 = (a + b) * (a + b)
+    return torch.cat([g * b / s2, -g * a / s2], dim=-1)
 
 
 # ---------------------------------------------------------------- launch plans
@@ -221,7 +344,15 @@ def attractor_update(a: torch.Tensor, b_prev: torch.Tensor, kind: str = "mean",
     and clipped for normed ones."""
     if kind not in ("mean", "sum") or attractor_type not in ("inv", "exp"):
         raise ValueError(f"unknown attractor kind {kind!r} or type {attractor_type!r}")
-    forbid_grad("attractor_update", a, b_prev)
+    args = (kind, attractor_type, bool(normed), float(min_depth), float(max_depth))
+    if wants_grad(a, b_prev):
+        require_float("attractor_update", a, b_prev)
+        out = _Attractor.apply(a, b_prev, *args)
+        return out if normed else (out[0], out[0])
+    return _attractor_forward(a, b_prev, *args)
+
+
+def _attractor_forward(a, b_prev, kind, attractor_type, normed, min_depth, max_depth):
     if _cuda.on_cpu(a):
         return attractor_update_plain(a, b_prev, kind, attractor_type, normed, min_depth, max_depth)
     _check_nhwc(a, b_prev, "a and b_prev")
@@ -248,6 +379,24 @@ def attractor_update(a: torch.Tensor, b_prev: torch.Tensor, kind: str = "mean",
     return b_new, centers
 
 
+class _Attractor(torch.autograd.Function):
+    """Outputs (b_new,) of an unnormed layer, (b_new, centers) of a normed one."""
+
+    @staticmethod
+    def forward(ctx, a, b_prev, kind, attractor_type, normed, min_depth, max_depth):
+        b_new, centers = _attractor_forward(a, b_prev, kind, attractor_type, normed, min_depth,
+                                            max_depth)
+        ctx.save_for_backward(a, b_prev, b_new)
+        ctx.args = (kind, attractor_type, normed, min_depth, max_depth)
+        return (b_new, centers) if normed else (b_new,)
+
+    @staticmethod
+    def backward(ctx, g_new, g_centers=None):
+        a, b_prev, b_new = ctx.saved_tensors
+        da, db = attractor_backward(g_new, g_centers, a, b_prev, b_new, *ctx.args)
+        return da, db, None, None, None, None, None
+
+
 attractor_update.launches = 0
 
 
@@ -258,7 +407,14 @@ def log_binomial_depth(pt: torch.Tensor, centers: torch.Tensor, n_bins: int, min
     (H, W) here (bilinear, align_corners) unless they are at that size: the
     expectation of the centres under the softmax over the K bins of the
     binomial log-probabilities divided by the temperature."""
-    forbid_grad("log_binomial_depth", pt, centers)
+    args = (int(n_bins), float(min_temp), float(max_temp))
+    if wants_grad(pt, centers):
+        require_float("log_binomial_depth", pt, centers)
+        return _LogBinomial.apply(pt, centers, *args)
+    return _log_binomial_forward(pt, centers, *args)
+
+
+def _log_binomial_forward(pt, centers, n_bins, min_temp, max_temp):
     if _cuda.on_cpu(pt):
         return log_binomial_depth_plain(pt, centers, n_bins, min_temp, max_temp)
     _check_nhwc(pt, centers, "pt and centers")
@@ -286,6 +442,21 @@ def log_binomial_depth(pt: torch.Tensor, centers: torch.Tensor, n_bins: int, min
     _cuda.check(rc, "log_binomial_depth")
     log_binomial_depth.launches += 1
     return out
+
+
+class _LogBinomial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pt, centers, n_bins, min_temp, max_temp):
+        ctx.save_for_backward(pt, centers)
+        ctx.args = (n_bins, min_temp, max_temp)
+        return _log_binomial_forward(pt.contiguous(), centers.contiguous(), n_bins, min_temp,
+                                     max_temp)
+
+    @staticmethod
+    def backward(ctx, g):
+        pt, centers = ctx.saved_tensors
+        dpt, dc = log_binomial_backward(g, pt, centers, *ctx.args)
+        return dpt, dc, None, None, None
 
 
 log_binomial_depth.launches = 0

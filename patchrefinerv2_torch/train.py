@@ -4,8 +4,10 @@
                                          [--device cpu] [--seed S] [--resume-from P]
 
 It builds ``PatchRefinerPlus`` from the config's ``model`` (random weights
-from the seed; the port trains the pretraining stage, e.g.
-``configs/patchrefinerv2_zoedepth/pretrain_eff_m0s1.py``), the config's
+from the seed, then the checkpoints the config names in ``pretrained`` or
+``whole_pretrained``; the port trains the refiner's pretraining stage,
+``configs/patchrefinerv2_zoedepth/pretrain_eff_m0s1.py``, and stage 3,
+``configs/patchrefinerv2_zoedepth/v2_eff_u4k.py``), the config's
 train dataset (of the port's datasets, ``SyntheticDataset``:
 ``--cfg-option train_dataloader.dataset.type=SyntheticDataset``), a
 shuffled loader of its ``batch_size``, and runs ``Trainer.run``. The

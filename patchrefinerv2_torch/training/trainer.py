@@ -10,7 +10,11 @@ The hacked coarse features of the pretraining stage are drawn from a
 generator on the model's device seeded ``seed + 1``; like the JAX package's
 ``_rng`` it is not checkpointed, so a resumed run draws other features than
 an uninterrupted one. Checkpoints hold the network's state (BatchNorm
-statistics included), the optimizer's state, the epoch and the step.
+statistics included), the optimizer's state, the epoch and the step. The
+model's config may name checkpoints of earlier stages (``pretrained``,
+``whole_pretrained``), merged into the network before the optimizer is
+built (``utils/checkpoint.apply_config_pretrained``); a resume then
+restores over them.
 """
 
 from __future__ import annotations
@@ -23,7 +27,9 @@ import numpy as np
 import torch
 
 from patchrefinerv2_torch.training.optim import build_optimizer
-from patchrefinerv2_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from patchrefinerv2_torch.utils.checkpoint import (
+    apply_config_pretrained, load_checkpoint, save_checkpoint,
+)
 from patchrefinerv2_torch.utils.logging import print_log
 from patchrefinerv2_torch.utils.metrics_logger import MetricsLogger
 
@@ -53,6 +59,8 @@ class Trainer:
         self.max_depth = float(config.get("max_depth", 80))
 
         total_steps = self.max_epochs * len(train_loader)
+        # the config's checkpoints of earlier stages (patchrefinerplus.py:105-205)
+        self.pretrained_report = apply_config_pretrained(model)
         mcfg = model.config
         frozen = ("coarse_branch",) if not (mcfg.get("e2e_training", False)
                                             or model.pretrain_stage) else ()

@@ -17,7 +17,9 @@
 - Train-mode BatchNorm against flax's ``nn.BatchNorm`` (momentum 0.9,
   eps 1e-3): output, gradients and running statistics (1e-5 relative), and
   the statistics updated once per armed step.
-- The wrappers of the kernels without a backward raise under grad.
+- The wrappers of the kernels without a backward (K10, the crop-resize,
+  nearest and bicubic K2) raise under grad; K1, K3/K4 and K8 have theirs
+  (tests/test_torch_train_e2e.py).
 """
 
 import numpy as np
@@ -42,13 +44,10 @@ from patchrefinerv2_tpu.training.optim import (
 
 from patchrefinerv2_torch.models.backbones.encoders import BatchNorm, arm_stat_updates
 from patchrefinerv2_torch.models.losses import GradMatchLoss, SILogLoss
-from patchrefinerv2_torch.ops.attention import attention
-from patchrefinerv2_torch.ops.bins import attractor_update, log_binomial_depth
 from patchrefinerv2_torch.ops.gated import gate_tail, gate_tail_plain
 from patchrefinerv2_torch.ops.layer_norm import layer_norm, layer_norm_plain
 from patchrefinerv2_torch.ops.quant import quant_conv
 from patchrefinerv2_torch.ops.resize import crop_resize, resize, resize_plain
-from patchrefinerv2_torch.ops.roi_align import roi_align
 from patchrefinerv2_torch.ops.tail_conv import tail_conv, tail_conv_plain
 from patchrefinerv2_torch.training.optim import (
     build_optimizer, momentum_schedule, onecycle_lr_schedule,
@@ -421,17 +420,13 @@ def _no_backward_calls():
     def r(*s, grad=True):
         return torch.rand(*s, generator=g).requires_grad_(grad)
 
-    boxes, idx = torch.tensor([[0.0, 0.0, 4.0, 4.0]]), torch.zeros(1, dtype=torch.int32)
     kq = torch.ones(4, 4, 1, 1, dtype=torch.int8)
     return {
-        "roi_align": lambda: roi_align(r(1, 8, 8, 4), boxes, idx, (4, 4), 0.5),
-        "attention": lambda: attention(r(1, 2, 5, 8), r(1, 2, 5, 8), r(1, 2, 5, 8), 0.3),
-        "attractor_update": lambda: attractor_update(r(1, 4, 4, 2), r(1, 2, 2, 8)),
-        "log_binomial_depth": lambda: log_binomial_depth(r(1, 4, 4, 4), r(1, 2, 2, 8), 8, 0.02, 50.0),
         "quant_conv": lambda: quant_conv([r(1, 4, 4, 4)], kq, torch.ones(4), torch.ones(4)),
         "crop_resize": lambda: crop_resize(r(8, 8, 3), torch.zeros(1, 2, dtype=torch.int32),
                                            (4, 4), (6, 6)),
         "resize_nearest": lambda: resize(r(1, 4, 4, 2), (8, 8), "nearest"),
+        "resize_bicubic": lambda: resize(r(1, 4, 4, 2), (8, 8), "bicubic"),
     }
 
 
