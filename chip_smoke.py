@@ -1442,27 +1442,75 @@ K_GROUP_WRAPPERS = {
 }
 
 
-def profile_frame(fn, frame_ms: float, label: str) -> None:
+ENCODER_RANGE = "MobileNetV4 encoder"  # the profiler range around a MobileNetV4 refiner encoder
+# depthwise convolution kernels by name; cuDNN ran MobileNetV4-small's 15 a
+# chunk (bf16, channels_last) as ``conv2d_c1_k1_nhwc_specialized`` on the H100
+DEPTHWISE = ("depthwise", "dwconv", "conv2d_c1_k1")
+
+
+def encoder_share(prof) -> dict:
+    """The device time of the kernels under the ``ENCODER_RANGE`` ranges of
+    a profile (the MobileNetV4 encoder's cuDNN convolutions, BatchNorms and
+    ReLUs, inside the groups they fall in by name), the depthwise
+    convolutions' part of it, and its costliest kernels."""
+    import torch
+
+    ranges = [e for e in prof.events()
+              if e.name == ENCODER_RANGE and e.device_type == torch.autograd.DeviceType.CPU]
+    kernels = {}
+
+    def walk(ev):
+        for k in getattr(ev, "kernels", ()):
+            n, us = kernels.get(k.name, (0, 0.0))
+            kernels[k.name] = (n + 1, us + k.duration)
+        for c in ev.cpu_children:
+            walk(c)
+
+    for e in ranges:
+        walk(e)
+    total = sum(float(getattr(e, "device_time_total", 0.0) or 0.0) for e in ranges) / 1e3
+    dw = sum(us for name, (_, us) in kernels.items() if any(k in name.lower() for k in DEPTHWISE))
+    top = sorted(((us / 1e3, n, name[:90]) for name, (n, us) in kernels.items()), reverse=True)[:8]
+    return {"calls": len(ranges), "device_ms": total, "depthwise_conv_ms": dw / 1e3,
+            "top_kernels_ms_calls_name": top}
+
+
+def profile_frame(fn, frame_ms: float, label: str, encoder=None) -> None:
     """One frame under torch.profiler: device time by layer, the costliest
     kernels, and the share of the unprofiled frame time the device spends
     in kernels. Every kernel of ``csrc/`` and of the Triton ops must fall in
     its own K group: each group's profiled launches are held against its
     wrappers' launch counters over the frame (``K_GROUP_WRAPPERS``), so a
     kernel whose name no longer matches its group's fragments fails the run
-    instead of landing in another group."""
+    instead of landing in another group. ``encoder``: a MobileNetV4 refiner
+    encoder, run under a profiler range while the frame is profiled; its
+    device time is reported apart (``encoder_share``; its kernels stay in
+    their groups too)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from patchrefinerv2_torch import ops
 
+    if encoder is not None:
+        plain_forward = encoder.forward
+
+        def ranged(x):
+            with record_function(ENCODER_RANGE):
+                return plain_forward(x)
+
+        encoder.forward = ranged
     ops.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        if encoder is not None:
+            del encoder.forward
     counts = ops.launch_counts()
     groups, launches, total, kernels = {}, {}, 0.0, []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key == ENCODER_RANGE:
             continue
         us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
         name = e.key.lower()
@@ -1476,7 +1524,8 @@ def profile_frame(fn, frame_ms: float, label: str) -> None:
          "device_busy_share": total / 1e3 / frame_ms,
          "by_layer_ms": {g: v / 1e3 for g, v in sorted(groups.items(), key=lambda kv: -kv[1])},
          "k_group_launches_profiled_vs_counted": {g: [launches.get(g, 0), n] for g, n in want.items()},
-         "top_kernels_ms_calls_name": sorted(kernels, reverse=True)[:15]})
+         "top_kernels_ms_calls_name": sorted(kernels, reverse=True)[:15],
+         **({"mobilenetv4_encoder": encoder_share(prof)} if encoder is not None else {})})
     for grp, (_, exact) in K_GROUP_WRAPPERS.items():
         got = launches.get(grp, 0)
         if (exact and got != want[grp]) or (want[grp] > 0 and got == 0):
@@ -1494,26 +1543,29 @@ HEAD_INT8_SITES = sum(s[6] for s in quant_sites(32) if s[7] != "plain")  # 3
 
 
 def check_tail_per_chunk(label, counts, per_chunk=9) -> None:
-    """K9 runs once at each of its 9 sites in every chunk (6 in an int8 run,
-    where K10 takes the head's 3), and roi_align 7 times (the six coarse
-    levels and the coarse depth): their counts must agree, chunk for
-    chunk."""
+    """K9 runs once at each of its sites in every chunk (the flagship's 9, 6
+    in an int8 run, where K10 takes the head's 3), and roi_align 7 times
+    (the six coarse levels and the coarse depth): their counts must agree,
+    chunk for chunk."""
     chunks = counts["roi_align"] / 7
-    log({"phase": f"{label}_tail_conv_per_chunk", "chunks": chunks, "tail_conv": counts["tail_conv"]})
+    log({"phase": f"{label}_tail_conv_per_chunk", "chunks": chunks, "tail_conv": counts["tail_conv"],
+         "per_chunk": per_chunk})
     if chunks < 1 or counts["tail_conv"] != per_chunk * chunks:
         raise AssertionError(f"{label}: {counts['tail_conv']} tail_conv launches for {chunks} chunks, "
                              f"not {per_chunk} a chunk")
 
 
-def check_gate_per_chunk(label, counts) -> None:
-    """K5 runs once at each GatedConvUnit of the fusion head in every chunk
-    (9 C2F units and the head's), in every run, int8 included: 10 a
-    chunk (roi_align's 7 count the chunks)."""
+def check_gate_per_chunk(label, counts, per_chunk=GATE_UNITS_PER_CHUNK) -> None:
+    """K5 runs once at each GatedConvUnit of the fusion head with a fusion
+    conv in every chunk (the flagship's 9 C2F units and the head's), in
+    every run, int8 included: 10 a chunk (roi_align's 7 count the chunks);
+    0 in the self-agg C2F and without C2F."""
     chunks = counts["roi_align"] / 7
-    log({"phase": f"{label}_gate_tail_per_chunk", "chunks": chunks, "gate_tail": counts["gate_tail"]})
-    if chunks < 1 or counts["gate_tail"] != GATE_UNITS_PER_CHUNK * chunks:
+    log({"phase": f"{label}_gate_tail_per_chunk", "chunks": chunks, "gate_tail": counts["gate_tail"],
+         "per_chunk": per_chunk})
+    if chunks < 1 or counts["gate_tail"] != per_chunk * chunks:
         raise AssertionError(f"{label}: {counts['gate_tail']} gate_tail launches for {chunks} chunks, "
-                             f"not {GATE_UNITS_PER_CHUNK} a chunk")
+                             f"not {per_chunk} a chunk")
 
 
 def check_quant_per_chunk(label, counts, per_chunk) -> None:
@@ -1540,25 +1592,29 @@ def check_bins_per_frame(label, counts, frames, per_frame) -> None:
 
 class Frames:
     """Runs one model's tiled inference on a fixed random 2160x3840 frame;
-    ``bins``: its K8 launches a frame (``check_bins_per_frame``)."""
+    ``bins``: its K8 launches a frame (``check_bins_per_frame``); ``per_chunk``:
+    its fusion head's K5 and K9 launches a chunk, counted from its modules
+    (``BiDirectionalFusion.kernel_calls``)."""
 
     def __init__(self, model, lr_shape, dev, bins=(4, 1)):
         import torch
 
         g = torch.Generator().manual_seed(0)
         self.model, self.bins = model, bins
+        self.per_chunk = model.net.refiner_fusion_model.kernel_calls()
         self.image_lr = torch.rand((1, *lr_shape, 3), generator=g).to(dev)
         self.image_hr = torch.rand((1, 2160, 3840, 3), generator=g).to(dev)
 
     def infer(self, mode):
         return self.model.infer(self.image_lr, self.image_hr, mode, process_num=16)
 
-    def first(self, mode, label, idle_ok=FRAME_IDLE_OK, int8_sites=0):
+    def first(self, mode, label, idle_ok=FRAME_IDLE_OK, int8_sites=0, head_sites=HEAD_INT8_SITES):
         """The first frame of a mode, with the launch counters set to 0 just
         before it and read just after: every kernel but ``idle_ok`` must
-        have launched, K10 ``int8_sites`` times a chunk and K9 9 times (6
-        in an int8 run). The map is the reensemble canvas for m1 and m2, the
-        raw frame for rN."""
+        have launched, K10 ``int8_sites`` times a chunk, K5 and K9 as
+        ``per_chunk`` says (the flagship's 10 and 9), K9 ``head_sites``
+        fewer in an int8 run (K10 takes them). The map is the reensemble
+        canvas for m1 and m2, the raw frame for rN."""
         import torch
 
         from patchrefinerv2_torch import ops
@@ -1580,8 +1636,8 @@ class Frames:
         idle = [k for k, v in counts.items() if v == 0 and k not in idle_ok]
         if idle:
             raise AssertionError(f"{label}: kernels never launched on the main path: {idle}")
-        check_tail_per_chunk(label, counts, 9 - (HEAD_INT8_SITES if int8_sites else 0))
-        check_gate_per_chunk(label, counts)
+        check_tail_per_chunk(label, counts, self.per_chunk["tail_conv"] - (head_sites if int8_sites else 0))
+        check_gate_per_chunk(label, counts, self.per_chunk["gate_tail"])
         check_quant_per_chunk(label, counts, int8_sites)
         check_bins_per_frame(label, counts, 1, self.bins)
         return depth, counts
@@ -1621,6 +1677,9 @@ def flagship(dev) -> dict:
 
     fr = Frames(build(dev, "configs/patchrefinerv2_zoedepth/v2_eff_u4k.py", "flagship"),
                 (384, 512), dev)
+    if fr.per_chunk != {"gate_tail": GATE_UNITS_PER_CHUNK, "tail_conv": len(tail_sites(32))}:
+        raise AssertionError(f"the flagship's head counts {fr.per_chunk} kernel calls a chunk, its "
+                             f"sites {GATE_UNITS_PER_CHUNK} and {len(tail_sites(32))}")
     d32, _ = fr.first("m1", "m1_float32_first")
     fr.timed("m1", "m1_float32_timed", 2)
     fr.model.set_infer_dtype(torch.bfloat16)
@@ -1642,16 +1701,19 @@ def flagship(dev) -> dict:
     return dict(m1=counts_m1, m2=counts_m2, r32=counts_r32, **int8_frames(fr, "", d16, True))
 
 
-def int8_frames(fr, label, d16, flagship: bool, idle_ok=INT8_IDLE_OK) -> dict:
+def int8_frames(fr, label, d16, flagship: bool, idle_ok=INT8_IDLE_OK, encoder=None) -> dict:
     """The int8 serving mode on the frame, bfloat16. For the flagship first
     the dynamic mode (no calibration: ``set_int8(None, "dynamic")``), m1
     first, timed and profiled. Then calibrate on the frame (m1 and the three
     shifted passes, process_num 16; seconds and the sites the default gates
-    select, which must be the 15), then with per-channel scales m1 (first,
-    timed, profiled) and, for the flagship, r32 (the JAX bench's mode:
-    first, timed, profiled) and an m1 first frame with per-tensor scales;
-    K10 15 times a chunk and K9 6 in each. The mean relative differences of
-    the int8 m1 depths from the bfloat16 one are for information."""
+    select, which must be the 15 of the JAX default's site list), then with
+    per-channel scales m1 (first, timed, profiled) and, for the flagship,
+    r32 (the JAX bench's mode: first, timed, profiled) and an m1 first frame
+    with per-tensor scales; K10 once a chunk at each selected site and K9
+    at its sites but the selected head sites (15 and 6 on the flagship's
+    head). The mean relative differences of the int8 m1 depths from the
+    bfloat16 one are for information. ``encoder``: as ``profile_frame``
+    takes it."""
     import torch
 
     model = fr.model
@@ -1675,21 +1737,21 @@ def int8_frames(fr, label, d16, flagship: bool, idle_ok=INT8_IDLE_OK) -> dict:
          "selected": len(sel), "selected_sites": sel})
     if len(sel) != QUANT_SITES_PER_CHUNK:
         raise AssertionError(f"{label}int8 calibration selects {len(sel)} sites, not {QUANT_SITES_PER_CHUNK}")
+    head = sum(cal.sites[n]["layout"] != "plain" for n in sel)
     model.set_int8(cal, "perchan")
     torch.cuda.reset_peak_memory_stats()
-    d8, runs[f"{label}m1_int8"] = fr.first("m1", f"{label}m1_int8_perchan_first", idle_ok,
-                                           QUANT_SITES_PER_CHUNK)
+    d8, runs[f"{label}m1_int8"] = fr.first("m1", f"{label}m1_int8_perchan_first", idle_ok, len(sel), head)
     ms = fr.timed("m1", f"{label}m1_int8_perchan_timed", 5 if flagship else 3)
-    profile_frame(lambda: fr.infer("m1"), ms, f"{label}m1_int8_perchan")
+    profile_frame(lambda: fr.infer("m1"), ms, f"{label}m1_int8_perchan", encoder)
     rel = float(((d8.float() - d16.float()).abs() / d16.float().abs().clamp(min=1e-6)).mean())
     log({"phase": f"{label}m1_int8_vs_bf16", "mean_rel_diff": rel, "note": "information only"})
     if flagship:
         torch.cuda.reset_peak_memory_stats()
-        _, runs["r32_int8"] = fr.first("r32", "r32_int8_perchan_first", idle_ok, QUANT_SITES_PER_CHUNK)
+        _, runs["r32_int8"] = fr.first("r32", "r32_int8_perchan_first", idle_ok, len(sel), head)
         ms = fr.timed("r32", "r32_int8_perchan_timed", 3)
         profile_frame(lambda: fr.infer("r32"), ms, "r32_int8_perchan")
         model.set_int8(cal, "tensor")
-        _, runs["m1_int8_tensor"] = fr.first("m1", "m1_int8_tensor_first", idle_ok, QUANT_SITES_PER_CHUNK)
+        _, runs["m1_int8_tensor"] = fr.first("m1", "m1_int8_tensor_first", idle_ok, len(sel), head)
     model.set_int8(None)
     return runs
 
@@ -1711,6 +1773,103 @@ def depth_anything_v2(dev) -> dict:
     return dict(da2_m1=counts, **int8_frames(fr, "da2_", d16, False, INT8_IDLE_OK + bins))
 
 
+MOBILE_ENCODER = "mobilenetv4_conv_small.e2400_r224_in1k"
+MOBILE_CONFIG = "configs/patchrefinerv2_zoedepth/v2_mobile_u4k.py"
+# the fusion head's forms the MobileNetV4 ablations take, and the other two widths
+MOBILE_VARIANTS = {
+    "no_c2f": "configs/patchrefinerv2_zoedepth_ablation/plus_mobile_u4k_base_coarse.py",
+    "self_agg": "configs/patchrefinerv2_zoedepth_ablation/plus_mobile_c2f_selfagg.py",
+    "medium": "configs/patchrefinerv2_zoedepth_ablation/plus_mobile_mid_u4k_base_coarse_e2e_c2f.py",
+    "large": "configs/patchrefinerv2_zoedepth_ablation/plus_mobile_large_u4k_base_coarse_e2e_c2f.py",
+}
+
+
+def check_mobile_shapes(model, label: str) -> None:
+    """The kernels of a MobileNetV4 path meet the flagship's shapes, which
+    the kernel phase holds them at: the process shape and the coarse
+    levels (K1's rois, the head's widths) are the flagship's, C2F runs 256
+    wide (K5's sites, K10's), and K9's level-0 fusion layers read parts the
+    flagship's do: (coarse level 0, C2F's last_feat) or, without C2F,
+    (coarse level 0, the refiner's full-resolution level)."""
+    net = model.net
+    head = net.refiner_fusion_model
+    c0 = net.coarse_branch.coarse_chl[0]
+    parts = (c0, head.fusion_layers_1[0].single_conv[0].in_channels - c0)
+    c2f = None if head.c2f is None else head.c2f.scratch.layer1_rn.out_channels
+    same = (tuple(net.patch_process_shape) == PATHS["flagship"]["process"]
+            and list(net.coarse_branch.coarse_chl) == [c for *_, c in FLAGSHIP_LEVELS[:6]][::-1]
+            and parts in [s[1] for s in tail_sites(32)] and c2f in (None, 256))
+    log({"phase": f"{label}_kernel_shapes", "fusion1_0_parts": parts, "c2f_features": c2f,
+         "per_chunk": head.kernel_calls(), "flagship_shapes": same})
+    if not same:
+        raise AssertionError(f"{label}: a kernel meets shapes the kernel phase does not check")
+
+
+def mobile(dev) -> dict:
+    """PatchRefinerV2-Mobile (``v2_mobile_u4k``: the flagship's BEiT-L
+    ZoeDepth coarse branch, the MobileNetV4-small refiner, BiDirectionalFusion
+    over [32, 32, 64, 96, 960]; random weights from seed 0) on the 2160x3840
+    frame split 4x4, process_num 16: m1 in float32 (TF32 off), then m1, m2
+    and r32 in bfloat16, each a first frame (launch counters checked chunk
+    by chunk against the head's ``kernel_calls``) and timed warm frames,
+    each bfloat16 mode profiled with the MobileNetV4 encoder's device time
+    apart; then calibrated int8 m1 with per-channel scales (first, timed,
+    profiled); then ``Tester.run`` m1 over two synthetic Cityscapes frames
+    (``plus_mobile_cs_pretrain.py``)."""
+    import torch
+
+    model = build(dev, MOBILE_CONFIG, "mobile")
+    check_mobile_shapes(model, "mobile")
+    enc = model.net.refiner_fine_branch.refiner_encoder
+    fr = Frames(model, (384, 512), dev)
+    torch.cuda.reset_peak_memory_stats()
+    d32, _ = fr.first("m1", "mobile_m1_float32_first")
+    fr.timed("m1", "mobile_m1_float32_timed", 2)
+    model.set_infer_dtype(torch.bfloat16)
+    runs = {}
+    for mode, n in (("m1", 5), ("m2", 3), ("r32", 3)):
+        torch.cuda.reset_peak_memory_stats()
+        d, runs[f"mobile_{mode}"] = fr.first(mode, f"mobile_{mode}_bfloat16_first")
+        if mode == "m1":
+            d16 = d
+        ms = fr.timed(mode, f"mobile_{mode}_bfloat16_timed", n)
+        profile_frame(lambda: fr.infer(mode), ms, f"mobile_{mode}_bfloat16", enc)
+    rel = float(((d16.float() - d32).abs() / d32.abs().clamp(min=1e-6)).mean())
+    log({"phase": "mobile_m1_bf16_vs_f32", "mean_rel_diff": rel, "note": "information only"})
+    runs.update(int8_frames(fr, "mobile_", d16, False, encoder=enc))
+    del fr, model, enc, d16, d32
+    torch.cuda.empty_cache()
+    runs.update(cityscapes_eval(dev, "configs/patchrefinerv2_zoedepth_cs/plus_mobile_cs_pretrain.py",
+                                ("m1",), "mobile_"))
+    return runs
+
+
+def mobile_variants(dev) -> dict:
+    """The MobileNetV4 ablations, m1 in bfloat16 on the same frame: the
+    fusion forms ``coarse2fine=False`` (no C2F: K9 4 times a chunk, K5
+    never) and ``self-agg`` (K9 8 times, K5 never), and the medium and large
+    refiners with the coarse-gated head; each a first frame with its
+    counters, timed frames and a profiled frame."""
+    import torch
+
+    runs = {}
+    for name, config in MOBILE_VARIANTS.items():
+        label = f"mobile_{name}"
+        model = build(dev, config, label)
+        model.set_infer_dtype(torch.bfloat16)
+        check_mobile_shapes(model, label)
+        fr = Frames(model, (384, 512), dev)
+        idle = FRAME_IDLE_OK + (("gate_tail",) if fr.per_chunk["gate_tail"] == 0 else ())
+        torch.cuda.reset_peak_memory_stats()
+        _, runs[f"{label}_m1"] = fr.first("m1", f"{label}_m1_bfloat16_first", idle)
+        ms = fr.timed("m1", f"{label}_m1_bfloat16_timed", 3)
+        profile_frame(lambda: fr.infer("m1"), ms, f"{label}_m1_bfloat16",
+                      model.net.refiner_fine_branch.refiner_encoder)
+        del fr, model
+        torch.cuda.empty_cache()
+    return runs
+
+
 # the small composed graphs' flagship topology: a tiny BEiT ZoeDepth coarse
 # branch with the EfficientNet-B5 refiner and BiDirectionalFusion
 TINY_REFINER = dict(fine_branch=dict(type="LightWeightRefiner", encoder_name="tf_efficientnet_b5_ap"))
@@ -1729,7 +1888,9 @@ def small_gpu_vs_cpu(dev) -> None:
     """The composed graph at a small size, kernels on the card against the
     plain versions on the CPU, float32: a tiny BEiT ZoeDepth coarse branch
     (head dim 16) and a ``vitt`` DA2 one (head dim 48, bicubic position
-    embedding), each with the EfficientNet-B5 refiner and BiDirectionalFusion."""
+    embedding), each with the EfficientNet-B5 refiner and BiDirectionalFusion
+    (m1, m2, r8); and the tiny ZoeDepth graph with the MobileNetV4-small
+    refiner, the CPU tests' mobile slice (m1)."""
     import numpy as np
 
     from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
@@ -1740,13 +1901,16 @@ def small_gpu_vs_cpu(dev) -> None:
         coarse_branch=dict(type="DA2", model_cfg=dict(encoder="vitt", features=64)),
         refiner=dict(refiner, fusion_model=dict(type="BiDirectionalFusion",
                                                 coarse_chl=[32, 64, 64, 64, 64, 64])))
-    for name, cfg in (("zoedepth", zoe), ("da2_vitt", da2)):
+    mobile = dict(zoe, refiner=dict(zoe["refiner"], fine_branch=dict(TINY_REFINER["fine_branch"],
+                                                                       encoder_name=MOBILE_ENCODER)))
+    for name, cfg, modes in (("zoedepth", zoe, ("m1", "m2", "r8")), ("da2_vitt", da2, ("m1", "m2", "r8")),
+                             ("mobile", mobile, ("m1",))):
         gpu = PatchRefinerPlus(cfg, device=dev, seed=3)
         cpu = PatchRefinerPlus(cfg, device="cpu", seed=3)
         rng = np.random.RandomState(11)
         lr = rng.rand(1, *cfg["patch_process_shape"], 3).astype(np.float32)
         hr = rng.rand(1, *cfg["image_raw_shape"], 3).astype(np.float32)
-        for mode in ("m1", "m2", "r8"):
+        for mode in modes:
             dg, cg = gpu.infer(lr, hr, mode, process_num=4)
             dc, cc = cpu.infer(lr, hr, mode, process_num=4)
             err = float((dg.cpu() - dc).abs().max()) / float(dc.abs().max())
@@ -1878,15 +2042,17 @@ class TimedModel:
         return out
 
 
-def cityscapes_eval(dev) -> dict:
+def cityscapes_eval(dev, config="configs/patchrefinerv2_zoedepth_cs/plus_eff_cs_pretrain.py",
+                    modes=("m1", "m2", "r32"), label="") -> dict:
     """``Tester.run`` at full width: ``plus_eff_cs_pretrain.py`` (the flagship
-    network on 1024x2048 frames split 4x4 into 256x512 patches), bfloat16,
-    random weights from seed 0, over 2 synthetic frames in m1, m2 and r32
-    with process_num 16. Each mode's launch counters are set to 0 just
-    before its run and read just after: every kernel of the flagship and
-    canny must have launched. Every metric must be finite. With random
-    weights the prediction is nearly flat: the count of its canny edge
-    pixels per frame is printed (read after the counters), and
+    network on 1024x2048 frames split 4x4 into 256x512 patches; or
+    ``config``), bfloat16, random weights from seed 0, over 2 synthetic
+    frames in each of ``modes`` with process_num 16. Each mode's launch
+    counters are set to 0 just before its run and read just after: every
+    kernel of the path and canny must have launched, K5 and K9 as the
+    head's ``kernel_calls`` says a chunk. Every metric must be finite. With
+    random weights the prediction is nearly flat: the count of its canny
+    edge pixels per frame is printed (read after the counters), and
     ``eval_gpu_vs_cpu`` times ``get_metrics`` on a frame with edges."""
     import math
 
@@ -1896,10 +2062,11 @@ def cityscapes_eval(dev) -> dict:
     from patchrefinerv2_torch.datasets.base import DataLoader
     from patchrefinerv2_torch.evaluation.tester import Tester
 
-    model = build(dev, "configs/patchrefinerv2_zoedepth_cs/plus_eff_cs_pretrain.py", "cs")
+    model = build(dev, config, f"{label}cs")
     model.set_infer_dtype(torch.bfloat16)
+    per_chunk = model.net.refiner_fusion_model.kernel_calls()
     counts = {}
-    for mode in ("m1", "m2", "r32"):
+    for mode in modes:
         ds = synthetic_cityscapes(2, model.patch_process_shape)
         timed = TimedModel(model)
         ops.reset_launches()
@@ -1908,9 +2075,9 @@ def cityscapes_eval(dev) -> dict:
         metrics = Tester({}, timed, DataLoader(ds)).run(
             cai_mode=mode, process_num=16, image_raw_shape=(1024, 2048), patch_split_num=(4, 4))
         seconds = time.time() - t0
-        counts[f"eval_{mode}"] = c = ops.launch_counts()
+        counts[f"{label}eval_{mode}"] = c = ops.launch_counts()
         edges = [pred_edge_pixels(p, (1024, 2048)) for p in ds.preds]
-        log({"phase": f"cityscapes_eval_{mode}_bfloat16", "metrics": metrics, "seconds": seconds,
+        log({"phase": f"{label}cityscapes_eval_{mode}_bfloat16", "metrics": metrics, "seconds": seconds,
              "infer_ms_per_frame": timed.infer_ms, "metrics_ms_per_frame": ds.metric_ms,
              "pred_edge_pixels_per_frame": edges,
              "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": c})
@@ -1921,10 +2088,10 @@ def cityscapes_eval(dev) -> dict:
         idle = [k for k, v in c.items() if v == 0 and k != "quant_conv"]
         if idle:
             raise AssertionError(f"cityscapes eval {mode}: kernels never launched: {idle}")
-        check_tail_per_chunk(f"cityscapes_eval_{mode}", c)
-        check_gate_per_chunk(f"cityscapes_eval_{mode}", c)
-        check_quant_per_chunk(f"cityscapes_eval_{mode}", c, 0)
-        check_bins_per_frame(f"cityscapes_eval_{mode}", c, len(ds), (4, 1))
+        check_tail_per_chunk(f"{label}cityscapes_eval_{mode}", c, per_chunk["tail_conv"])
+        check_gate_per_chunk(f"{label}cityscapes_eval_{mode}", c, per_chunk["gate_tail"])
+        check_quant_per_chunk(f"{label}cityscapes_eval_{mode}", c, 0)
+        check_bins_per_frame(f"{label}cityscapes_eval_{mode}", c, len(ds), (4, 1))
     return counts
 
 
@@ -1995,14 +2162,15 @@ TRAIN_KERNELS = ("resize", "layer_norm", "gate_tail", "tail_conv")  # the pretra
 WORK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_work")
 
 
-def pretrain_config(batch: int = 4, steps: int = 3, patch=None):
-    """The pretraining stage (``pretrain_eff_m0s1``: batch 4, 384x512 images,
-    2160x3840 depth, remat on) over ``steps`` batches of SyntheticDataset in
-    one epoch; ``patch`` shrinks the image and depth sizes."""
+def pretrain_config(batch: int = 4, steps: int = 3, patch=None, config: str = PRETRAIN_CONFIG):
+    """The pretraining stage (``pretrain_eff_m0s1``, or ``config``: batch 4,
+    384x512 images, 2160x3840 depth, remat on) over ``steps`` batches of
+    SyntheticDataset in one epoch; ``patch`` shrinks the image and depth
+    sizes."""
     from patchrefinerv2_torch.config import Config
 
     here = os.path.dirname(os.path.abspath(__file__))
-    cfg = Config.fromfile(os.path.join(here, PRETRAIN_CONFIG))
+    cfg = Config.fromfile(os.path.join(here, config))
     ds = dict(type="SyntheticDataset", mode="train", length=batch * steps)
     if patch is not None:
         h, w = patch
@@ -2022,16 +2190,17 @@ STAGE3_KERNELS = TRAIN_KERNELS + ("roi_align", "attention", "attractor_update", 
 STAGE3_EXACT = {"roi_align": 7, "attractor_update": 4, "log_binomial_depth": 1}
 
 
-def stage3_config(batch: int = 4, steps: int = 3, pretrained=None, val: bool = False):
-    """Stage 3 (``v2_eff_u4k``: BEiT-L + ZoeDepth trained end to end, batch
-    4 of a 384x512 image and a 540x960 crop resized to 384x512 against its
-    depth, remat on) over ``steps`` batches of SyntheticDataset in one
-    epoch, from the ``pretrained`` checkpoint; ``val``: one 2160x3840 m1
-    validation frame after the epoch."""
+def stage3_config(batch: int = 4, steps: int = 3, pretrained=None, val: bool = False,
+                  config: str = STAGE3_CONFIG):
+    """Stage 3 (``v2_eff_u4k``, or ``config``: BEiT-L + ZoeDepth trained end
+    to end, batch 4 of a 384x512 image and a 540x960 crop resized to
+    384x512 against its depth, remat on) over ``steps`` batches of
+    SyntheticDataset in one epoch, from the ``pretrained`` checkpoint;
+    ``val``: one 2160x3840 m1 validation frame after the epoch."""
     from patchrefinerv2_torch.config import Config
 
     here = os.path.dirname(os.path.abspath(__file__))
-    cfg = Config.fromfile(os.path.join(here, STAGE3_CONFIG))
+    cfg = Config.fromfile(os.path.join(here, config))
     cfg.merge_from_options({
         "train_dataloader.dataset": dict(type="SyntheticDataset", mode="train", length=batch * steps),
         "train_dataloader.batch_size": batch,
@@ -2470,30 +2639,32 @@ def profile_train_step(tr, batch, step_ms: float, label: str = "pretrain") -> No
 
 
 PRETRAINED = os.path.join(WORK_DIR, "pretrain", "checkpoint_01")  # the pretraining run's
+MOBILE_PRETRAIN_CONFIG = "configs/patchrefinerv2_zoedepth_ablation/pretrain_mobile_m0s1.py"
+MOBILE_PRETRAINED = os.path.join(WORK_DIR, "mobile_pretrain", "checkpoint_01")
 
 
-def pretrain_run(dev) -> dict:
-    """Phase B: the pretraining stage at full width through ``Trainer.run``
-    (3 steps of batch 4: 384x512 images, 2160x3840 depth, float32, TF32
-    off, remat on), the launch counters set to 0 just before each step and
-    read just after: K2, K5, K6 and K9 launch in every step, no other
-    kernel and no plain version runs; losses and gradients finite, the
-    parameters and the BatchNorm statistics move. Then, with one batch on
-    the card: ms a step over 5 steps, images/s, peak memory with remat on
+def pretrain_run(dev, config: str = PRETRAIN_CONFIG, label: str = "pretrain",
+                 checkpoint: str = PRETRAINED) -> dict:
+    """Phase B: the pretraining stage (``config``) at full width through
+    ``Trainer.run`` (3 steps of batch 4: 384x512 images, 2160x3840 depth,
+    float32, TF32 off, remat on), the launch counters set to 0 just before
+    each step and read just after: K2, K5, K6 and K9 launch in every step,
+    no other kernel and no plain version runs; losses and gradients finite,
+    the parameters and the BatchNorm statistics move. Then, with one batch
+    on the card: ms a step over 5 steps, images/s, peak memory with remat on
     and off (2 steps), and one profiled step. Returns the first step's
-    launch counts. Its checkpoint stays for stage 3 (``PRETRAINED``)."""
+    launch counts. Its checkpoint stays for stage 3 (``checkpoint``)."""
     import torch
 
-    work = os.path.dirname(PRETRAINED)
-    tr = make_trainer(dev, pretrain_config(), work)
-    log({"phase": "pretrain_build", "params": sum(p.numel() for p in tr.model.net.parameters()),
+    tr = make_trainer(dev, pretrain_config(config=config), os.path.dirname(checkpoint))
+    log({"phase": f"{label}_build", "params": sum(p.numel() for p in tr.model.net.parameters()),
          "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
          "tf32_cudnn": torch.backends.cudnn.allow_tf32, "remat": tr.model.net.remat})
-    steps = run_counted(tr, "pretrain", TRAIN_KERNELS)
+    steps = run_counted(tr, label, TRAIN_KERNELS)
     batch = tr.device_batch(next(iter(tr.train_loader)))
-    times = step_times(tr, batch, "pretrain")
+    times = step_times(tr, batch, label)
     tr.model.net.remat = True
-    profile_train_step(tr, batch, times[True][0]["ms_per_step"], "pretrain")
+    profile_train_step(tr, batch, times[True][0]["ms_per_step"], label)
     del tr, batch
     torch.cuda.empty_cache()
     return steps[0]
@@ -2580,30 +2751,32 @@ def step_times(tr, batch, label: str, batch_size: int = 4) -> dict:
     return times
 
 
-def stage3_run(dev) -> dict:
-    """Phase D: stage 3 (``v2_eff_u4k``) at full width through
-    ``Trainer.run``, from the pretraining run's checkpoint (``pretrained``;
-    the merged and kept tensor counts are printed): 3 steps of batch 4
-    (384x512 images and crops, 540x960 crop depths, float32, TF32 off,
-    remat on), the launch counters set to 0 before each step and read after
-    it: K1 7 and K8 4 + 1 times exactly, K2, K3, K5, K6 and K9 in every
-    step, no other kernel and no plain version; losses and gradients
-    finite, the coarse branch, the other parameters and the BatchNorm
-    statistics move; then the default m1 validation of one 2160x3840 frame
-    in float32 on the trained model (timed, its metrics finite). Then, with
-    one batch on the card: ms a step, images/s and peak memory with remat
-    on and off, and one profiled step. Returns the first step's counts."""
+def stage3_run(dev, config: str = STAGE3_CONFIG, label: str = "stage3",
+               pretrained: str = PRETRAINED, val: bool = True) -> dict:
+    """Phase D: stage 3 (``v2_eff_u4k``, or ``config``) at full width
+    through ``Trainer.run``, from the pretraining run's checkpoint
+    (``pretrained``; the merged and kept tensor counts are printed): 3
+    steps of batch 4 (384x512 images and crops, 540x960 crop depths,
+    float32, TF32 off, remat on), the launch counters set to 0 before each
+    step and read after it: K1 7 and K8 4 + 1 times exactly, K2, K3, K5, K6
+    and K9 in every step, no other kernel and no plain version; losses and
+    gradients finite, the coarse branch, the other parameters and the
+    BatchNorm statistics move; then (``val``) the default m1 validation of
+    one 2160x3840 frame in float32 on the trained model (timed, its metrics
+    finite). Then, with one batch on the card: ms a step, images/s and peak
+    memory with remat on and off, and one profiled step. Returns the first
+    step's counts."""
     import torch
 
-    tr = make_trainer(dev, stage3_config(pretrained=PRETRAINED, val=True),
-                          os.path.join(WORK_DIR, "stage3"))
-    log({"phase": "stage3_build", "params": sum(p.numel() for p in tr.model.net.parameters()),
+    tr = make_trainer(dev, stage3_config(pretrained=pretrained, val=val, config=config),
+                      os.path.join(WORK_DIR, label))
+    log({"phase": f"{label}_build", "params": sum(p.numel() for p in tr.model.net.parameters()),
          "pretrained": tr.pretrained_report, "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
          "tf32_cudnn": torch.backends.cudnn.allow_tf32, "remat": tr.model.net.remat,
          "e2e_training": tr.model.net.e2e_training})
     report = tr.pretrained_report.get("pretrained", {})
     if not report.get("taken") or not report.get("kept"):
-        raise AssertionError(f"stage 3 took no tensor of the pretraining checkpoint: {report}")
+        raise AssertionError(f"{label} took no tensor of the pretraining checkpoint: {report}")
     val_epoch, val = tr.val_epoch, {}
 
     def timed_val():
@@ -2615,16 +2788,17 @@ def stage3_run(dev) -> dict:
         return val
 
     tr.val_epoch = timed_val
-    steps = run_counted(tr, "stage3", STAGE3_KERNELS, STAGE3_EXACT,
+    steps = run_counted(tr, label, STAGE3_KERNELS, STAGE3_EXACT,
                         ("bn_buffers", "params", "coarse_params"))
     del tr.val_epoch
-    log({"phase": "stage3_val_m1_float32", **val})
-    if not val or not all(math.isfinite(v) for v in val.values()):
-        raise AssertionError(f"stage 3's m1 validation frame gave {val}")
+    if tr.val_loader is not None:
+        log({"phase": f"{label}_val_m1_float32", **val})
+        if not val or not all(math.isfinite(v) for v in val.values()):
+            raise AssertionError(f"{label}'s m1 validation frame gave {val}")
     batch = tr.device_batch(next(iter(tr.train_loader)))
-    times = step_times(tr, batch, "stage3")
+    times = step_times(tr, batch, label)
     tr.model.net.remat = True
-    profile_train_step(tr, batch, times[True][0]["ms_per_step"], "stage3")
+    profile_train_step(tr, batch, times[True][0]["ms_per_step"], label)
     del tr, batch
     torch.cuda.empty_cache()
     return steps[0]
@@ -2672,16 +2846,16 @@ def _step_result(m, loss_dict) -> tuple:
             {k: v.double().cpu() for k, v in m.net.state_dict().items() if "running_" in k})
 
 
-def tiny_train_gpu_vs_cpu(dev) -> None:
-    """Phase C: one pretraining step of 48x64 patches (batch 2) on the card
-    against the CPU from the same weights, batch and hacked features,
-    within ``compare_train_steps``' bars."""
+def tiny_train_gpu_vs_cpu(dev, config: str = PRETRAIN_CONFIG, label: str = "tiny_train") -> None:
+    """Phase C: one pretraining step (``config``) of 48x64 patches (batch 2)
+    on the card against the CPU from the same weights, batch and hacked
+    features, within ``compare_train_steps``' bars."""
     import numpy as np
     import torch
 
     from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
 
-    cfg = pretrain_config(batch=2, steps=1, patch=(48, 64)).model.config
+    cfg = pretrain_config(batch=2, steps=1, patch=(48, 64), config=config).model.config
     rng = np.random.RandomState(5)
     batch = dict(image_lr=rng.rand(2, 48, 64, 3).astype(np.float32),
                  depth_gt=(1.0 + 20.0 * rng.rand(2, 96, 128, 1)).astype(np.float32))
@@ -2694,7 +2868,7 @@ def tiny_train_gpu_vs_cpu(dev) -> None:
         cf = [torch.randn((2, f.shape[2], f.shape[3], c), generator=g).to(d).permute(0, 3, 1, 2)
               for f, c in zip(feats, m.net.hack_chl)]
         out.append(_step_result(m, m.loss(batch, update_stats=True, coarse_features=cf)[0]))
-    compare_train_steps("tiny_train_gpu_vs_cpu", *out)
+    compare_train_steps(f"{label}_gpu_vs_cpu", *out)
 
 
 def tiny_stage3_gpu_vs_cpu(dev) -> None:
@@ -2775,7 +2949,8 @@ def main() -> int:
     check_canny(chk, dev)
     check_edge_cases(dev)
     plans = record_resize_plans()
-    counts = {**flagship(dev), **depth_anything_v2(dev), **cityscapes_eval(dev)}
+    counts = {**flagship(dev), **depth_anything_v2(dev), **cityscapes_eval(dev), **mobile(dev),
+              **mobile_variants(dev)}
     log({"phase": "resize_plans_of_the_main_paths",
          "channels_itemsize_vec_vstore_launches": sorted([*k, n] for k, n in plans.items())})
     small_gpu_vs_cpu(dev)
@@ -2788,6 +2963,11 @@ def main() -> int:
         tiny_train_gpu_vs_cpu(dev)
         counts["train_e2e_f32"] = stage3_run(dev)
         tiny_stage3_gpu_vs_cpu(dev)
+        counts["mobile_train_f32"] = pretrain_run(dev, MOBILE_PRETRAIN_CONFIG, "mobile_pretrain",
+                                                  MOBILE_PRETRAINED)
+        counts["mobile_train_e2e_f32"] = stage3_run(dev, MOBILE_CONFIG, "mobile_stage3",
+                                                    MOBILE_PRETRAINED, val=False)
+        tiny_train_gpu_vs_cpu(dev, MOBILE_PRETRAIN_CONFIG, "tiny_mobile_train")
     finally:
         import shutil
 

@@ -1,7 +1,9 @@
 """BiDirectionalFusion, the port of
 ``patchrefinerv2_tpu/models/blocks/fusion.py`` (``UpSample`` :35,
-``BiDirectionalFusion`` :98) with the coarse-gated (or coarse-fusion) C2F
-module. The JAX default runs the full-resolution low-channel tail in
+``BiDirectionalFusion`` :98) with the coarse-gated, coarse-fusion or
+self-agg C2F module, or none (``coarse2fine=False``: the fusion layers read
+the refiner's own 6 levels and depth). The JAX default runs the
+full-resolution low-channel tail in
 space-to-depth form (``ops/s2d.py``), an exact re-layout; the port runs the
 same sites (the C2F head, ``fusion_layers_1/2[0]``, the last ``f2r_agg``
 stage's second conv and ``final_conv``) on K9 (``ops/tail_conv.py``) in the
@@ -19,7 +21,7 @@ import torch.nn as nn
 from patchrefinerv2_torch.models.blocks.convs import (
     DoubleConv, SingleConvCNNLN, interp, to_nchw, to_nhwc,
 )
-from patchrefinerv2_torch.models.blocks.dpt import C2FModule
+from patchrefinerv2_torch.models.blocks.dpt import C2FModule, GatedConvUnit, GatedFusionBlock
 from patchrefinerv2_torch.ops.tail_conv import tail_conv
 
 
@@ -39,21 +41,34 @@ class UpSample(nn.Module):
 
 class BiDirectionalFusion(nn.Module):
     """V2 fusion head. ``coarse_chl``: channels of the 6 coarse levels and
-    ``fine_chl``: channels of the 5 encoder levels, both highest resolution
-    first; ``head2_features`` is the config's ``coarse_chl[0]``."""
+    ``fine_chl``: channels of the refiner's 5 levels that C2F reads, both
+    highest resolution first; ``fine_top_chl``: the refiner's
+    full-resolution level (default ``fine_chl[0]``, the 2x copy of its /2
+    level), which only ``coarse2fine=False`` reads; ``head2_features`` is
+    the config's ``coarse_chl[0]``. The C2F forms (JAX fusion.py:170-200):
+    ``coarse-gated`` (gate and fusion), ``coarse-fusion`` (fusion) and
+    ``self-agg`` (neither: its GatedConvUnits have no fusion conv and
+    launch no K5)."""
 
     def __init__(self, coarse_chl, fine_chl, temp_chl=(32, 64, 64, 128, 256, 512),
                  dec_chl=(512, 256, 128, 64, 32), coarse2fine: bool = True,
                  coarse2fine_type: str = "coarse-gated", glb_att: bool = False,
-                 c2f_features: int = 256, head2_features: int = 32):
+                 c2f_features: int = 256, head2_features: int = 32, fine_top_chl: int | None = None):
         super().__init__()
-        if not coarse2fine or coarse2fine_type not in ("coarse-gated", "coarse-fusion") or glb_att:
+        if coarse2fine and coarse2fine_type not in ("coarse-gated", "coarse-fusion", "self-agg"):
             raise NotImplementedError(
-                "the port covers BiDirectionalFusion with a coarse-gated or coarse-fusion C2F "
-                "module and no global attention")
-        self.c2f = C2FModule(fine_chl, coarse_chl, c2f_features, head2_features,
-                             gate=coarse2fine_type == "coarse-gated", fusion=True)
-        f_after = [head2_features] + [c2f_features] * 5
+                f"the C2F form {coarse2fine_type!r} is not ported (coarse-gated, coarse-fusion, "
+                "self-agg are)")
+        if glb_att:
+            raise NotImplementedError("BiDirectionalFusion with global attention is not ported")
+        if coarse2fine:
+            self.c2f = C2FModule(fine_chl, coarse_chl, c2f_features, head2_features,
+                                 gate=coarse2fine_type == "coarse-gated",
+                                 fusion=coarse2fine_type != "self-agg")
+            f_after = [head2_features] + [c2f_features] * 5
+        else:
+            self.c2f = None
+            f_after = [fine_chl[0] if fine_top_chl is None else fine_top_chl] + list(fine_chl)
         n = len(temp_chl)
         # level 0 is the full-resolution one: its two fusion layers run on K9
         self.fusion_layers_1 = nn.ModuleList(
@@ -70,8 +85,9 @@ class BiDirectionalFusion(nn.Module):
 
     def forward(self, c_feat, f_feat, pred1, pred2, update_base=None):
         c_feat = [interp(c, f.shape[2:]) for c, f in zip(c_feat, f_feat)]
-        c2f_feats, pred2 = self.c2f(list(f_feat)[1:], c_feat)
-        f_feat = c2f_feats[::-1]
+        if self.c2f is not None:
+            c2f_feats, pred2 = self.c2f(list(f_feat)[1:], c_feat)
+            f_feat = c2f_feats[::-1]
         temp = []
         for idx, (c, f) in enumerate(zip(c_feat, f_feat)):
             h = self.fusion_layers_1[idx](c, f)
@@ -86,3 +102,18 @@ class BiDirectionalFusion(nn.Module):
         res = None if update_base is None else to_nhwc(update_base)
         return to_nchw(tail_conv([to_nhwc(cur)], self.final_conv.weight, residual=res,
                                  act="none" if res is None else "relu"))
+
+    def kernel_calls(self) -> dict:
+        """The K5 and K9 launches of one call, counted from the modules: K5
+        once at each GatedConvUnit with a fusion conv; K9 at each tail
+        site: a tail SingleConvCNNLN, DoubleConv or GatedFusionBlock
+        (its ``out_conv``) once, a tail GatedConvUnit once and once more
+        with a fusion conv, C2F's ``output_conv2`` and ``output_conv3``, and
+        ``final_conv``. In the int8 mode K10 takes the head sites it serves
+        from K9."""
+        units = [m for m in self.modules() if isinstance(m, GatedConvUnit)]
+        tails = [m for m in self.modules()
+                 if isinstance(m, (SingleConvCNNLN, DoubleConv, GatedFusionBlock)) and m.tail]
+        k9 = len(tails) + sum(1 + u.fusion for u in units if u.tail) + 1
+        return {"gate_tail": sum(u.fusion for u in units),
+                "tail_conv": k9 + (2 if self.c2f is not None else 0)}

@@ -7,7 +7,7 @@ Depth-Anything-V2 (DINOv2) coarse branch.
 
 Per frame: the coarse branch once at the coarse resolution, then for every
 chunk of patches: crop + resize (K2), roi_align of the six coarse levels and
-the coarse depth (K1), the EfficientNet-B5 refiner and BiDirectionalFusion
+the coarse depth (K1), the refiner (EfficientNet-B5 or MobileNetV4) and BiDirectionalFusion
 (cuDNN convolutions, K2 upsamples, K6 LayerNorms, K5 gate tails), and
 blending into the canvases (K7); rN then moves the canvases to the raw
 resolution (K2, K7 finalize) and blends random chunks there, each
@@ -132,7 +132,8 @@ class PRPlusNet(nn.Module):
         self.refiner_fine_branch = LightWeightRefiner(
             encoder_name=fine.get("encoder_name", "tf_efficientnet_b5_ap"),
             coarse_condition=fine.get("coarse_condition", True),
-            with_decoder=fine.get("with_decoder", False))
+            with_decoder=fine.get("with_decoder", False),
+            encoder_spec=fine.get("encoder_spec"))
         fus = dict(cfg.refiner.fusion_model)
         if fus.pop("type") != "BiDirectionalFusion":
             raise NotImplementedError("the port's fusion model is BiDirectionalFusion")
@@ -141,6 +142,7 @@ class PRPlusNet(nn.Module):
         self.refiner_fusion_model = BiDirectionalFusion(
             coarse_chl=coarse_chl,
             fine_chl=self.refiner_fine_branch.channels,
+            fine_top_chl=self.refiner_fine_branch.top_channels,
             temp_chl=tuple(fus.get("temp_chl", (32, 64, 64, 128, 256, 512))),
             dec_chl=tuple(fus.get("dec_chl", (512, 256, 128, 64, 32))),
             coarse2fine=fus.get("coarse2fine", True),

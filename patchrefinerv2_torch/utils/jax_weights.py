@@ -212,11 +212,49 @@ def _mbconv(sd: _SD, b: str, node, st) -> None:
     sd.conv(b + "se.conv_expand", node["se"]["expand"])
 
 
+def _mnv4(sd: _SD, p: str, P, S) -> None:
+    """MobileNetV4Features: the JAX rows ``b{stage}_{block}`` are the port's
+    ``blocks.{stage}.{block}``, its ``conv_head`` the last stage's block."""
+    _conv_bn(sd, p + "conv_stem", p + "bn1", P["conv_stem"], S["conv_stem"])
+    rows = [(name, re.fullmatch(r"b(\d+)_(\d+)", name)) for name in P]
+    rows = [(name, int(m.group(1)), int(m.group(2))) for name, m in rows if m]
+    for name, si, bi in rows:
+        _mnv4_block(sd, f"{p}blocks.{si}.{bi}.", P[name], S[name])
+    stages = 1 + max(si for _, si, _ in rows)
+    _mnv4_block(sd, f"{p}blocks.{stages}.0.", P["conv_head"], S["conv_head"])
+
+
+def _conv_bn(sd: _SD, conv: str, bn: str, node, st) -> None:
+    """A JAX ``ConvBN`` (``conv``, ``bn``) as the port's ``conv`` and ``bn``
+    keys (the stem's ``conv_stem``/``bn1``, a ConvBnAct's ``conv``/``bn1``)."""
+    sd.conv(conv, node["conv"])
+    sd.bn(bn, node["bn"], st["bn"])
+
+
+def _mnv4_block(sd: _SD, b: str, node, st) -> None:
+    """A MobileNetV4 block: a UIB (``pw_exp``), an EdgeResidual
+    (``conv_exp``) or a ConvBnAct."""
+    if "pw_exp" in node:
+        for child, bn in (("dw_start", "bn_s"), ("pw_exp", "bn_e"), ("dw_mid", "bn_m"),
+                          ("pw_proj", "bn_p")):
+            if child in node:
+                sd.conv(f"{b}{child}.conv", node[child])
+                sd.bn(f"{b}{child}.bn", node[bn], st[bn])
+    elif "conv_exp" in node:
+        for conv, bn in (("conv_exp", "bn1"), ("conv_pwl", "bn2")):
+            sd.conv(b + conv, node[conv])
+            sd.bn(b + bn, node[bn], st[bn])
+    else:
+        _conv_bn(sd, b + "conv", b + "bn1", node, st)
+
+
 def _gated_unit(sd: _SD, p: str, node) -> None:
+    """A GatedConvUnit; without fusion (the ``self-agg`` C2F) only its conv."""
     sd.conv(p + "conv", node["Conv_0"])
-    sd.conv(p + "fusion_conv.0", node["Conv_1"])
-    sd.norm(p + "fusion_conv.1", node["LayerNorm_0"])
-    sd.conv(p + "fusion_conv.3", node["Conv_2"])
+    if "Conv_1" in node:
+        sd.conv(p + "fusion_conv.0", node["Conv_1"])
+        sd.norm(p + "fusion_conv.1", node["LayerNorm_0"])
+        sd.conv(p + "fusion_conv.3", node["Conv_2"])
 
 
 def _gated_block(sd: _SD, p: str, node) -> None:
@@ -250,7 +288,9 @@ def _fusion_c2f(sd: _SD, p: str, c2f) -> None:
 
 
 def _fusion(sd: _SD, p: str, P) -> None:
-    _fusion_c2f(sd, p + "c2f.", P["c2f"])
+    """BiDirectionalFusion; with ``coarse2fine=False`` it has no ``c2f``."""
+    if "c2f" in P:
+        _fusion_c2f(sd, p + "c2f.", P["c2f"])
     i = 0
     while f"fusion1_{i}" in P:
         for j in (1, 2):
@@ -276,7 +316,11 @@ def _prplusnet(sd: _SD, P, S) -> None:
 
 
 def _refiner(sd: _SD, p: str, P, S) -> None:
-    _effnet(sd, p + "refiner_encoder.", P["refiner_encoder"], S["refiner_encoder"])
+    """LightWeightRefiner: its encoder told by key presence, a ``pw_exp``
+    meaning MobileNetV4 (as ``convert_patchrefinerplus`` tells them)."""
+    enc = P["refiner_encoder"]
+    mnv4 = any(isinstance(v, Mapping) and "pw_exp" in v for v in enc.values())
+    (_mnv4 if mnv4 else _effnet)(sd, p + "refiner_encoder.", enc, S["refiner_encoder"])
     if "decoder" in P:
         _refiner_decoder(sd, p + "decoder.scratch.", P["decoder"])
 
@@ -291,6 +335,10 @@ PARTS = {
     "DepthAnythingV2": lambda sd, P, S: _da2(sd, "", P),
     "EfficientNetB5Features": lambda sd, P, S: _effnet(sd, "", P, S),
     "MBConv": lambda sd, P, S: _mbconv(sd, "", P, S),
+    "MobileNetV4Features": lambda sd, P, S: _mnv4(sd, "", P, S),
+    "UIB": lambda sd, P, S: _mnv4_block(sd, "", P, S),
+    "EdgeResidual": lambda sd, P, S: _mnv4_block(sd, "", P, S),
+    "ConvBN": lambda sd, P, S: _conv_bn(sd, "conv", "bn1", P, S),
     "LightWeightRefiner": lambda sd, P, S: _refiner(sd, "", P, S),
     "SimpleDPTHead": lambda sd, P, S: _refiner_decoder(sd, "scratch.", P),
     "BiDirectionalFusion": lambda sd, P, S: _fusion(sd, "", P),

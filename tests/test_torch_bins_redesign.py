@@ -37,6 +37,7 @@ from patchrefinerv2_torch.models.backbones.zoedepth import ConditionalLogBinomia
 from patchrefinerv2_torch.models.blocks.convs import to_nchw
 from patchrefinerv2_torch.ops.bins import attractor_update, launch_plan, log_binomial_plan
 from patchrefinerv2_torch.ops.resize import axis_taps, resize_plain
+from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 # (h, w) of the previous centres -> (H, W) of the layer
 SIZE_PAIRS = [((12, 16), (24, 32)), ((7, 9), (13, 17)), ((6, 8), (6, 8))]

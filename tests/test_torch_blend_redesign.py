@@ -26,6 +26,7 @@ from patchrefinerv2_torch.models.tiling import (
 )
 from patchrefinerv2_torch.ops import blend
 from patchrefinerv2_torch.ops.blend import BlendState, add_pass_plain
+from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 SRC = (Path(blend.__file__).resolve().parent.parent / "csrc" / "blend.cu").read_text()
 

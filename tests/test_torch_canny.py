@@ -28,6 +28,7 @@ from patchrefinerv2_tpu.ops.canny import canny_nms as j_canny_nms
 
 from patchrefinerv2_torch.evaluation import metrics
 from patchrefinerv2_torch.ops.canny import canny_nms, canny_nms_plain
+from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 
 def gradients(kind: str, seed: int, shape=(64, 96)):

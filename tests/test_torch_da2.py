@@ -28,6 +28,7 @@ from patchrefinerv2_torch.models.backbones.dpt import DepthAnythingV2
 from patchrefinerv2_torch.models.backbones.vit import DinoViT
 from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
 from patchrefinerv2_torch.utils.jax_weights import load_jax_params
+from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 from tests.test_torch_modules import ATOL, RTOL, assert_close_nhwc, assert_same_tree, init_random, nchw
 from tests.test_torch_slice import assert_rel
 

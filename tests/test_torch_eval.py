@@ -33,6 +33,7 @@ from patchrefinerv2_torch.evaluation.tester import Tester as TorchTester
 from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
 from patchrefinerv2_torch.models.tiling import TileCfg, random_pass_boxes, random_pass_starts
 from patchrefinerv2_torch.utils.jax_weights import load_jax_params
+from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 from tests.test_torch_modules import randomize
 from tests.test_torch_slice import assert_rel, slice_config
 

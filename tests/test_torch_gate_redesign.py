@@ -30,6 +30,7 @@ import torch
 
 from patchrefinerv2_torch.ops import gated
 from patchrefinerv2_torch.ops.gated import gate_tail_plain, launch_plan
+from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 SRC = (Path(gated.__file__).resolve().parent.parent / "csrc" / "gated_conv.cu").read_text()
 

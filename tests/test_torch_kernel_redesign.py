@@ -36,6 +36,7 @@ from patchrefinerv2_tpu.ops.attention import mha
 from patchrefinerv2_tpu.ops.resize import resize as j_resize
 
 from patchrefinerv2_torch.ops.resize import axis_taps, crop_resize, resize
+from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 R = importlib.import_module("patchrefinerv2_torch.ops.resize")  # the module: ops.resize is the function
 T = torch.from_numpy

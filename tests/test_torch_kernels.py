@@ -32,6 +32,7 @@ from patchrefinerv2_torch.models.backbones.zoedepth import AttractorLayer, Condi
 from patchrefinerv2_torch.ops.attention import attention, relative_position_bias
 from patchrefinerv2_torch.ops.bins import attractor_update
 from patchrefinerv2_torch.ops.gated import gate_tail
+from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 from tests.test_torch_modules import assert_close_nhwc, init_random, nchw
 
 T = torch.from_numpy

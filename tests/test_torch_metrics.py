@@ -28,6 +28,7 @@ from patchrefinerv2_tpu.evaluation import metrics as jm
 
 from patchrefinerv2_torch.datasets.cityscapes import CityScapesDataset
 from patchrefinerv2_torch.evaluation import metrics as pm
+from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 from tests.test_torch_canny import depth_map
 
 T = torch.from_numpy

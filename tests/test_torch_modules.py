@@ -36,6 +36,7 @@ from patchrefinerv2_torch.models.blocks.dpt import C2FModule, GatedConvUnit
 from patchrefinerv2_torch.models.blocks.fusion import BiDirectionalFusion
 from patchrefinerv2_torch.models.blocks.refiner import LightWeightRefiner
 from patchrefinerv2_torch.utils.jax_weights import load_jax_params
+from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 ATOL, RTOL = 2e-4, 1e-4
 

@@ -28,6 +28,7 @@ from patchrefinerv2_torch.ops.layer_norm import layer_norm
 from patchrefinerv2_torch.ops.masks import generate_blend_mask
 from patchrefinerv2_torch.ops.resize import axis_taps, crop_resize, resize
 from patchrefinerv2_torch.ops.roi_align import roi_align
+from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 T = torch.from_numpy
 

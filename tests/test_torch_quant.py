@@ -44,6 +44,7 @@ from patchrefinerv2_torch.models.patchrefinerplus import PRPlusNet
 from patchrefinerv2_torch.ops import _cuda
 from patchrefinerv2_torch.ops import quant as pq
 from patchrefinerv2_torch.utils.jax_weights import load_jax_int8, load_jax_params
+from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 from tests.test_torch_modules import _COARSE, _FINE, init_random, nchw
 
 T = torch.from_numpy
@@ -480,7 +481,8 @@ SITES_15 = {**SITES_12, **HEAD_SITES}
 
 
 @pytest.mark.parametrize("config", ["configs/patchrefinerv2_zoedepth/v2_eff_u4k.py",
-                                    "configs/patchrefinerv2_dav2/plus_eff_u4k.py"])
+                                    "configs/patchrefinerv2_dav2/plus_eff_u4k.py",
+                                    "configs/patchrefinerv2_zoedepth/v2_mobile_u4k.py"])
 def test_full_shape_sites(monkeypatch, config):
     """The sites the default gates select at the full patch shape, found by
     a shape-only walk: the refiner and fusion head built on the ``meta``
@@ -489,7 +491,8 @@ def test_full_shape_sites(monkeypatch, config):
     counting each site's shapes in the layout the reference runs it in.
     Exactly the 15 sites of the reference's default int8 mode: the 12
     plain-layout ones and the 3 space-to-depth head sites (DA2's head runs
-    at 128 channels, ``coarse_chl[0]``); no encoder or SingleConvCNNLN
+    at 128 channels, ``coarse_chl[0]``; the MobileNetV4 refiner's convolutions
+    are no sites, and B5's are below the gates); no encoder or SingleConvCNNLN
     site, no ``tailfuse`` or ``taildc`` site, and the head unit's 1x1
     (``qamax_2``, 4 * C below ``min_kc``) not selected."""
     monkeypatch.setattr(_cuda, "on_cpu", lambda t: t.device.type in ("cpu", "meta"))

@@ -40,6 +40,7 @@ from patchrefinerv2_torch.ops import quant as pq
 from patchrefinerv2_torch.utils.jax_weights import (
     _phased_kernel, _s2d_channels, load_jax_int8, load_jax_params,
 )
+from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 from tests.test_torch_modules import init_random, nchw
 from tests.test_torch_quant import _jax_dynamic, _jax_int8
 

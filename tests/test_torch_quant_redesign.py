@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from patchrefinerv2_torch.ops import quant as pq
+from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 # the 15 int8 sites of a chunk (chip_smoke.quant_sites): (input widths,
 # Cout, divisor of the process shape, phased, how many of the chunk)

@@ -28,6 +28,7 @@ from patchrefinerv2_tpu.registry import MODELS
 
 from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
 from patchrefinerv2_torch.utils.jax_weights import load_jax_int8, load_jax_params
+from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 from tests.test_torch_modules import randomize
 from tests.test_torch_quant import SITES_15
 from tests.test_torch_slice import slice_config

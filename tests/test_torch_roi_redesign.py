@@ -29,6 +29,7 @@ from patchrefinerv2_tpu.ops.roi_align import roi_align as j_roi_align
 
 from patchrefinerv2_torch.models.tiling import TileCfg, regular_pass
 from patchrefinerv2_torch.ops.roi_align import _axis_taps, launch_plan, roi_align
+from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 FLAGSHIP = [(12, 16, 256), (24, 32, 256), (48, 64, 256), (96, 128, 256), (192, 256, 256),
             (384, 512, 32), (384, 512, 1)]

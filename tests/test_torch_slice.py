@@ -26,6 +26,7 @@ from patchrefinerv2_tpu.utils.torch_convert import convert_patchrefinerplus
 
 from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
 from patchrefinerv2_torch.utils.jax_weights import load_jax_params
+from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 from tests.test_torch_modules import assert_same_tree, randomize
 
 

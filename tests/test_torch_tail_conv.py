@@ -39,6 +39,7 @@ from patchrefinerv2_torch.ops.tail_conv import (
     CHUNK, cout_pad, format_weight, launch_plan, tail_conv, tail_conv_plain,
 )
 from patchrefinerv2_torch.utils.jax_weights import load_jax_params
+from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 from tests.test_torch_modules import _COARSE, _FINE, assert_close_nhwc, init_random, nchw
 
 T = torch.from_numpy

@@ -35,6 +35,7 @@ from patchrefinerv2_tpu.ops import s2d
 
 from patchrefinerv2_torch.models.blocks.convs import SingleConvCNNLN
 from patchrefinerv2_torch.utils.jax_weights import load_jax_params
+from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 from tests.test_torch_modules import init_random
 
 # the module (``patchrefinerv2_torch.ops`` exports its wrapper under the same name)

@@ -52,6 +52,7 @@ from patchrefinerv2_torch.ops.tail_conv import tail_conv, tail_conv_plain
 from patchrefinerv2_torch.training.optim import (
     build_optimizer, momentum_schedule, onecycle_lr_schedule,
 )
+from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 TOL = 1e-5
 

@@ -65,6 +65,7 @@ from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
 from patchrefinerv2_torch.train import main as train_main
 from patchrefinerv2_torch.training.trainer import Trainer
 from patchrefinerv2_torch.utils.jax_weights import jax_to_state_dict, load_jax_params
+from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 from tests.test_torch_modules import assert_same_tree, randomize
 from tests.test_torch_slice import slice_config
 
