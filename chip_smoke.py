@@ -46,7 +46,10 @@ Phases (each prints one or more lines; any failure exits non-zero):
    float32 and bfloat16 and each shape of the bfloat16 kernel's blocks; the
    gate off, other row counts (one tile of the bfloat16 kernel and one row
    either side) in float32 and bfloat16, normed / exp / sum attractors, canny
-   ties, zero gradients and maps one pixel wide or high);
+   ties, zero gradients and maps one pixel wide or high); and the shapes
+   PatchRefiner V1 gives the kernels (``check_v1_shapes``: its fine depth
+   network runs on every 16-patch chunk, so K3 or K4, K6, K8 and the DPT
+   neck's K2 meet batch 16, and FusionUnet's K2, K6 and K9 sites);
 4. build the flagship (``configs/patchrefinerv2_zoedepth/v2_eff_u4k.py``,
    BEiT-L/16 24 blocks + EfficientNet-B5 + BiDirectionalFusion, random
    weights from seed 0) and run a 2160x3840 frame split 4x4 with
@@ -114,7 +117,20 @@ Phases (each prints one or more lines; any failure exits non-zero):
    exactly, K3 in every step and the coarse branch moved, then the m1
    validation of one 2160x3840 frame in float32, the step times, peak
    memory and a profiled step as in (B); (E) a tiny stage-3 step on the
-   card against the CPU within the same bars.
+   card against the CPU within the same bars;
+9. PatchRefiner V1 (``configs/patchrefiner_zoedepth/pr_u4k.py``: two BEiT-L
+   ZoeDepth networks, the fine one on every chunk, and FusionUnet), after
+   the mobile frames: m1 in float32, m1 and r32 in bfloat16 on the
+   2160x3840 frame with process_num 16, each first frame's launches held
+   to the modules' ``kernel_calls`` chunk by chunk (``check_v1_launches``),
+   timed frames with peak memory, each bfloat16 frame profiled with the fine
+   network's and FusionUnet's device time apart; the DA2 V1
+   (``configs/patchrefiner_dav2/pr_u4k.py``) m1 in bfloat16 alike; the V1
+   Cityscapes evaluation (``pr_cs.py``, ``Tester.run`` m1 over two frames);
+   a tiny V1 m1 in the small GPU-vs-CPU check; V1's training sites in (A);
+   after (E) three V1 training steps of batch 4 in float32 through
+   ``Trainer.run`` (the coarse branch frozen: it must not move), timed and
+   profiled as in (B), and a tiny V1 step on the card against the CPU.
 
 The line before the last is one JSON object with a record per kernel: its
 launches in each main-path run and their sum, and its times, bound and
@@ -122,12 +138,13 @@ largest error summed over the shapes of every path in the dtypes the path
 runs (``PATH_DTYPES``), with each path's own under ``<path>_<dtype>``
 (``flagship_bf16``, ``da2_bf16``, ``r32_bf16``, ``r32_f32``,
 ``cityscapes_eval_bf16``, ``_f32``, ``_f64``; the training Functions also
-``train_backward_f32`` (the pretraining step's sites: K2, K5, K6, K9) and
-``train_e2e_backward_f32`` (stage 3's: those four and K1, K3, K8): their
+``train_backward_f32`` (the pretraining step's sites: K2, K5, K6, K9),
+``train_e2e_backward_f32`` (stage 3's: those four and K1, K3, K8) and
+``train_v1_backward_f32`` (V1's: K2, K3, K6, K8, K9): their
 backwards over a step's sites, kept out of the sums, the error there
 relative to each gradient's magnitude); ``launches_by_run`` has
-``train_f32`` and ``train_e2e_f32``, the launches of one step of each
-stage. The last line is ``{"ok": true, "device": {...}}``.
+``train_f32``, ``train_e2e_f32`` and ``v1_train_f32``, the launches of one
+step of each stage. The last line is ``{"ok": true, "device": {...}}``.
 The script imports nothing of JAX. It exits non-zero and prints no result
 without a CUDA device or without the package beside it.
 """
@@ -212,7 +229,9 @@ PATHS = {
 # r32 frame's raw-canvas work.
 PATH_DTYPES = {"flagship": ("bfloat16",), "da2": ("bfloat16",), "r32": ("bfloat16", "float32"),
                "cityscapes_eval": ("bfloat16", "float32", "float64"),
-               "train_backward": ("float32",), "train_e2e_backward": ("float32",)}
+               "v1": ("bfloat16",), "v1_da2": ("bfloat16",),
+               "train_backward": ("float32",), "train_e2e_backward": ("float32",),
+               "train_v1_backward": ("float32",)}
 SHORT = {"bfloat16": "bf16", "float32": "f32", "float64": "f64"}
 
 
@@ -316,8 +335,7 @@ def check_kernels(chk: Checks, dev) -> None:
     import torch.nn.functional as F
 
     from patchrefinerv2_torch.models.tiling import TileCfg, regular_pass
-    from patchrefinerv2_torch.ops.layer_norm import layer_norm, layer_norm_plain
-    from patchrefinerv2_torch.ops.resize import crop_resize, crop_resize_plain, resize, resize_plain
+    from patchrefinerv2_torch.ops.resize import crop_resize, crop_resize_plain
     from patchrefinerv2_torch.ops.roi_align import launch_plan as roi_plan
     from patchrefinerv2_torch.ops.roi_align import roi_align, roi_align_plain
 
@@ -374,37 +392,55 @@ def check_kernels(chk: Checks, dev) -> None:
             # channels; DA2 also the DPT head's 256x256 -> 448x448 at 128
             ups = [(16, pph // 2, ppw // 2, 256)] + ([(1, 256, 256, 128)] if path == "da2" else [])
             for shape in ups:
-                x = torch.randn(shape, generator=g, device=dev).to(dt)
-                ref = resize_plain(x, (pph, ppw), "bilinear", True)
-                err = err_of(resize(x, (pph, ppw), "bilinear", True), ref)
-                lib = time_ms(lambda: F.interpolate(x.permute(0, 3, 1, 2), (pph, ppw), mode="bilinear",
-                                                    align_corners=True))
-                chk.add("resize", path, dt, err, tol_of(ref, dt),
-                        time_ms(lambda: resize(x, (pph, ppw), "bilinear", True)),
-                        time_ms(lambda: resize_plain(x, (pph, ppw), "bilinear", True)), lib,
-                        x.numel() * es + ref.numel() * es, 6 * ref.numel())
-                del x, ref
+                check_bilinear(chk, path, dt, g, dev, shape, (pph, ppw))
             # K6: a trunk LayerNorm (769 BEiT or 1025 DINOv2 tokens) and the
             # fusion head's full-resolution 32-channel LN
             tokens = 769 if path == "flagship" else 1025
             for m, c in ((tokens, 1024), (16 * pph * ppw, 32)):
-                x = (torch.randn((m, c), generator=g, device=dev) * 2 + 0.5).to(dt)
-                wt = (torch.rand((c,), generator=g, device=dev) + 0.5).to(dt)
-                b = torch.randn((c,), generator=g, device=dev).to(dt)
-                ref = layer_norm_plain(x, wt, b, 1e-6)
-                err = err_of(layer_norm(x, wt, b, 1e-6), ref)
-                lib = time_ms(lambda: F.layer_norm(x, (c,), wt, b, 1e-6))
-                chk.add("layer_norm", path, dt, err, tol_of(ref, dt),
-                        time_ms(lambda: layer_norm(x, wt, b)),
-                        time_ms(lambda: layer_norm_plain(x, wt, b)), lib,
-                        2 * x.numel() * es + 2 * c * es, 8 * x.numel())
-                del x, ref
+                check_layer_norm(chk, path, dt, g, dev, m, c)
         check_blend(chk, dev, g, path, tc, geo["dtypes"])
     flagship_tc = TileCfg(PATHS["flagship"]["frame"], (4, 4), PATHS["flagship"]["process"])
     cs_tc = TileCfg(PATHS["cityscapes_eval"]["frame"], (4, 4), PATHS["cityscapes_eval"]["process"])
     check_rn(chk, dev, g, "r32", flagship_tc)
     check_rn(chk, dev, g, "cityscapes_eval", cs_tc)
     check_metric_resizes(chk, dev, g, cs_tc)
+
+
+def check_bilinear(chk: Checks, path, dt, g, dev, shape, size) -> None:
+    """K2's bilinear align-corners resize of an NHWC ``shape`` to ``size``;
+    the library call is ``F.interpolate``."""
+    import torch
+    import torch.nn.functional as F
+
+    from patchrefinerv2_torch.ops.resize import resize, resize_plain
+
+    es = torch.finfo(dt).bits // 8
+    x = torch.randn(shape, generator=g, device=dev).to(dt)
+    ref = resize_plain(x, size, "bilinear", True)
+    err = err_of(resize(x, size, "bilinear", True), ref)
+    lib = time_ms(lambda: F.interpolate(x.permute(0, 3, 1, 2), size, mode="bilinear", align_corners=True))
+    chk.add("resize", path, dt, err, tol_of(ref, dt), time_ms(lambda: resize(x, size, "bilinear", True)),
+            time_ms(lambda: resize_plain(x, size, "bilinear", True)), lib,
+            x.numel() * es + ref.numel() * es, 6 * ref.numel())
+
+
+def check_layer_norm(chk: Checks, path, dt, g, dev, m: int, c: int) -> None:
+    """K6 over ``m`` rows of ``c``; the library call is ``F.layer_norm``."""
+    import torch
+    import torch.nn.functional as F
+
+    from patchrefinerv2_torch.ops.layer_norm import layer_norm, layer_norm_plain
+
+    es = torch.finfo(dt).bits // 8
+    x = (torch.randn((m, c), generator=g, device=dev) * 2 + 0.5).to(dt)
+    wt = (torch.rand((c,), generator=g, device=dev) + 0.5).to(dt)
+    b = torch.randn((c,), generator=g, device=dev).to(dt)
+    ref = layer_norm_plain(x, wt, b, 1e-6)
+    err = err_of(layer_norm(x, wt, b, 1e-6), ref)
+    lib = time_ms(lambda: F.layer_norm(x, (c,), wt, b, 1e-6))
+    chk.add("layer_norm", path, dt, err, tol_of(ref, dt), time_ms(lambda: layer_norm(x, wt, b)),
+            time_ms(lambda: layer_norm_plain(x, wt, b)), lib, 2 * x.numel() * es + 2 * c * es,
+            8 * x.numel())
 
 
 def check_blend(chk: Checks, dev, g, path, tc, dtypes) -> None:
@@ -598,77 +634,100 @@ def bins_operations(pixels: int, bins: int, attractors: int, resized: bool) -> i
     return resize + pixels * (11 * bins + 18)
 
 
+def check_attention(chk: Checks, path, dt, g, dev, batch: int, s: int, grid) -> None:
+    """K3 (with the BEiT relative-position bias of ``grid``) or K4 (``grid``
+    None) over ``batch`` images of S tokens, 16 heads of 64: q, k, v are the
+    heads of one packed qkv projection, as in the blocks. Tolerance: max
+    error / max |o| < 1e-5 in float32, 1e-2 in bfloat16. The library call is
+    ``scaled_dot_product_attention`` with the bias as a float mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from patchrefinerv2_torch.ops.attention import attention, attention_plain, relative_position_bias
+
+    es = torch.finfo(dt).bits // 8
+    peak = BF16_TENSOR_FLOPS if dt == torch.bfloat16 else F32_FLOPS
+    qkv = torch.randn((batch, s, 3, 16, 64), generator=g, device=dev).to(dt)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    table = None
+    if grid is not None:
+        table = torch.randn(((2 * grid[0] - 1) * (2 * grid[1] - 1) + 3, 16), generator=g,
+                            device=dev).to(dt)
+    args = (q, k, v, 0.125, table, grid)
+    ref = attention_plain(*args)
+    err = err_of(attention(*args), ref)
+    tol = (1e-2 if dt == torch.bfloat16 else 1e-5) * float(ref.float().abs().max())
+    mask = None if grid is None else relative_position_bias(table, grid)[None].to(dt)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=0.125))
+    chk.add("attention", path, dt, err, tol, time_ms(lambda: attention(*args)),
+            time_ms(lambda: attention_plain(*args)), lib,
+            4 * batch * 16 * s * 64 * es + (0 if table is None else table.numel() * es),
+            4 * batch * 16 * s * s * 64, peak)
+
+
+def check_bins(chk: Checks, path, dt, g, dev, batch: int) -> None:
+    """K8 at ``BINS_CALLS`` over ``batch`` images, each call with the resize
+    of the centres it takes in. Tolerance in float32: 1e-5 of the magnitude
+    for the attractors, 1e-4 for the log-binomial depth (its softmax divides
+    logits up to ~600 by temperatures down to 0.0212, so a 1-ulp difference
+    in a logarithm moves the depth by ~1e-5 of its range). Beside each: the
+    time of the K2 resize that the call took in before
+    (``absorbed_resize_ms``, the same shapes); the bound is the larger of
+    the bytes (the coarse centres, not the upsampled ones) and the
+    function's operations (``bins_operations``) at the float32 rate outside
+    the tensor cores, in bfloat16 too (the data sheet gives no bfloat16 rate
+    outside them)."""
+    import torch
+
+    from patchrefinerv2_torch.ops.bins import (
+        attractor_update, attractor_update_plain, log_binomial_depth, log_binomial_depth_plain,
+    )
+    from patchrefinerv2_torch.ops.resize import resize
+
+    es = torch.finfo(dt).bits // 8
+    for (h, w), (oh, ow), na in BINS_CALLS:
+        b = (torch.rand((batch, h, w, 64), generator=g, device=dev) * (80 if na == 0 else 2)).to(dt)
+        before = time_ms(lambda: resize(b, (oh, ow), "bilinear", True))
+        if na:
+            a = (torch.rand((batch, oh, ow, na), generator=g, device=dev) * 2).to(dt)
+            args, name = (a, b, "mean", "inv"), "attractor_update"
+            fn, plain = attractor_update, attractor_update_plain
+            nbytes = (a.numel() + b.numel() + batch * oh * ow * 64) * es
+        else:
+            a = (torch.rand((batch, oh, ow, 4), generator=g, device=dev) * 3).to(dt)
+            args, name = (a, b, 64, 0.0212, 50.0), "log_binomial_depth"
+            fn, plain = log_binomial_depth, log_binomial_depth_plain
+            nbytes = (a.numel() + b.numel() + batch * oh * ow) * es
+        ref, got = plain(*args), fn(*args)
+        if na:
+            ref, got = ref[0], got[0]
+            tol = tol_of(ref, dt)
+        else:
+            tol = (1e-2 if dt == torch.bfloat16 else 1e-4) * max(float(ref.float().abs().max()), 1.0)
+        chk.add(name, path, dt, err_of(got, ref), tol, time_ms(lambda: fn(*args)),
+                time_ms(lambda: plain(*args)), None, nbytes,
+                bins_operations(batch * oh * ow, 64, na, (h, w) != (oh, ow)),
+                extra=dict(absorbed_resize_ms=before))
+        del a, b, ref, got, args
+
+
 def check_new_kernels(chk: Checks, dev) -> None:
     """K3/K4 attention, K8 bins head (``BINS_CALLS``) and bicubic K2 at the
     shapes of the flagship and DA2 frames."""
     import torch
     import torch.nn.functional as F
 
-    from patchrefinerv2_torch.ops.attention import attention, attention_plain, relative_position_bias
-    from patchrefinerv2_torch.ops.bins import (
-        attractor_update, attractor_update_plain, log_binomial_depth, log_binomial_depth_plain,
-    )
     from patchrefinerv2_torch.ops.resize import resize, resize_plain
 
     g = torch.Generator(device=dev).manual_seed(3)
     # K3: one BEiT-L block at 384x512 (S = 769, grid 24x32, bias from the
-    # table); K4: one DINOv2-L block at 448x448 (S = 1025, no bias). q, k, v
-    # are the heads of one packed qkv projection, as in the blocks.
-    # Tolerance: max error / max |o| < 1e-5 in float32, 1e-2 in bfloat16.
+    # table); K4: one DINOv2-L block at 448x448 (S = 1025, no bias)
     for dt in (getattr(torch, d) for d in DTYPES):
-        es = torch.finfo(dt).bits // 8
-        peak = BF16_TENSOR_FLOPS if dt == torch.bfloat16 else F32_FLOPS
         for path, s, grid in (("flagship", 769, (24, 32)), ("da2", 1025, None)):
-            qkv = torch.randn((1, s, 3, 16, 64), generator=g, device=dev).to(dt)
-            q, k, v = qkv.permute(2, 0, 3, 1, 4)
-            table = None
-            if grid is not None:
-                table = torch.randn((47 * 63 + 3, 16), generator=g, device=dev).to(dt)
-            args = (q, k, v, 0.125, table, grid)
-            ref = attention_plain(*args)
-            err = err_of(attention(*args), ref)
-            tol = (1e-2 if dt == torch.bfloat16 else 1e-5) * float(ref.float().abs().max())
-            mask = None if grid is None else relative_position_bias(table, grid)[None].to(dt)
-            lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=0.125))
-            chk.add("attention", path, dt, err, tol, time_ms(lambda: attention(*args)),
-                    time_ms(lambda: attention_plain(*args)), lib,
-                    4 * 16 * s * 64 * es + (0 if table is None else table.numel() * es),
-                    4 * 16 * s * s * 64, peak)
-    # K8 (flagship only): BINS_CALLS, each with the resize of the centres it
-    # takes in. Tolerance in float32: 1e-5 of the magnitude for the
-    # attractors, 1e-4 for the log-binomial depth (its softmax divides
-    # logits up to ~600 by temperatures down to 0.0212, so a 1-ulp difference
-    # in a logarithm moves the depth by ~1e-5 of its range). Beside each: the
-    # time of the K2 resize that the call took in before (``absorbed_resize_ms``,
-    # the same shapes); the bound is the larger of the bytes (the coarse
-    # centres, not the upsampled ones) and the function's operations
-    # (``bins_operations``) at the float32 rate outside the tensor cores, in
-    # bfloat16 too (the data sheet gives no bfloat16 rate outside them)
+            check_attention(chk, path, dt, g, dev, 1, s, grid)
+    # K8 (flagship only): BINS_CALLS of one image
     for dt in (getattr(torch, d) for d in DTYPES):
-        es = torch.finfo(dt).bits // 8
-        for (h, w), (oh, ow), na in BINS_CALLS:
-            b = (torch.rand((1, h, w, 64), generator=g, device=dev) * (80 if na == 0 else 2)).to(dt)
-            before = time_ms(lambda: resize(b, (oh, ow), "bilinear", True))
-            if na:
-                a = (torch.rand((1, oh, ow, na), generator=g, device=dev) * 2).to(dt)
-                args, name = (a, b, "mean", "inv"), "attractor_update"
-                fn, plain = attractor_update, attractor_update_plain
-                nbytes = (a.numel() + b.numel() + oh * ow * 64) * es
-            else:
-                a = (torch.rand((1, oh, ow, 4), generator=g, device=dev) * 3).to(dt)
-                args, name = (a, b, 64, 0.0212, 50.0), "log_binomial_depth"
-                fn, plain = log_binomial_depth, log_binomial_depth_plain
-                nbytes = (a.numel() + b.numel() + oh * ow) * es
-            ref, got = plain(*args), fn(*args)
-            if na:
-                ref, got = ref[0], got[0]
-                tol = tol_of(ref, dt)
-            else:
-                tol = (1e-2 if dt == torch.bfloat16 else 1e-4) * max(float(ref.float().abs().max()), 1.0)
-            chk.add(name, "flagship", dt, err_of(got, ref), tol, time_ms(lambda: fn(*args)),
-                    time_ms(lambda: plain(*args)), None, nbytes,
-                    bins_operations(oh * ow, 64, na, (h, w) != (oh, ow)),
-                    extra=dict(absorbed_resize_ms=before))
+        check_bins(chk, "flagship", dt, g, dev, 1)
     # K2 bicubic (DA2 only): the DINOv2-L position embedding, 37x37 -> 32x32
     # x 1024 with the scale factors (32 + 0.1) / 37 (once per coarse forward)
     sc = ((32 + 0.1) / 37, (32 + 0.1) / 37)
@@ -804,40 +863,46 @@ def check_tail_conv(chk: Checks, dev) -> None:
     the input concatenated beforehand; the ``torch.cat`` is timed beside
     it. Then the edge cases in both dtypes (not timed)."""
     import torch
-    import torch.nn.functional as F
-
-    from patchrefinerv2_torch.ops.tail_conv import launch_plan as tail_plan
-    from patchrefinerv2_torch.ops.tail_conv import tail_conv, tail_conv_plain
 
     g = torch.Generator(device=dev).manual_seed(6)
     for path, geo in PATHS.items():
         h2 = geo["levels"][-2][2]
         for dt in (getattr(torch, d) for d in geo["dtypes"]):
-            es = torch.finfo(dt).bits // 8
-            peak = BF16_TENSOR_FLOPS if dt == torch.bfloat16 else F32_FLOPS
             for batch in (16, 8):
-                shape = (batch, *geo["process"])
-                npx = batch * geo["process"][0] * geo["process"][1]
-                for name, widths, k, cout, ep in tail_sites(h2):
-                    parts, kw = tail_case(g, dev, dt, shape, widths, k, cout, ep)
-                    ref = tail_conv_plain(parts, **kw)
-                    err = err_of(tail_conv(parts, **kw), ref)
-                    xc = torch.cat(parts, dim=-1).permute(0, 3, 1, 2)
-                    wt, b = kw["weight"], kw.get("bias")
-                    lib = time_ms(lambda: F.conv2d(xc, wt, b, padding=k // 2))
-                    cat_ms = time_ms(lambda: torch.cat(parts, dim=-1))
-                    cin = sum(widths)
-                    nbytes = (npx * (cin + cout + (cout if ep.get("residual") == "map" else 0))
-                              + wt.numel() + 3 * cout) * es
-                    chk.add("tail_conv", path, dt, err, tol_of(ref, dt),
-                            time_ms(lambda: tail_conv(parts, **kw)),
-                            time_ms(lambda: tail_conv_plain(parts, **kw)), lib, nbytes,
-                            2 * npx * k * k * cin * cout, peak, main=batch == 16)
-                    log({"tail_conv_site": name, "path": path, "dtype": str(dt)[6:], "batch": batch,
-                         "in": list(widths), "k": k, "out": cout, "cat_ms": cat_ms,
-                         "plan": tail_plan(widths, k, cout, dt)})
-                    del parts, kw, ref, xc
+                for site in tail_sites(h2):
+                    check_tail_site(chk, path, dt, g, dev, (batch, *geo["process"]), site)
     tail_edge_cases(dev, g)
+
+
+def check_tail_site(chk: Checks, path, dt, g, dev, shape, site) -> None:
+    """K9 at one site (``tail_sites``' form) of a chunk of ``shape`` (N, H,
+    W), recorded for the 16-patch chunk and logged with its launch plan."""
+    import torch
+    import torch.nn.functional as F
+
+    from patchrefinerv2_torch.ops.tail_conv import launch_plan as tail_plan
+    from patchrefinerv2_torch.ops.tail_conv import tail_conv, tail_conv_plain
+
+    name, widths, k, cout, ep = site
+    es = torch.finfo(dt).bits // 8
+    peak = BF16_TENSOR_FLOPS if dt == torch.bfloat16 else F32_FLOPS
+    npx = shape[0] * shape[1] * shape[2]
+    parts, kw = tail_case(g, dev, dt, shape, widths, k, cout, ep)
+    ref = tail_conv_plain(parts, **kw)
+    err = err_of(tail_conv(parts, **kw), ref)
+    xc = torch.cat(parts, dim=-1).permute(0, 3, 1, 2)
+    wt, b = kw["weight"], kw.get("bias")
+    lib = time_ms(lambda: F.conv2d(xc, wt, b, padding=k // 2))
+    cat_ms = time_ms(lambda: torch.cat(parts, dim=-1))
+    cin = sum(widths)
+    nbytes = (npx * (cin + cout + (cout if ep.get("residual") == "map" else 0))
+              + wt.numel() + 3 * cout) * es
+    chk.add("tail_conv", path, dt, err, tol_of(ref, dt), time_ms(lambda: tail_conv(parts, **kw)),
+            time_ms(lambda: tail_conv_plain(parts, **kw)), lib, nbytes,
+            2 * npx * k * k * cin * cout, peak, main=shape[0] == 16)
+    log({"tail_conv_site": name, "path": path, "dtype": str(dt)[6:], "batch": shape[0],
+         "in": list(widths), "k": k, "out": cout, "cat_ms": cat_ms,
+         "plan": tail_plan(widths, k, cout, dt)})
 
 
 def tail_edge_cases(dev, g) -> None:
@@ -878,6 +943,80 @@ def tail_edge_cases(dev, g) -> None:
             log({"check": name, "dtype": str(dt)[6:], "max_abs_err": err, "tol": tol, "ok": err <= tol})
             if not err <= tol:
                 raise AssertionError(f"{name} ({dt}): kernel and plain version disagree: {err} > {tol}")
+
+
+# PatchRefiner V1 (its fine branch a whole depth network run on every chunk,
+# its head FusionUnet): (config, process shape, the trunk's tokens, the BEiT
+# grid or None for DINOv2, its DPT neck's K2 upsamples at a chunk's batch)
+V1_CONFIG = "configs/patchrefiner_zoedepth/pr_u4k.py"
+V1_DA2_CONFIG = "configs/patchrefiner_dav2/pr_u4k.py"
+V1_PATHS = {
+    # the MiDaS neck: refinenet1's x2 upsample, output_conv's 128 channels x2
+    "v1": (V1_CONFIG, (384, 512), 769, (24, 32), [((96, 128, 256), (192, 256)),
+                                                  ((192, 256, 128), (384, 512))]),
+    # the DA2 head: its 128-channel out_feat to the patch
+    "v1_da2": (V1_DA2_CONFIG, (448, 448), 1025, None, [((256, 256, 128), (448, 448))]),
+}
+
+
+def meta_net(config: str):
+    """The network of ``config`` (V1 or V2) on the meta device: its widths,
+    without its weights."""
+    import torch
+
+    from patchrefinerv2_torch.config import Config
+    from patchrefinerv2_torch.models.patchrefinerplus import PRPlusNet
+
+    cfg = Config.fromfile(os.path.join(os.path.dirname(os.path.abspath(__file__)), config))
+    with torch.device("meta"):
+        return PRPlusNet(cfg.model.config, v1=cfg.model.get("type") == "PatchRefiner")
+
+
+def v1_tail_sites(head) -> list:
+    """FusionUnet's K9 sites in a chunk, from its modules, in ``tail_sites``'
+    form: the level-0 encoder layers (cat(coarse, fine) level 0; then h,
+    pred1, pred2) with LN and GELU, the last decoder stage's second conv
+    with GELU and ``final_conv`` with ``update_base`` and the clamp."""
+    e1, e2 = head.encoder_layers_1[0].single_conv[0], head.encoder_layers_2[0].single_conv[0]
+    d = head.decoder_layers[-1].conv.double_conv[2]
+    c0 = e1.in_channels // 2  # the coarse and the fine network are of one kind
+    return [("encoder_layers_1.0", (c0, c0), 3, e1.out_channels, dict(ln=True, act="gelu")),
+            ("encoder_layers_2.0", (e2.in_channels - 2, 1, 1), 3, e2.out_channels,
+             dict(ln=True, act="gelu")),
+            ("decoder_layers.4 conv 2", (d.in_channels,), 3, d.out_channels, dict(act="gelu")),
+            ("final_conv", (head.final_conv.in_channels,), 3, 1, dict(residual="map", act="relu"))]
+
+
+def check_v1_shapes(chk: Checks, dev) -> None:
+    """The kernels at the shapes V1 gives them that no V2 path does, each in
+    float32 (TF32 off) and bfloat16 (recorded for ``v1`` and ``v1_da2`` in
+    bfloat16), 16 patches a chunk: K3 (BEiT) or K4 (DINOv2) over the chunk,
+    K6 at the fine trunk's 16 x S rows of 1024 and at FusionUnet's level-1
+    LayerNorm (the widest it runs on K6), K8's four attractor layers and the
+    log-binomial depth at batch 16 (``BINS_CALLS``), K2 at the fine DPT
+    neck's upsamples and FusionUnet's resize of the depths to level 1, and
+    K9 at FusionUnet's 4 sites (``v1_tail_sites``, 16- and 8-patch chunks).
+    K1 and K7 meet the flagship's shapes (the same coarse levels and
+    frame)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    for path, (config, (ph, pw), s, grid, ups) in V1_PATHS.items():
+        head = meta_net(config).refiner_fusion_model
+        c1 = head.encoder_layers_1[1].single_conv[0].out_channels
+        sites = v1_tail_sites(head)
+        for dt in (torch.float32, torch.bfloat16):
+            check_attention(chk, path, dt, g, dev, 16, s, grid)
+            check_layer_norm(chk, path, dt, g, dev, 16 * s, 1024)
+            check_layer_norm(chk, path, dt, g, dev, 16 * (ph // 2) * (pw // 2), c1)
+            if grid is not None:
+                check_bins(chk, path, dt, g, dev, 16)
+            for shape, size in ups + [((ph, pw, 1), (ph // 2, pw // 2))]:
+                check_bilinear(chk, path, dt, g, dev, (16, *shape), size)
+            for batch in (16, 8):
+                for site in sites:
+                    check_tail_site(chk, path, dt, g, dev, (batch, ph, pw), site)
+            torch.cuda.empty_cache()
 
 
 # K10's sites in one chunk of a path's frame, the 15 that the reference's
@@ -1448,15 +1587,15 @@ ENCODER_RANGE = "MobileNetV4 encoder"  # the profiler range around a MobileNetV4
 DEPTHWISE = ("depthwise", "dwconv", "conv2d_c1_k1")
 
 
-def encoder_share(prof) -> dict:
-    """The device time of the kernels under the ``ENCODER_RANGE`` ranges of
-    a profile (the MobileNetV4 encoder's cuDNN convolutions, BatchNorms and
-    ReLUs, inside the groups they fall in by name), the depthwise
-    convolutions' part of it, and its costliest kernels."""
+def range_share(prof, name: str) -> dict:
+    """The device time of the kernels under the ``name`` ranges of a profile
+    (a module's cuDNN convolutions, BatchNorms and the rest, inside the
+    groups they fall in by name), the depthwise convolutions' part of it,
+    and its costliest kernels."""
     import torch
 
     ranges = [e for e in prof.events()
-              if e.name == ENCODER_RANGE and e.device_type == torch.autograd.DeviceType.CPU]
+              if e.name == name and e.device_type == torch.autograd.DeviceType.CPU]
     kernels = {}
 
     def walk(ev):
@@ -1475,42 +1614,42 @@ def encoder_share(prof) -> dict:
             "top_kernels_ms_calls_name": top}
 
 
-def profile_frame(fn, frame_ms: float, label: str, encoder=None) -> None:
+def profile_frame(fn, frame_ms: float, label: str, ranges=None) -> None:
     """One frame under torch.profiler: device time by layer, the costliest
     kernels, and the share of the unprofiled frame time the device spends
     in kernels. Every kernel of ``csrc/`` and of the Triton ops must fall in
     its own K group: each group's profiled launches are held against its
     wrappers' launch counters over the frame (``K_GROUP_WRAPPERS``), so a
     kernel whose name no longer matches its group's fragments fails the run
-    instead of landing in another group. ``encoder``: a MobileNetV4 refiner
-    encoder, run under a profiler range while the frame is profiled; its
-    device time is reported apart (``encoder_share``; its kernels stay in
-    their groups too)."""
+    instead of landing in another group. ``ranges`` ({name: module}): each
+    module runs under a profiler range of its name while the frame is
+    profiled, and its device time is reported apart (``range_share``; its
+    kernels stay in their groups too), as the MobileNetV4 encoder's under
+    ``ENCODER_RANGE``."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from patchrefinerv2_torch import ops
 
-    if encoder is not None:
-        plain_forward = encoder.forward
+    ranges = ranges or {}
+    for name, module in ranges.items():
+        def ranged(*a, _name=name, _forward=module.forward, **kw):
+            with record_function(_name):
+                return _forward(*a, **kw)
 
-        def ranged(x):
-            with record_function(ENCODER_RANGE):
-                return plain_forward(x)
-
-        encoder.forward = ranged
+        module.forward = ranged
     ops.reset_launches()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
     finally:
-        if encoder is not None:
-            del encoder.forward
+        for module in ranges.values():
+            del module.forward
     counts = ops.launch_counts()
     groups, launches, total, kernels = {}, {}, 0.0, []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA or e.key == ENCODER_RANGE:
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key in ranges:
             continue
         us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
         name = e.key.lower()
@@ -1525,7 +1664,7 @@ def profile_frame(fn, frame_ms: float, label: str, encoder=None) -> None:
          "by_layer_ms": {g: v / 1e3 for g, v in sorted(groups.items(), key=lambda kv: -kv[1])},
          "k_group_launches_profiled_vs_counted": {g: [launches.get(g, 0), n] for g, n in want.items()},
          "top_kernels_ms_calls_name": sorted(kernels, reverse=True)[:15],
-         **({"mobilenetv4_encoder": encoder_share(prof)} if encoder is not None else {})})
+         **{name.lower().replace(" ", "_"): range_share(prof, name) for name in ranges}})
     for grp, (_, exact) in K_GROUP_WRAPPERS.items():
         got = launches.get(grp, 0)
         if (exact and got != want[grp]) or (want[grp] > 0 and got == 0):
@@ -1590,11 +1729,53 @@ def check_bins_per_frame(label, counts, frames, per_frame) -> None:
         raise AssertionError(f"{label}: {got} K8 launches for {frames} frames, not {want}")
 
 
+def v1_calls(model) -> tuple[dict, dict]:
+    """PatchRefiner V1's launches of K3/K4, K6, K8, K5 and K9 counted from
+    its modules (``kernel_calls``): (a frame's, the coarse branch once; a
+    chunk's, the fine depth network and FusionUnet once)."""
+    net = model.net
+    fine, head = net.refiner_fine_branch.kernel_calls(), net.refiner_fusion_model.kernel_calls()
+    return net.coarse_branch.kernel_calls(), {k: fine.get(k, 0) + head.get(k, 0) for k in {*fine, *head}}
+
+
+def check_v1_launches(label, counts, model, frames: int) -> None:
+    """Each counted kernel of a V1 run (``v1_calls``) launched ``frames``
+    times its frame count and once a chunk its chunk count (roi_align's 7 a
+    chunk count the chunks), exactly."""
+    per_frame, per_chunk = v1_calls(model)
+    chunks = counts["roi_align"] / 7
+    want = {k: frames * per_frame.get(k, 0) + chunks * per_chunk.get(k, 0)
+            for k in sorted({*per_frame, *per_chunk})}
+    got = {k: counts[k] for k in want}
+    log({"phase": f"{label}_v1_launches", "frames": frames, "chunks": chunks, "launches": got,
+         "per_frame": per_frame, "per_chunk": per_chunk})
+    if chunks < 1 or got != want:
+        raise AssertionError(f"{label}: launches {got} for {frames} frames and {chunks} chunks, "
+                             f"not {want}")
+
+
+def check_frame_launches(label, counts, model, frames: int, bins=(4, 1), int8_sites=0,
+                         head_sites=HEAD_INT8_SITES) -> None:
+    """K10 ``int8_sites`` times a chunk; for V1 ``check_v1_launches``;
+    otherwise K5 and K9 as the head's ``kernel_calls`` says a chunk (K9
+    ``head_sites`` fewer in an int8 run, where K10 takes them) and K8
+    ``bins`` times a frame."""
+    check_quant_per_chunk(label, counts, int8_sites)
+    if model.v1:
+        check_v1_launches(label, counts, model, frames)
+        return
+    per_chunk = model.net.refiner_fusion_model.kernel_calls()
+    check_tail_per_chunk(label, counts, per_chunk["tail_conv"] - (head_sites if int8_sites else 0))
+    check_gate_per_chunk(label, counts, per_chunk["gate_tail"])
+    check_bins_per_frame(label, counts, frames, bins)
+
+
 class Frames:
     """Runs one model's tiled inference on a fixed random 2160x3840 frame;
     ``bins``: its K8 launches a frame (``check_bins_per_frame``); ``per_chunk``:
     its fusion head's K5 and K9 launches a chunk, counted from its modules
-    (``BiDirectionalFusion.kernel_calls``)."""
+    (``BiDirectionalFusion.kernel_calls``); a V1 model's launches are held
+    to ``check_v1_launches``."""
 
     def __init__(self, model, lr_shape, dev, bins=(4, 1)):
         import torch
@@ -1636,10 +1817,7 @@ class Frames:
         idle = [k for k, v in counts.items() if v == 0 and k not in idle_ok]
         if idle:
             raise AssertionError(f"{label}: kernels never launched on the main path: {idle}")
-        check_tail_per_chunk(label, counts, self.per_chunk["tail_conv"] - (head_sites if int8_sites else 0))
-        check_gate_per_chunk(label, counts, self.per_chunk["gate_tail"])
-        check_quant_per_chunk(label, counts, int8_sites)
-        check_bins_per_frame(label, counts, 1, self.bins)
+        check_frame_launches(label, counts, self.model, 1, self.bins, int8_sites, head_sites)
         return depth, counts
 
     def timed(self, mode, label, n):
@@ -1660,13 +1838,15 @@ class Frames:
 
 
 def build(dev, config: str, label: str):
+    """The model ``config`` names (``build_model``: PatchRefinerPlus or
+    PatchRefiner V1), random weights from seed 0, on the card."""
     from patchrefinerv2_torch.config import Config
-    from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
+    from patchrefinerv2_torch.models.patchrefiner import build_model
 
     here = os.path.dirname(os.path.abspath(__file__))
     cfg = Config.fromfile(os.path.join(here, config))
     t = time.time()
-    model = PatchRefinerPlus(cfg.model.config, device=dev, seed=0)
+    model = build_model(cfg.model, device=dev, seed=0)
     n_params = sum(p.numel() for p in model.net.parameters())
     log({"phase": f"{label}_build", "seconds": time.time() - t, "params": n_params})
     return model
@@ -1701,7 +1881,7 @@ def flagship(dev) -> dict:
     return dict(m1=counts_m1, m2=counts_m2, r32=counts_r32, **int8_frames(fr, "", d16, True))
 
 
-def int8_frames(fr, label, d16, flagship: bool, idle_ok=INT8_IDLE_OK, encoder=None) -> dict:
+def int8_frames(fr, label, d16, flagship: bool, idle_ok=INT8_IDLE_OK, ranges=None) -> dict:
     """The int8 serving mode on the frame, bfloat16. For the flagship first
     the dynamic mode (no calibration: ``set_int8(None, "dynamic")``), m1
     first, timed and profiled. Then calibrate on the frame (m1 and the three
@@ -1712,8 +1892,8 @@ def int8_frames(fr, label, d16, flagship: bool, idle_ok=INT8_IDLE_OK, encoder=No
     with per-tensor scales; K10 once a chunk at each selected site and K9
     at its sites but the selected head sites (15 and 6 on the flagship's
     head). The mean relative differences of the int8 m1 depths from the
-    bfloat16 one are for information. ``encoder``: as ``profile_frame``
-    takes it."""
+    bfloat16 one are for information. ``ranges``: as ``profile_frame``
+    takes them."""
     import torch
 
     model = fr.model
@@ -1742,7 +1922,7 @@ def int8_frames(fr, label, d16, flagship: bool, idle_ok=INT8_IDLE_OK, encoder=No
     torch.cuda.reset_peak_memory_stats()
     d8, runs[f"{label}m1_int8"] = fr.first("m1", f"{label}m1_int8_perchan_first", idle_ok, len(sel), head)
     ms = fr.timed("m1", f"{label}m1_int8_perchan_timed", 5 if flagship else 3)
-    profile_frame(lambda: fr.infer("m1"), ms, f"{label}m1_int8_perchan", encoder)
+    profile_frame(lambda: fr.infer("m1"), ms, f"{label}m1_int8_perchan", ranges)
     rel = float(((d8.float() - d16.float()).abs() / d16.float().abs().clamp(min=1e-6)).mean())
     log({"phase": f"{label}m1_int8_vs_bf16", "mean_rel_diff": rel, "note": "information only"})
     if flagship:
@@ -1820,7 +2000,7 @@ def mobile(dev) -> dict:
 
     model = build(dev, MOBILE_CONFIG, "mobile")
     check_mobile_shapes(model, "mobile")
-    enc = model.net.refiner_fine_branch.refiner_encoder
+    enc = {ENCODER_RANGE: model.net.refiner_fine_branch.refiner_encoder}
     fr = Frames(model, (384, 512), dev)
     torch.cuda.reset_peak_memory_stats()
     d32, _ = fr.first("m1", "mobile_m1_float32_first")
@@ -1836,7 +2016,7 @@ def mobile(dev) -> dict:
         profile_frame(lambda: fr.infer(mode), ms, f"mobile_{mode}_bfloat16", enc)
     rel = float(((d16.float() - d32).abs() / d32.abs().clamp(min=1e-6)).mean())
     log({"phase": "mobile_m1_bf16_vs_f32", "mean_rel_diff": rel, "note": "information only"})
-    runs.update(int8_frames(fr, "mobile_", d16, False, encoder=enc))
+    runs.update(int8_frames(fr, "mobile_", d16, False, ranges=enc))
     del fr, model, enc, d16, d32
     torch.cuda.empty_cache()
     runs.update(cityscapes_eval(dev, "configs/patchrefinerv2_zoedepth_cs/plus_mobile_cs_pretrain.py",
@@ -1864,9 +2044,61 @@ def mobile_variants(dev) -> dict:
         _, runs[f"{label}_m1"] = fr.first("m1", f"{label}_m1_bfloat16_first", idle)
         ms = fr.timed("m1", f"{label}_m1_bfloat16_timed", 3)
         profile_frame(lambda: fr.infer("m1"), ms, f"{label}_m1_bfloat16",
-                      model.net.refiner_fine_branch.refiner_encoder)
+                      {ENCODER_RANGE: model.net.refiner_fine_branch.refiner_encoder})
         del fr, model
         torch.cuda.empty_cache()
+    return runs
+
+
+def v1_ranges(model) -> dict:
+    """Profiler ranges around V1's fine depth network and FusionUnet."""
+    net = model.net
+    return {"V1 fine branch": net.refiner_fine_branch, "V1 fusion head": net.refiner_fusion_model}
+
+
+def patchrefiner_v1(dev) -> dict:
+    """PatchRefiner V1 at full width (``configs/patchrefiner_zoedepth/
+    pr_u4k.py``: two BEiT-L/16 + ZoeDepth networks, the fine one run on
+    every chunk, and FusionUnet; random weights from seed 0) on the
+    2160x3840 frame split 4x4, process_num 16: m1 in float32 (TF32 off),
+    then m1 and r32 in bfloat16 (r32 runs m1's and m2's passes first), each
+    a first frame (every counted launch held to the modules'
+    ``kernel_calls``, chunk by chunk: ``check_v1_launches``), timed warm
+    frames with peak memory and, in bfloat16, a profiled frame with the fine
+    branch's and FusionUnet's device time apart. Then the DA2 V1
+    (``configs/patchrefiner_dav2/pr_u4k.py``: two DINOv2-L + DPT networks at
+    448x448) m1 in bfloat16 alike."""
+    import torch
+
+    model = build(dev, V1_CONFIG, "v1")
+    fr = Frames(model, model.patch_process_shape, dev)
+    idle = FRAME_IDLE_OK + ("gate_tail",)
+    torch.cuda.reset_peak_memory_stats()
+    d32, _ = fr.first("m1", "v1_m1_float32_first", idle)
+    fr.timed("m1", "v1_m1_float32_timed", 2)
+    model.set_infer_dtype(torch.bfloat16)
+    runs = {}
+    for mode, n in (("m1", 5), ("r32", 3)):
+        torch.cuda.reset_peak_memory_stats()
+        d, runs[f"v1_{mode}"] = fr.first(mode, f"v1_{mode}_bfloat16_first", idle)
+        if mode == "m1":
+            d16 = d
+        ms = fr.timed(mode, f"v1_{mode}_bfloat16_timed", n)
+        profile_frame(lambda: fr.infer(mode), ms, f"v1_{mode}_bfloat16", ranges=v1_ranges(model))
+    rel = float(((d16.float() - d32).abs() / d32.abs().clamp(min=1e-6)).mean())
+    log({"phase": "v1_m1_bf16_vs_f32", "mean_rel_diff": rel, "note": "information only"})
+    del fr, model, d, d16, d32
+    torch.cuda.empty_cache()
+    model = build(dev, V1_DA2_CONFIG, "v1_da2")
+    model.set_infer_dtype(torch.bfloat16)
+    fr = Frames(model, model.patch_process_shape, dev, bins=(0, 0))
+    torch.cuda.reset_peak_memory_stats()
+    _, runs["v1_da2_m1"] = fr.first("m1", "v1_da2_m1_bfloat16_first",
+                                    idle + ("attractor_update", "log_binomial_depth"))
+    ms = fr.timed("m1", "v1_da2_m1_bfloat16_timed", 3)
+    profile_frame(lambda: fr.infer("m1"), ms, "v1_da2_m1_bfloat16", ranges=v1_ranges(model))
+    del fr, model
+    torch.cuda.empty_cache()
     return runs
 
 
@@ -1884,16 +2116,23 @@ TINY_ZOE = dict(
                                                  coarse_chl=[32, 16, 16, 16, 16, 32])))
 
 
+# the tiny V1 topology: the tiny BEiT ZoeDepth as the coarse and the fine branch
+TINY_V1 = dict(TINY_ZOE, refiner=dict(
+    fine_branch=TINY_ZOE["coarse_branch"],
+    fusion_model=dict(type="FusionUnet", temp_chl=[16, 32, 32, 32, 32, 32], dec_chl=[32, 32, 32, 32, 16])))
+
+
 def small_gpu_vs_cpu(dev) -> None:
     """The composed graph at a small size, kernels on the card against the
     plain versions on the CPU, float32: a tiny BEiT ZoeDepth coarse branch
     (head dim 16) and a ``vitt`` DA2 one (head dim 48, bicubic position
     embedding), each with the EfficientNet-B5 refiner and BiDirectionalFusion
-    (m1, m2, r8); and the tiny ZoeDepth graph with the MobileNetV4-small
-    refiner, the CPU tests' mobile slice (m1)."""
+    (m1, m2, r8); the tiny ZoeDepth graph with the MobileNetV4-small
+    refiner, the CPU tests' mobile slice (m1); and the tiny V1 (the tiny
+    ZoeDepth as both branches, FusionUnet; m1)."""
     import numpy as np
 
-    from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
+    from patchrefinerv2_torch.models.patchrefiner import MODELS
 
     refiner, zoe = TINY_REFINER, TINY_ZOE
     da2 = dict(
@@ -1903,10 +2142,12 @@ def small_gpu_vs_cpu(dev) -> None:
                                                 coarse_chl=[32, 64, 64, 64, 64, 64])))
     mobile = dict(zoe, refiner=dict(zoe["refiner"], fine_branch=dict(TINY_REFINER["fine_branch"],
                                                                        encoder_name=MOBILE_ENCODER)))
-    for name, cfg, modes in (("zoedepth", zoe, ("m1", "m2", "r8")), ("da2_vitt", da2, ("m1", "m2", "r8")),
-                             ("mobile", mobile, ("m1",))):
-        gpu = PatchRefinerPlus(cfg, device=dev, seed=3)
-        cpu = PatchRefinerPlus(cfg, device="cpu", seed=3)
+    plus, v1 = MODELS["PatchRefinerPlus"], MODELS["PatchRefiner"]
+    for name, cls, cfg, modes in (("zoedepth", plus, zoe, ("m1", "m2", "r8")),
+                                  ("da2_vitt", plus, da2, ("m1", "m2", "r8")),
+                                  ("mobile", plus, mobile, ("m1",)), ("v1", v1, TINY_V1, ("m1",))):
+        gpu = cls(cfg, device=dev, seed=3)
+        cpu = cls(cfg, device="cpu", seed=3)
         rng = np.random.RandomState(11)
         lr = rng.rand(1, *cfg["patch_process_shape"], 3).astype(np.float32)
         hr = rng.rand(1, *cfg["image_raw_shape"], 3).astype(np.float32)
@@ -2064,7 +2305,8 @@ def cityscapes_eval(dev, config="configs/patchrefinerv2_zoedepth_cs/plus_eff_cs_
 
     model = build(dev, config, f"{label}cs")
     model.set_infer_dtype(torch.bfloat16)
-    per_chunk = model.net.refiner_fusion_model.kernel_calls()
+    idle_ok = ("quant_conv",) + (("gate_tail",) if model.net.refiner_fusion_model.kernel_calls()[
+        "gate_tail"] == 0 else ())
     counts = {}
     for mode in modes:
         ds = synthetic_cityscapes(2, model.patch_process_shape)
@@ -2085,13 +2327,10 @@ def cityscapes_eval(dev, config="configs/patchrefinerv2_zoedepth_cs/plus_eff_cs_
                 "EdgeAcc", "EdgeComp", "precision", "recall", "f1"}
         if set(metrics) != want or not all(math.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"cityscapes eval {mode}: bad metrics {metrics}")
-        idle = [k for k, v in c.items() if v == 0 and k != "quant_conv"]
+        idle = [k for k, v in c.items() if v == 0 and k not in idle_ok]
         if idle:
             raise AssertionError(f"cityscapes eval {mode}: kernels never launched: {idle}")
-        check_tail_per_chunk(f"{label}cityscapes_eval_{mode}", c, per_chunk["tail_conv"])
-        check_gate_per_chunk(f"{label}cityscapes_eval_{mode}", c, per_chunk["gate_tail"])
-        check_quant_per_chunk(f"{label}cityscapes_eval_{mode}", c, 0)
-        check_bins_per_frame(f"{label}cityscapes_eval_{mode}", c, len(ds), (4, 1))
+        check_frame_launches(f"{label}cityscapes_eval_{mode}", c, model, len(ds))
     return counts
 
 
@@ -2217,11 +2456,11 @@ def make_trainer(dev, cfg, work_dir):
     """A Trainer of ``cfg`` (either stage) on the card, its validation
     loader when the config has one."""
     from patchrefinerv2_torch.datasets.base import DataLoader
-    from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
+    from patchrefinerv2_torch.models.patchrefiner import build_model
     from patchrefinerv2_torch.train import build_dataset
     from patchrefinerv2_torch.training.trainer import Trainer
 
-    model = PatchRefinerPlus(cfg.model.config, device=dev, seed=0)
+    model = build_model(cfg.model, device=dev, seed=0)
     loader = DataLoader(build_dataset(cfg.train_dataloader.dataset),
                         batch_size=cfg.train_dataloader.batch_size, shuffle=True, seed=0)
     val = cfg.get("val_dataloader")
@@ -2482,9 +2721,11 @@ def _backward_work(kind, key, ts) -> tuple[float, float]:
 def check_training_sites(chk: Checks, dev) -> dict:
     """Phase A: every site of the training Functions in one step of each
     full-width training stage (recorded from a step on the card): the
-    pretraining stage (K2, K5, K6, K9; path ``train_backward``) and stage 3
+    pretraining stage (K2, K5, K6, K9; path ``train_backward``), stage 3
     (the same four at the coarse branch's widths and in BEiT and its DPT
-    neck, and K1, K3 and K8; path ``train_e2e_backward``), each at its
+    neck, and K1, K3 and K8; path ``train_e2e_backward``) and V1 (K2, K3,
+    K6, K8 in the fine ZoeDepth network, K2, K6 and K9 in FusionUnet; path
+    ``train_v1_backward``), each at its
     shapes in float32 (TF32 off): the Function's output and gradients
     against autograd through the plain version, and the times of the
     Function's backward, the plain version's autograd backward and, where
@@ -2500,7 +2741,8 @@ def check_training_sites(chk: Checks, dev) -> dict:
     import torch
 
     stages = (("train_backward", lambda: pretrain_config(steps=1)),
-              ("train_e2e_backward", lambda: stage3_config(steps=1)))
+              ("train_e2e_backward", lambda: stage3_config(steps=1)),
+              ("train_v1_backward", lambda: stage3_config(steps=1, config=V1_CONFIG)))
     out = {}
     for path, config in stages:
         with SiteRecorder() as rec:
@@ -2670,14 +2912,14 @@ def pretrain_run(dev, config: str = PRETRAIN_CONFIG, label: str = "pretrain",
     return steps[0]
 
 
-def run_counted(tr, label: str, kernels, exact=None, moves=("bn_buffers", "params")) -> list:
+def run_counted(tr, label: str, kernels, exact=None, moves=("bn_buffers", "params"), still=()) -> list:
     """``tr.run()`` with the launch counters set to 0 just before each step
     and read just after it: each kernel of ``kernels`` launches in every
     step (``exact``: that many times), no other kernel and no plain version
     runs; losses and gradients finite; then what ``moves`` names (the
     parameters, the BatchNorm statistics, the coarse branch's parameters)
-    must have moved and a checkpoint be written. Returns each step's
-    counts."""
+    must have moved, what ``still`` names must not have, and a checkpoint
+    be written. Returns each step's counts."""
     import torch
 
     from patchrefinerv2_torch import ops
@@ -2720,7 +2962,7 @@ def run_counted(tr, label: str, kernels, exact=None, moves=("bn_buffers", "param
                  params=sum(k in dict(tr.model.net.named_parameters()) for k in changed),
                  coarse_params=sum(k.startswith("coarse_branch.") for k in changed))
     log({"phase": f"{label}_moved", **moved, "of": len(before)})
-    if not all(moved[k] for k in moves) or \
+    if not all(moved[k] for k in moves) or any(moved[k] for k in still) or \
             not os.path.exists(os.path.join(tr.work_dir, "checkpoint_01")):
         raise AssertionError(f"{label} moved {moved} or wrote no checkpoint")
     return steps
@@ -2827,12 +3069,13 @@ def compare_train_steps(label: str, got: tuple, ref: tuple) -> None:
         return float(sc[k].abs().max())
 
     bn_rel = {k: float((sg[k] - sc[k]).abs().max()) / scale(k) for k in sc}
-    worst = max(bn_rel, key=bn_rel.get)
-    bn = bn_rel[worst]
-    i = int((sg[worst] - sc[worst]).abs().argmax())
+    worst = max(bn_rel, key=bn_rel.get) if bn_rel else None  # V1 has no BatchNorm
+    bn = bn_rel[worst] if bn_rel else 0.0
+    i = int((sg[worst] - sc[worst]).abs().argmax()) if bn_rel else 0
     log({"phase": label, "loss_rel": abs(lg - lc) / abs(lc), "grad_rel": d / n,
          "bn_rel_of_leaf_max": bn, "bars": [1e-5, 2e-2, 1e-4], "grad_leaves": len(gc),
-         "bn_worst": [worst, float(sg[worst][i]), float(sc[worst][i]), float(sc[worst].abs().max())],
+         "bn_worst": worst and [worst, float(sg[worst][i]), float(sc[worst][i]),
+                                float(sc[worst].abs().max())],
          "bn_leaves_over_bar": sorted(k for k, v in bn_rel.items() if v > 1e-4)[:12]})
     if not (abs(lg - lc) <= 1e-5 * abs(lc) and d <= 2e-2 * n and bn <= 1e-4 and set(gg) == set(gc)):
         raise AssertionError(f"{label}: the step on the card disagrees with the CPU")
@@ -2894,6 +3137,63 @@ def tiny_stage3_gpu_vs_cpu(dev) -> None:
     compare_train_steps("tiny_stage3_gpu_vs_cpu", *out)
 
 
+def tiny_v1_train_gpu_vs_cpu(dev) -> None:
+    """One V1 step of the tiny V1 topology (``TINY_V1``: 48x64 patches,
+    batch 2) on the card (K3, K8, K9 and the rest; the coarse branch under
+    no gradient) against the CPU, from the same weights and batch, within
+    ``compare_train_steps``' bars (V1 has no BatchNorm statistics)."""
+    import numpy as np
+
+    from patchrefinerv2_torch.models.patchrefiner import PatchRefiner
+
+    rng = np.random.RandomState(5)
+    batch = dict(image_lr=rng.rand(2, 48, 64, 3).astype(np.float32),
+                 crops_image_hr=rng.rand(2, 48, 64, 3).astype(np.float32),
+                 crop_depths=(1.0 + 20.0 * rng.rand(2, 72, 96, 1)).astype(np.float32),
+                 bboxs=np.array([[0.0, 0.0, 32.0, 24.0], [16.0, 16.0, 48.0, 40.0]], np.float32))
+    out = []
+    for d in (dev, "cpu"):
+        m = PatchRefiner(TINY_V1, device=d, seed=3).train()
+        out.append(_step_result(m, m.loss(batch, update_stats=True)[0]))
+    compare_train_steps("tiny_v1_train_gpu_vs_cpu", *out)
+
+
+V1_TRAIN_KERNELS = ("resize", "layer_norm", "tail_conv", "roi_align", "attention", "attractor_update",
+                    "log_binomial_depth")
+
+
+def v1_train_run(dev) -> dict:
+    """V1's training (``configs/patchrefiner_zoedepth/pr_u4k.py``) at full
+    width through ``Trainer.run`` from random weights: 3 steps of batch 4
+    (384x512 images and crops, 540x960 crop depths, float32, TF32 off, remat
+    off as configured), the launch counters set to 0 before each step and
+    read after it: K1 7 times and K3, K6, K8 and K9 as the modules'
+    ``kernel_calls`` give a frame (the coarse branch, forward only) and a
+    chunk (the fine network and FusionUnet), no other kernel and no plain
+    version; losses and gradients finite; the fine network and the head
+    move, the coarse branch does not. Then ms a step, images/s and peak
+    memory with remat on and off, and one profiled step. Returns the first
+    step's counts."""
+    import torch
+
+    tr = make_trainer(dev, stage3_config(config=V1_CONFIG), os.path.join(WORK_DIR, "v1_train"))
+    log({"phase": "v1_train_build", "params": sum(p.numel() for p in tr.model.net.parameters()),
+         "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+         "tf32_cudnn": torch.backends.cudnn.allow_tf32, "remat": tr.model.net.remat,
+         "e2e_training": tr.model.net.e2e_training})
+    per_frame, per_chunk = v1_calls(tr.model)
+    exact = {"roi_align": 7, **{k: per_frame.get(k, 0) + per_chunk.get(k, 0) for k in V1_TRAIN_KERNELS
+                                if k not in ("resize", "roi_align")}}
+    steps = run_counted(tr, "v1_train", V1_TRAIN_KERNELS, exact, ("params",), ("coarse_params",))
+    batch = tr.device_batch(next(iter(tr.train_loader)))
+    times = step_times(tr, batch, "v1_train")
+    tr.model.net.remat = False
+    profile_train_step(tr, batch, times[False][0]["ms_per_step"], "v1_train")
+    del tr, batch
+    torch.cuda.empty_cache()
+    return steps[0]
+
+
 def record_resize_plans() -> dict:
     """Wrap ``ops/resize._launch_plan`` so that every later K2 launch counts
     its (channels, element bytes, vec, vstore) in the returned dict."""
@@ -2910,6 +3210,15 @@ def record_resize_plans() -> dict:
 
     R._launch_plan = recording
     return seen
+
+
+def timed(fn, *args):
+    """``fn(*args)``, its host seconds logged: where the run's time goes."""
+    t = time.time()
+    out = fn(*args)
+    log({"phase": "seconds", "of": fn.__name__, "args": [a for a in args if isinstance(a, str)],
+         "s": time.time() - t})
+    return out
 
 
 def main() -> int:
@@ -2941,33 +3250,33 @@ def main() -> int:
     log({"phase": "build", "seconds": time.time() - t})
 
     chk = Checks()
-    check_kernels(chk, dev)
-    check_new_kernels(chk, dev)
-    check_gate_tail(chk, dev)
-    check_tail_conv(chk, dev)
-    check_quant_conv(chk, dev)
-    check_canny(chk, dev)
-    check_edge_cases(dev)
+    for check in (check_kernels, check_new_kernels, check_gate_tail, check_tail_conv, check_quant_conv,
+                  check_v1_shapes, check_canny):
+        timed(check, chk, dev)
+    timed(check_edge_cases, dev)
     plans = record_resize_plans()
-    counts = {**flagship(dev), **depth_anything_v2(dev), **cityscapes_eval(dev), **mobile(dev),
-              **mobile_variants(dev)}
+    counts = {**timed(flagship, dev), **timed(depth_anything_v2, dev), **timed(cityscapes_eval, dev),
+              **timed(mobile, dev), **timed(mobile_variants, dev), **timed(patchrefiner_v1, dev),
+              **timed(cityscapes_eval, dev, "configs/patchrefiner_zoedepth/pr_cs.py", ("m1",), "v1_")}
     log({"phase": "resize_plans_of_the_main_paths",
          "channels_itemsize_vec_vstore_launches": sorted([*k, n] for k, n in plans.items())})
-    small_gpu_vs_cpu(dev)
-    eval_gpu_vs_cpu(dev)
+    timed(small_gpu_vs_cpu, dev)
+    timed(eval_gpu_vs_cpu, dev)
     try:
-        sites = check_training_sites(chk, dev)
+        sites = timed(check_training_sites, chk, dev)
         log({"phase": "training_sites", **{path: {k: len(v) for k, v in s.items()}
                                           for path, s in sites.items()}})
-        counts["train_f32"] = pretrain_run(dev)
-        tiny_train_gpu_vs_cpu(dev)
-        counts["train_e2e_f32"] = stage3_run(dev)
-        tiny_stage3_gpu_vs_cpu(dev)
-        counts["mobile_train_f32"] = pretrain_run(dev, MOBILE_PRETRAIN_CONFIG, "mobile_pretrain",
-                                                  MOBILE_PRETRAINED)
-        counts["mobile_train_e2e_f32"] = stage3_run(dev, MOBILE_CONFIG, "mobile_stage3",
-                                                    MOBILE_PRETRAINED, val=False)
-        tiny_train_gpu_vs_cpu(dev, MOBILE_PRETRAIN_CONFIG, "tiny_mobile_train")
+        counts["train_f32"] = timed(pretrain_run, dev)
+        timed(tiny_train_gpu_vs_cpu, dev)
+        counts["train_e2e_f32"] = timed(stage3_run, dev)
+        timed(tiny_stage3_gpu_vs_cpu, dev)
+        counts["mobile_train_f32"] = timed(pretrain_run, dev, MOBILE_PRETRAIN_CONFIG, "mobile_pretrain",
+                                           MOBILE_PRETRAINED)
+        counts["mobile_train_e2e_f32"] = timed(stage3_run, dev, MOBILE_CONFIG, "mobile_stage3",
+                                               MOBILE_PRETRAINED, False)
+        timed(tiny_train_gpu_vs_cpu, dev, MOBILE_PRETRAIN_CONFIG, "tiny_mobile_train")
+        counts["v1_train_f32"] = timed(v1_train_run, dev)
+        timed(tiny_v1_train_gpu_vs_cpu, dev)
     finally:
         import shutil
 

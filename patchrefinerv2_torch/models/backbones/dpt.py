@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from patchrefinerv2_torch.models.backbones.vit import DinoViT
+from patchrefinerv2_torch.models.backbones.vit import INTERMEDIATE_LAYER_IDX, DinoViT
 from patchrefinerv2_torch.models.blocks.convs import interp, to_nchw
 from patchrefinerv2_torch.models.blocks.dpt import FeatureFusionBlock
 
@@ -96,3 +96,12 @@ class DepthAnythingV2(nn.Module):
         grid = (x.shape[2] // 14, x.shape[3] // 14)
         depth01, feats = self.depth_head(self.pretrained(x), grid)
         return {"metric_depth": depth01 * self.max_depth, "coarse_features": feats}
+
+    def kernel_calls(self) -> dict:
+        """The K4 and K6 launches of one forward, counted from the modules:
+        K4 at each DINOv2 block, K6 at its two LayerNorms and at the final
+        norm of each tap; no K8."""
+        vit = self.pretrained
+        blocks, taps = len(vit.blocks), len(INTERMEDIATE_LAYER_IDX[vit.variant])
+        return {"attention": blocks, "layer_norm": 2 * blocks + taps,
+                "attractor_update": 0, "log_binomial_depth": 0}

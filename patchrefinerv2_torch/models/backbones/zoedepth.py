@@ -165,3 +165,11 @@ class ZoeDepthBEiT(ZoeDepthHead):
     def forward(self, x):
         rel, pyramid = self.core.core(x)
         return self.head_forward(rel, pyramid)
+
+    def kernel_calls(self) -> dict:
+        """The K3, K6 and K8 launches of one forward, counted from the
+        modules: K3 at each BEiT block, K6 at its two LayerNorms, K8 at each
+        attractor layer and once for the log-binomial depth."""
+        blocks = len(self.core.core.pretrained.model.blocks)
+        return {"attention": blocks, "layer_norm": 2 * blocks,
+                "attractor_update": len(self.attractors), "log_binomial_depth": 1}

@@ -54,7 +54,7 @@ from patchrefinerv2_torch.models.backbones.vit import DinoViT
 from patchrefinerv2_torch.models.backbones.zoedepth import ZoeDepthBEiT
 from patchrefinerv2_torch.models.blocks.convs import to_nchw, to_nhwc
 from patchrefinerv2_torch.models.blocks.dpt import SimpleDPTHead
-from patchrefinerv2_torch.models.blocks.fusion import BiDirectionalFusion
+from patchrefinerv2_torch.models.blocks.fusion import BiDirectionalFusion, FusionUnet
 from patchrefinerv2_torch.models.blocks.refiner import LightWeightRefiner
 from patchrefinerv2_torch.models.int8 import (
     MIN_HW, MIN_KC, SCALES, Int8Calibration, calibration, record, serve,
@@ -106,16 +106,41 @@ class PRPlusNet(nn.Module):
     """The compute graph; the tiling orchestration lives in PatchRefinerPlus.
     In the pretraining stage it has no coarse branch: the refiner (with its
     decoder) and the fusion head run on hacked coarse features
-    (:meth:`pretrain_forward`)."""
+    (:meth:`pretrain_forward`).
 
-    def __init__(self, cfg):
+    ``v1``: PatchRefiner V1's graph (``patchrefinerv2_tpu/models/
+    patchrefiner.py:23-75``): the fine branch is a whole depth network like
+    the coarse one (ZoeDepth or DA2, built at the patch shape; it returns
+    its 6 levels and its depth and ignores the coarse depth, as
+    ``ZoeFineBranch`` does), the head FusionUnet, and the coarse branch
+    never trains."""
+
+    def __init__(self, cfg, v1: bool = False):
         super().__init__()
         self.min_depth, self.max_depth = cfg.min_depth, cfg.max_depth
         self.patch_process_shape = tuple(cfg.patch_process_shape)
         self.strategy_refiner_target = cfg.get("strategy_refiner_target", "offset_coarse")
         self.fusion_feat_level = cfg.get("fusion_feat_level", 6)
         self.remat = bool(cfg.get("remat", False))
-        self.e2e_training = bool(cfg.get("e2e_training", False))
+        self.v1 = v1
+        self.e2e_training = bool(cfg.get("e2e_training", False)) and not v1
+        if v1:
+            if cfg.get("pretrain_stage", False):
+                raise NotImplementedError("PatchRefiner V1 has no pretraining stage")
+            self.coarse_branch = build_coarse_branch(
+                cfg.coarse_branch, self.min_depth, self.max_depth, self.patch_process_shape)
+            fine, fus = dict(cfg.refiner.fine_branch), dict(cfg.refiner.fusion_model)
+            if fine.get("type") not in ("ZoeDepth", "DA2") or fus.get("type") != "FusionUnet":
+                raise NotImplementedError(
+                    "PatchRefiner V1's fine branch is a ZoeDepth or DA2 depth network and its "
+                    f"fusion model FusionUnet, got {fine.get('type')!r} and {fus.get('type')!r}")
+            self.refiner_fine_branch = build_coarse_branch(
+                fine, self.min_depth, self.max_depth, self.patch_process_shape)
+            in_chl = [c + f for c, f in zip(self.coarse_branch.coarse_chl,
+                                            self.refiner_fine_branch.coarse_chl)]
+            self.refiner_fusion_model = FusionUnet(
+                in_chl, **{k: tuple(v) for k, v in fus.items() if k in ("temp_chl", "dec_chl")})
+            return
         if cfg.get("pretrain_stage", False):
             # the hacked coarse features' widths, highest resolution first
             # (patchrefinerplus.py:320-328)
@@ -212,7 +237,11 @@ class PRPlusNet(nn.Module):
         cdt = imgs_crop.dtype
         coarse_pred_roi = coarse_pred_roi.to(cdt)
         coarse_feat_rois = [f.to(cdt) for f in coarse_feat_rois]
-        r_feats, r_depth = self._checkpointed(self.refiner_fine_branch, imgs_crop, coarse_pred_roi)
+        if self.v1:
+            out = self._checkpointed(self.refiner_fine_branch, imgs_crop)
+            r_feats, r_depth = out["coarse_features"], out["metric_depth"]
+        else:
+            r_feats, r_depth = self._checkpointed(self.refiner_fine_branch, imgs_crop, coarse_pred_roi)
         update_base = {"offset_fine": r_depth, "offset_coarse": coarse_pred_roi}.get(
             self.strategy_refiner_target)
         L = self.fusion_feat_level
@@ -269,6 +298,8 @@ class PatchRefinerPlus:
     ``device=None`` means the card, and raises when there is none. The
     network starts in eval mode; :meth:`train` switches it."""
 
+    v1 = False  # PatchRefiner V1's graph (``PRPlusNet(cfg, v1=True)``)
+
     def __init__(self, config: dict, device=None, seed: int = 0):
         self.device = resolve_device(device)
         cfg = ConfigDict._wrap(dict(config))
@@ -288,7 +319,7 @@ class PatchRefinerPlus:
         self.sigweight = float(cfg.get("sigweight", 1.0))
         self.pre_norm_bbox = bool(cfg.get("pre_norm_bbox", True))
         self.infer_dtype = _DTYPES[cfg.get("infer_dtype", "float32")]
-        net = PRPlusNet(cfg)
+        net = PRPlusNet(cfg, v1=self.v1)
         init_random_(net, torch.Generator().manual_seed(seed))
         self.net = net.to(self.device, memory_format=torch.channels_last).eval()
         if self.infer_dtype != torch.float32:

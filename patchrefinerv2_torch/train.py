@@ -3,11 +3,13 @@
     python -m patchrefinerv2_torch.train CONFIG --work-dir D [--cfg-option k=v ...]
                                          [--device cpu] [--seed S] [--resume-from P]
 
-It builds ``PatchRefinerPlus`` from the config's ``model`` (random weights
-from the seed, then the checkpoints the config names in ``pretrained`` or
-``whole_pretrained``; the port trains the refiner's pretraining stage,
-``configs/patchrefinerv2_zoedepth/pretrain_eff_m0s1.py``, and stage 3,
-``configs/patchrefinerv2_zoedepth/v2_eff_u4k.py``), the config's
+It builds the config's ``model`` by its ``type``, ``PatchRefinerPlus`` or
+``PatchRefiner`` (V1), with random weights from the seed, then the
+checkpoints the config names in ``pretrained`` or ``whole_pretrained``; the
+port trains the refiner's pretraining stage
+(``configs/patchrefinerv2_zoedepth/pretrain_eff_m0s1.py``), stage 3
+(``configs/patchrefinerv2_zoedepth/v2_eff_u4k.py``) and V1 with a ZoeDepth
+fine branch (``configs/patchrefiner_zoedepth/pr_u4k.py``). Then the config's
 train dataset (of the port's datasets, ``SyntheticDataset``:
 ``--cfg-option train_dataloader.dataset.type=SyntheticDataset``), a
 shuffled loader of its ``batch_size``, and runs ``Trainer.run``. The
@@ -28,7 +30,7 @@ import torch
 from patchrefinerv2_torch.config import Config
 from patchrefinerv2_torch.datasets.base import DataLoader
 from patchrefinerv2_torch.datasets.synthetic import SyntheticDataset
-from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
+from patchrefinerv2_torch.models.patchrefiner import build_model
 from patchrefinerv2_torch.training.trainer import Trainer
 from patchrefinerv2_torch.utils.logging import print_log
 
@@ -67,9 +69,7 @@ def main(argv=None) -> None:
     work_dir = args.work_dir or os.path.join(
         "./work_dir", os.path.splitext(os.path.basename(args.config))[0], args.tag)
 
-    if cfg.model.get("type", "PatchRefinerPlus") != "PatchRefinerPlus":
-        raise NotImplementedError(f"model {cfg.model.type!r} is not ported (PatchRefinerPlus is)")
-    model = PatchRefinerPlus(cfg.model.config, device=args.device, seed=args.seed)
+    model = build_model(cfg.model, device=args.device, seed=args.seed)
     train_loader = DataLoader(build_dataset(cfg.train_dataloader.dataset),
                               batch_size=cfg.train_dataloader.get("batch_size", 4), shuffle=True,
                               seed=args.seed)

@@ -65,16 +65,18 @@ def apply_config_pretrained(model) -> dict:
 
     A checkpoint is one of the port's (``state_dict`` of a training state,
     or a state dict). A missing or ``None`` path logs and keeps the random
-    init. ``pretrain_coarse_model`` (a ``BaselinePretrain`` checkpoint)
-    raises when its path exists: that model is not ported. Returns, per key
-    applied, the counts of tensors taken and kept."""
+    init. ``pretrain_coarse_model`` and PatchRefiner V1's
+    ``pretrain_fine_model`` (``BaselinePretrain`` checkpoints of a depth
+    network) raise when their path exists: that model is not ported.
+    Returns, per key applied, the counts of tensors taken and kept."""
     cfg = model.config
     report = {}
-    path = cfg.get("pretrain_coarse_model")
-    if path and os.path.exists(path):
-        raise NotImplementedError("pretrain_coarse_model needs BaselinePretrain, which is not ported")
-    if path:
-        print_log(f"pretrain_coarse_model={path} not found; keeping random init")
+    for key in ("pretrain_coarse_model", "pretrain_fine_model"):
+        path = cfg.get(key)
+        if path and os.path.exists(path):
+            raise NotImplementedError(f"{key} needs BaselinePretrain, which is not ported")
+        if path:
+            print_log(f"{key}={path} not found; keeping random init")
     for key in ("pretrained", "whole_pretrained"):
         path = cfg.get(key)
         if not path:

@@ -1,8 +1,8 @@
 """Load the JAX package's variables into the port.
 
 ``load_jax_params(model, variables)`` takes the ``{"params", "batch_stats"}``
-tree of the JAX ``PRPlusNet`` (as numpy arrays) and writes it into the
-port's modules, whose parameter names are the reference's torch state-dict
+tree of the JAX ``PRPlusNet`` (as numpy arrays; PatchRefinerPlus's or
+PatchRefiner V1's) and writes it into the port's modules, whose parameter names are the reference's torch state-dict
 keys. It is the inverse of the JAX package's checkpoint converter
 (``convert_patchrefinerplus``): a conv kernel (kh, kw, I, O) becomes
 (O, I, kh, kw), a dense kernel (I, O) becomes (O, I), a transposed-conv
@@ -303,14 +303,45 @@ def _fusion(sd: _SD, p: str, P) -> None:
     sd.conv(p + "final_conv", P["final_conv"])
 
 
+def _fusion_unet(sd: _SD, p: str, P) -> None:
+    """FusionUnet (the inverse of ``convert_fusion_unet``): ``enc1_i``/
+    ``enc2_i`` as ``encoder_layers_1/2.{i}``, ``dec_i`` as
+    ``decoder_layers.{i}``, ``final_conv``."""
+    i = 0
+    while f"enc1_{i}" in P:
+        for j in (1, 2):
+            _single_conv(sd, f"{p}encoder_layers_{j}.{i}.", P[f"enc{j}_{i}"])
+        i += 1
+    i = 0
+    while f"dec_{i}" in P:
+        _double_conv(sd, f"{p}decoder_layers.{i}.conv.", P[f"dec_{i}"]["DoubleConv_0"])
+        i += 1
+    sd.conv(p + "final_conv", P["final_conv"])
+
+
+def _depth_net(sd: _SD, p: str, P) -> None:
+    """A ZoeDepth (the BEiT MiDaS core under ``core.core`` and the bins head)
+    or a DepthAnythingV2 (``pretrained``, ``depth_head``) network: the
+    coarse branch, and PatchRefiner V1's fine branch, whose JAX tree is
+    ``ZoeFineBranch``'s ``inner`` (``convert_patchrefiner`` reads the
+    ZoeDepth one under ``refiner_fine_branch.``)."""
+    if "depth_head" in P:
+        _da2(sd, p, P)
+    else:
+        _beit_midas(sd, p + "core.core.", P["core"])
+        _zoe_head(sd, p, P["head"])
+
+
 def _prplusnet(sd: _SD, P, S) -> None:
     """The whole net; in the pretraining stage it has no coarse branch and
-    its refiner has a decoder."""
-    if "coarse" in P and "depth_head" in P["coarse"]:  # a DepthAnythingV2 coarse branch
-        _da2(sd, "coarse_branch.", P["coarse"])
-    elif "coarse" in P:  # ZoeDepth: the BEiT MiDaS core and the bins head
-        _beit_midas(sd, "coarse_branch.core.core.", P["coarse"]["core"])
-        _zoe_head(sd, "coarse_branch.", P["coarse"]["head"])
+    its refiner has a decoder. PatchRefiner V1's net has a depth network as
+    its fine branch and FusionUnet as its head."""
+    if "coarse" in P:
+        _depth_net(sd, "coarse_branch.", P["coarse"])
+    if "inner" in P["fine"]:
+        _depth_net(sd, "refiner_fine_branch.", P["fine"]["inner"])
+        _fusion_unet(sd, "refiner_fusion_model.", P["fusion"])
+        return
     _refiner(sd, "refiner_fine_branch.", P["fine"], S["fine"])
     _fusion(sd, "refiner_fusion_model.", P["fusion"])
 
@@ -342,6 +373,8 @@ PARTS = {
     "LightWeightRefiner": lambda sd, P, S: _refiner(sd, "", P, S),
     "SimpleDPTHead": lambda sd, P, S: _refiner_decoder(sd, "scratch.", P),
     "BiDirectionalFusion": lambda sd, P, S: _fusion(sd, "", P),
+    "FusionUnet": lambda sd, P, S: _fusion_unet(sd, "", P),
+    "ZoeFineBranch": lambda sd, P, S: _depth_net(sd, "", P["inner"]),
     "C2FModule": lambda sd, P, S: _fusion_c2f(sd, "", P),
     "GatedConvUnit": lambda sd, P, S: _gated_unit(sd, "", P),
     "GatedFusionBlock": lambda sd, P, S: _gated_block(sd, "", P),

@@ -42,6 +42,7 @@ print(json.dumps(sorted(sys.modules)))
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN_MODULES]
     assert not bad, bad
     assert "patchrefinerv2_torch.models.patchrefinerplus" in loaded
+    assert "patchrefinerv2_torch.models.patchrefiner" in loaded
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -65,6 +66,20 @@ def test_entry_point_without_device_raises_here():
         pytest.skip("this machine has a CUDA device: the default device is the card")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PatchRefinerPlus(slice_config())
+
+
+def test_v1_entry_points_without_device_raise_here():
+    """PatchRefiner V1, built directly or by the config's model type, needs
+    the card unless the caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default device is the card")
+    from patchrefinerv2_torch.models.patchrefiner import PatchRefiner, build_model
+    from tests.test_torch_v1 import v1_config
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PatchRefiner(v1_config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model({"type": "PatchRefiner", "config": v1_config()})
 
 
 def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
