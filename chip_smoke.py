@@ -130,7 +130,20 @@ Phases (each prints one or more lines; any failure exits non-zero):
    a tiny V1 m1 in the small GPU-vs-CPU check; V1's training sites in (A);
    after (E) three V1 training steps of batch 4 in float32 through
    ``Trainer.run`` (the coarse branch frozen: it must not move), timed and
-   profiled as in (B), and a tiny V1 step on the card against the CPU.
+   profiled as in (B), and a tiny V1 step on the card against the CPU;
+10. PatchRefinerSemi: K11 in float32 and K12 (the bounded hysteresis) at
+   the ranking loss's (4, 384, 512) on the canny of a seeded log-depth
+   batch (K12 bit for bit, then at 1xW, Hx1, sizes off its tile, batch 1,
+   an empty high mask, a snake longer than 128 pixels, 45 and 1 steps;
+   ``check_semi_kernels``); three steps of batch 4 through ``Trainer`` of
+   each of ``SEMI_CONFIGS`` (the flagship pair with the ranking loss and
+   with SSI + gradient match, and V1's pair with the ranking loss) on
+   1024x2048 synthetic frames, each step's launches held to the counts of
+   the student's and the teacher's modules (``semi_exact``: K11 and K12
+   once with the ranking loss), no plain call, every teacher parameter
+   decayed by AdamW's ``lr * wd`` alone (replayed, within an ulp), ms a
+   step, peak memory; and a tiny Semi step, online and offline, and the
+   student's m1 on the card against the CPU.
 
 The line before the last is one JSON object with a record per kernel: its
 launches in each main-path run and their sum, and its times, bound and
@@ -143,8 +156,9 @@ runs (``PATH_DTYPES``), with each path's own under ``<path>_<dtype>``
 ``train_v1_backward_f32`` (V1's: K2, K3, K6, K8, K9): their
 backwards over a step's sites, kept out of the sums, the error there
 relative to each gradient's magnitude); ``launches_by_run`` has
-``train_f32``, ``train_e2e_f32`` and ``v1_train_f32``, the launches of one
-step of each stage. The last line is ``{"ok": true, "device": {...}}``.
+``train_f32``, ``train_e2e_f32``, ``v1_train_f32`` and the three
+``semi_*_f32``, the launches of one step of each; K11 and K12 also record
+``semi_f32``, the Semi loss's shape. The last line is ``{"ok": true, "device": {...}}``.
 The script imports nothing of JAX. It exits non-zero and prints no result
 without a CUDA device or without the package beside it.
 """
@@ -231,7 +245,7 @@ PATH_DTYPES = {"flagship": ("bfloat16",), "da2": ("bfloat16",), "r32": ("bfloat1
                "cityscapes_eval": ("bfloat16", "float32", "float64"),
                "v1": ("bfloat16",), "v1_da2": ("bfloat16",),
                "train_backward": ("float32",), "train_e2e_backward": ("float32",),
-               "train_v1_backward": ("float32",)}
+               "train_v1_backward": ("float32",), "semi": ("float32",)}
 SHORT = {"bfloat16": "bf16", "float32": "f32", "float64": "f64"}
 
 
@@ -1548,6 +1562,7 @@ KERNEL_GROUPS = (
     ("K6 layer_norm", ("ln_rows",)),
     ("K7 blend", ("blend_add_kernel", "blend_finalize_kernel")),
     ("K11 canny", ("canny_nms_kernel",)),
+    ("K12 hysteresis", ("hysteresis_kernel",)),
     ("cudnn layout padding", ("nhwcaddpadding", "nchwtonhwc", "nhwctonchw")),
     ("gather and index", ("gather", "index", "scatter")),
     ("batch norm", ("batch_norm",)),
@@ -1578,6 +1593,7 @@ K_GROUP_WRAPPERS = {
     "K9 tail_conv": (("tail_conv",), True),
     "K10 quant_conv": (("quant_conv",), False),
     "K11 canny": (("canny_nms",), False),
+    "K12 hysteresis": (("hysteresis_bounded",), False),
 }
 
 
@@ -1674,8 +1690,8 @@ def profile_frame(fn, frame_ms: float, label: str, ranges=None) -> None:
 
 # kernels that the frames do not run: canny belongs to the evaluation, K10
 # to the int8 serving mode
-FRAME_IDLE_OK = ("canny_nms", "quant_conv")
-INT8_IDLE_OK = ("canny_nms",)
+FRAME_IDLE_OK = ("canny_nms", "hysteresis_bounded", "quant_conv")
+INT8_IDLE_OK = ("canny_nms", "hysteresis_bounded")
 QUANT_SITES_PER_CHUNK = sum(s[6] for s in quant_sites(32))  # 15
 # the head's int8 sites, which K10 takes from K9 in the int8 runs
 HEAD_INT8_SITES = sum(s[6] for s in quant_sites(32) if s[7] != "plain")  # 3
@@ -2305,8 +2321,8 @@ def cityscapes_eval(dev, config="configs/patchrefinerv2_zoedepth_cs/plus_eff_cs_
 
     model = build(dev, config, f"{label}cs")
     model.set_infer_dtype(torch.bfloat16)
-    idle_ok = ("quant_conv",) + (("gate_tail",) if model.net.refiner_fusion_model.kernel_calls()[
-        "gate_tail"] == 0 else ())
+    gate_idle = model.net.refiner_fusion_model.kernel_calls()["gate_tail"] == 0
+    idle_ok = ("quant_conv", "hysteresis_bounded") + (("gate_tail",) if gate_idle else ())
     counts = {}
     for mode in modes:
         ds = synthetic_cityscapes(2, model.patch_process_shape)
@@ -2912,14 +2928,17 @@ def pretrain_run(dev, config: str = PRETRAIN_CONFIG, label: str = "pretrain",
     return steps[0]
 
 
-def run_counted(tr, label: str, kernels, exact=None, moves=("bn_buffers", "params"), still=()) -> list:
-    """``tr.run()`` with the launch counters set to 0 just before each step
-    and read just after it: each kernel of ``kernels`` launches in every
-    step (``exact``: that many times), no other kernel and no plain version
-    runs; losses and gradients finite; then what ``moves`` names (the
-    parameters, the BatchNorm statistics, the coarse branch's parameters)
-    must have moved, what ``still`` names must not have, and a checkpoint
-    be written. Returns each step's counts."""
+def run_counted(tr, label: str, kernels, exact=None, moves=("bn_buffers", "params"), still=(),
+                epoch_only: bool = False, times=None) -> list:
+    """``tr.run()`` (``epoch_only``: ``tr.train_epoch``, no checkpoint) with
+    the launch counters set to 0 just before each step and read just after
+    it: each kernel of ``kernels`` launches in every step (``exact``: that
+    many times), no other kernel and no plain version runs; losses and
+    gradients finite; then what ``moves`` names (the parameters, the
+    BatchNorm statistics, the coarse branch's parameters) must have moved,
+    what ``still`` names must not have, and (unless ``epoch_only``) a
+    checkpoint be written. Returns each step's counts; each step's ms is
+    appended to ``times``."""
     import torch
 
     from patchrefinerv2_torch import ops
@@ -2935,12 +2954,15 @@ def run_counted(tr, label: str, kernels, exact=None, moves=("bn_buffers", "param
             out = step(batch)
             torch.cuda.synchronize()
         counts = ops.launch_counts()
+        ms = (time.time() - t0) * 1e3
+        if times is not None:
+            times.append(ms)
         losses = {k: float(v) for k, v in out.items()}
         finite = all(math.isfinite(v) for v in losses.values())
         grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in tr.model.net.parameters()
                            if p.grad is not None)
         steps.append(counts)
-        log({"phase": f"{label}_step_{len(steps)}", "ms": (time.time() - t0) * 1e3, "losses": losses,
+        log({"phase": f"{label}_step_{len(steps)}", "ms": ms, "losses": losses,
              "grads_finite": grads_finite, "plain_calls": plain.count, "launches": counts})
         idle = [k for k in kernels if counts[k] == 0]
         other = {k: v for k, v in counts.items() if k not in kernels and v}
@@ -2953,7 +2975,7 @@ def run_counted(tr, label: str, kernels, exact=None, moves=("bn_buffers", "param
 
     tr.train_step = counted
     t0 = time.time()
-    tr.run()
+    tr.train_epoch(tr.start_epoch) if epoch_only else tr.run()
     log({"phase": f"{label}_trainer_run", "seconds": time.time() - t0, "steps": tr.step})
     del tr.train_step
     after = tr.model.net.state_dict()
@@ -2963,7 +2985,7 @@ def run_counted(tr, label: str, kernels, exact=None, moves=("bn_buffers", "param
                  coarse_params=sum(k.startswith("coarse_branch.") for k in changed))
     log({"phase": f"{label}_moved", **moved, "of": len(before)})
     if not all(moved[k] for k in moves) or any(moved[k] for k in still) or \
-            not os.path.exists(os.path.join(tr.work_dir, "checkpoint_01")):
+            not (epoch_only or os.path.exists(os.path.join(tr.work_dir, "checkpoint_01"))):
         raise AssertionError(f"{label} moved {moved} or wrote no checkpoint")
     return steps
 
@@ -3194,6 +3216,261 @@ def v1_train_run(dev) -> dict:
     return steps[0]
 
 
+# the Semi training path's loss shape: the ranking loss's canny over the
+# pseudo labels of a batch of 4 at the 384x512 process size
+SEMI_LOSS_SHAPE = (4, 384, 512)
+
+
+def semi_canny_maps(dev, shape=SEMI_LOSS_SHAPE, seed: int = 6):
+    """``canny_masks`` of the loss (the float32 gradients and the low and
+    high masks) for a seeded log-depth map of ``shape`` with steps and
+    ramps."""
+    import torch
+
+    from patchrefinerv2_torch.models.losses_extra import canny_masks
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, h, w = shape
+    yy = torch.linspace(0, 1, h, device=dev)[:, None]
+    xx = torch.linspace(0, 1, w, device=dev)[None, :]
+    depth = 2.0 + 10.0 * torch.rand((b, 1, 1), generator=g, device=dev) * (yy + xx) \
+        + 4.0 * (xx > torch.rand((b, 1, 1), generator=g, device=dev)) \
+        + 0.5 * torch.rand(shape, generator=g, device=dev)
+    return canny_masks(torch.log(depth))
+
+
+def check_semi_kernels(chk: Checks, dev) -> None:
+    """K11 in float32 and K12 at the Semi loss's (4, 384, 512), each on the
+    canny of a seeded log-depth batch: K11's mask may differ from its plain
+    version's on at most 1e-4 of the pixels (float32 ties), K12's must equal
+    it bit for bit (the error is the share of pixels that differ). K12's
+    bound counts 3 bytes a pixel (two masks read, one written)."""
+    import torch
+
+    from patchrefinerv2_torch.ops.canny import (
+        canny_nms, canny_nms_plain, hysteresis_bounded, hysteresis_bounded_plain,
+    )
+
+    maps, low, high = semi_canny_maps(dev)
+    n = low.numel()
+    got, ref = canny_nms(*maps), canny_nms_plain(*maps)
+    chk.add("canny_nms", "semi", torch.float32, float((got != ref).double().mean()), 1e-4,
+            time_ms(lambda: canny_nms(*maps)), time_ms(lambda: canny_nms_plain(*maps)), None,
+            3 * n * 4 + n, 20 * n)
+    got, ref = hysteresis_bounded(low, high), hysteresis_bounded_plain(low, high)
+    chk.add("hysteresis_bounded", "semi", torch.float32, float((got != ref).double().mean()), 0.0,
+            time_ms(lambda: hysteresis_bounded(low, high)),
+            time_ms(lambda: hysteresis_bounded_plain(low, high), iters=3, warmup=1), None, 3 * n, 0)
+    log({"check": "semi canny masks", "low": int(low.sum()), "high": int(high.sum()),
+         "grown": int(ref.sum()), "of": n})
+    if not 0 < int(high.sum()) < int(ref.sum()) < int(low.sum()):
+        raise AssertionError("the Semi canny masks do not exercise the hysteresis")
+    hysteresis_edge_cases(dev)
+
+
+def hysteresis_snake(h: int, w: int, dev):
+    """A one-pixel-wide snake (horizontal runs joined at alternate ends,
+    longer than 128 pixels) as the low mask, its head as the high one."""
+    import torch
+
+    low = torch.zeros((1, h, w), dtype=torch.bool, device=dev)
+    for i, r in enumerate(range(2, h - 2, 4)):
+        low[0, r, 2:w - 2] = True
+        if r + 4 < h - 2:
+            low[0, r:r + 5, w - 3 if i % 2 == 0 else 2] = True
+    high = torch.zeros_like(low)
+    high[0, 2, 2] = True
+    return low, high
+
+
+def hysteresis_edge_cases(dev) -> None:
+    """K12 against its plain version, bit for bit: maps 1 pixel high and
+    wide, sizes that are not multiples of its 64x128 tile, batch 1, an
+    empty high mask, a snake longer than 128 pixels (which it must not
+    reach the end of), and step counts that are not multiples of 32."""
+    import torch
+
+    from patchrefinerv2_torch.ops.canny import hysteresis_bounded, hysteresis_bounded_plain
+
+    g = torch.Generator(device=dev).manual_seed(12)
+
+    def rand(shape, p):
+        return torch.rand(shape, generator=g, device=dev) < p
+
+    cases = {}
+    for name, shape in (("1xW", (2, 1, 700)), ("Hx1", (2, 300, 1)), ("odd 97x301", (3, 97, 301)),
+                        ("B=1 65x129", (1, 65, 129))):
+        low = rand(shape, 0.6)
+        cases[name] = (low, low & rand(shape, 0.03), 128)
+    low = rand((2, 70, 200), 0.6)
+    cases["empty high"] = (low, torch.zeros_like(low), 128)
+    cases["snake"] = (*hysteresis_snake(96, 300, dev), 128)
+    cases["45 steps"] = (low, low & rand(low.shape, 0.02), 45)
+    cases["1 step"] = (low, low & rand(low.shape, 0.02), 1)
+    for name, (low, high, steps) in cases.items():
+        got, ref = hysteresis_bounded(low, high, steps), hysteresis_bounded_plain(low, high, steps)
+        err = int((got != ref).sum())
+        log({"check": f"hysteresis_bounded {name}", "shape": list(low.shape), "steps": steps,
+             "grown": int(ref.sum()), "differ": err, "ok": err == 0})
+        if err:
+            raise AssertionError(f"hysteresis_bounded {name}: {err} pixels differ from the plain version")
+        if name == "snake" and not steps < int(ref.sum()) < int(low.sum()):
+            raise AssertionError("hysteresis_bounded reached the end of the snake")
+        if name == "empty high" and ref.any():
+            raise AssertionError("hysteresis_bounded grew an empty high mask")
+
+
+SEMI_CONFIGS = {  # label -> config of the Semi training phase
+    "semi_ranking": "configs/patchrefinerv2_zoedepth_cs/plus_eff_cs_semi_online_ranking_ft.py",
+    "semi_ssigm": "configs/patchrefinerv2_zoedepth_cs/plus_eff_cs_semi_online_ssigm_ft.py",
+    "semi_v1_ranking": "configs/patchrefiner_zoedepth_online_pesudo/pr_ranking_cs.py",
+}
+
+
+def semi_config(config: str, batch: int = 4, steps: int = 3):
+    """A Semi config over ``steps`` batches of SyntheticDataset frames of the
+    Cityscapes geometry (1024x2048 frames, 256x512 raw patches resized to
+    384x512), one epoch, no validation."""
+    from patchrefinerv2_torch.config import Config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = Config.fromfile(os.path.join(here, config))
+    cfg.merge_from_options({
+        "train_dataloader.dataset": dict(type="SyntheticDataset", mode="train", length=batch * steps,
+                                         image_raw_shape=[1024, 2048], patch_raw_shape=[256, 512],
+                                         network_process_size=[384, 512]),
+        "train_dataloader.batch_size": batch, "val_dataloader": None, "train_cfg.max_epochs": 1,
+        "train_cfg.log_interval": 1})
+    cfg["seed"] = 0
+    return cfg
+
+
+def semi_exact(model, ranking: bool) -> dict:
+    """The launches a Semi step makes of the kernels that launch a fixed
+    number of times: the student's and the teacher's forward each run K1
+    7 times and the modules' ``kernel_calls`` (a frame and a chunk) of K8
+    (and, V1, K3, K6 and K9); the ranking loss one K11 and one K12."""
+    per = {"roi_align": 7, "attractor_update": 4, "log_binomial_depth": 1}
+    if model.student.v1:
+        per_frame, per_chunk = v1_calls(model.student)
+        per.update({k: per_frame.get(k, 0) + per_chunk.get(k, 0) for k in V1_TRAIN_KERNELS
+                    if k not in ("resize", "roi_align")})
+    out = {k: 2 * v for k, v in per.items()}
+    out.update(canny_nms=int(ranking), hysteresis_bounded=int(ranking))
+    return out
+
+
+def semi_run(dev, label: str, config: str) -> dict:
+    """The Semi transfer stage (``config``: an online teacher of the
+    student's kind) at full width through ``Trainer``: 3 steps of batch 4
+    (384x512 images and crops, 256x512 crop depths, float32, TF32 off), the
+    launch counters set to 0 before each step and read after it: the
+    student's and the teacher's kernels in every step, those of
+    ``semi_exact`` exactly, no other kernel and no plain version; losses
+    and gradients finite; the student's parameters (and BatchNorm
+    statistics) move. Then the JAX optimizer's behaviour under Semi: every
+    teacher parameter decayed by AdamW's ``lr * wd`` alone, step by step
+    (replayed from its value before the run with the optimizer's own
+    operations: equal within an ulp); ms a step (the last two steps), peak
+    memory, K11 and K12 launches a step. Returns the first step's counts."""
+    import torch
+
+    tr = make_trainer(dev, semi_config(config), os.path.join(WORK_DIR, label))
+    model = tr.model
+    ranking = model.edgeloss_type == "EdgeguidedRankingLoss"
+    teacher0 = {k: p.detach().clone() for k, p in model.net.teacher.named_parameters()}
+    log({"phase": f"{label}_build", "config": config,
+         "student_params": sum(p.numel() for p in model.net.student.parameters()),
+         "teacher_params": sum(p.numel() for p in model.net.teacher.parameters()),
+         "edge_loss": model.edgeloss_type, "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+         "tf32_cudnn": torch.backends.cudnn.allow_tf32, "student_remat": model.student.net.remat})
+    exact = semi_exact(model, ranking)
+    kernels = {k for k, v in exact.items() if v} | {"resize", "layer_norm", "attention", "tail_conv"}
+    if not model.student.v1:
+        kernels.add("gate_tail")
+    torch.cuda.reset_peak_memory_stats()
+    t0, ms = time.time(), []
+    steps = run_counted(tr, label, sorted(kernels), exact,
+                        ("params",) if model.student.v1 else ("bn_buffers", "params"),
+                        epoch_only=True, times=ms)
+    peak = torch.cuda.max_memory_allocated()
+    lr = [float(tr.lr_schedule(i)) for i in range(tr.step)]
+    wd = tr.optimizer.wd
+    worst, leaves = 0.0, 0
+    for k, p in model.net.teacher.named_parameters():
+        want = [teacher0[k]]
+        for r in lr:  # AdamW's update with zero moments: u = p * wd * -lr * 1, p + u
+            torch._foreach_add_(want, torch._foreach_mul(torch._foreach_mul(
+                torch._foreach_mul(want, wd), -r), 1.0))
+        ulp = torch.finfo(torch.float32).eps * want[0].abs().clamp_min(1e-30)
+        worst = max(worst, float(((p.detach() - want[0]).abs() / ulp).max()))
+        leaves += 1
+    log({"phase": f"{label}_teacher_decay", "leaves": leaves, "lr": lr, "weight_decay": wd,
+         "worst_error_in_ulp": worst})
+    if worst > 1.0:
+        raise AssertionError(f"{label}: the teacher did not decay by lr * wd alone ({worst} ulp)")
+    warm = ms[1:]  # the first step warms the allocator and cuDNN
+    log({"phase": f"{label}_steps", "batch": 4, "ms_per_step": sum(warm) / len(warm), "ms": ms,
+         "images_per_s": 4e3 * len(warm) / sum(warm), "peak_gb": peak / 1e9,
+         "k11_per_step": steps[0]["canny_nms"], "k12_per_step": steps[0]["hysteresis_bounded"],
+         "seconds": time.time() - t0})
+    del tr, model, teacher0
+    torch.cuda.empty_cache()
+    return steps[0]
+
+
+def tiny_semi_gpu_vs_cpu(dev) -> None:
+    """One Semi step of the tiny flagship topology as the student with the
+    ranking loss (500 point pairs; the samples drawn once on the CPU and
+    moved to the card) on the card against the CPU, within
+    ``compare_train_steps``' bars and the edge loss within 1e-5: online (a
+    tiny teacher of random weights, whose flat pseudo label has no edge) and
+    offline on a pseudo label with steps, whose edges the loss samples; and
+    the student's m1 ``infer`` on both."""
+    import numpy as np
+    import torch
+
+    from patchrefinerv2_torch.models.patchrefiner_semi import PatchRefinerSemi
+
+    student = dict(type="PatchRefinerPlus", config=TINY_ZOE)
+    rng = np.random.RandomState(5)
+    batch = dict(image_lr=rng.rand(2, 48, 64, 3).astype(np.float32),
+                 crops_image_hr=rng.rand(2, 48, 64, 3).astype(np.float32),
+                 crop_depths=(1.0 + 20.0 * rng.rand(2, 72, 96, 1)).astype(np.float32),
+                 bboxs=np.array([[0.0, 0.0, 32.0, 24.0], [16.0, 16.0, 48.0, 40.0]], np.float32))
+    xx = np.linspace(0, 1, 64)[None, None, :, None]
+    pseudo = 2.0 + 6.0 * xx + 5.0 * (xx > np.array([0.3, 0.6])[:, None, None, None]) \
+        + 0.05 * rng.rand(2, 48, 64, 1)
+    lr, hr = rng.rand(1, 48, 64, 3).astype(np.float32), rng.rand(1, 96, 128, 3).astype(np.float32)
+    for online in (True, False):
+        cfg = dict(type="PatchRefinerSemi", model_cfg_student=student,
+                   model_cfg_teacher=student if online else None,
+                   edgeloss=dict(type="EdgeguidedRankingLoss", point_pairs=500), edge_loss_weight=1.0)
+        b = batch if online else dict(batch, pseudo_label=pseudo.astype(np.float32))
+        samples, out, depth = None, [], []
+        for d in ("cpu", dev):
+            m = PatchRefinerSemi(cfg, device=d, seed=3).train()
+            if samples is None:
+                with torch.no_grad():
+                    _, aux = m.loss(b)
+                    maps = m.edgeloss.maps(aux["depth_pred"], aux["pseudo_label"],
+                                           torch.as_tensor(b["crop_depths"]))
+                samples = m.edgeloss.sample(maps[2], maps[4], torch.Generator().manual_seed(7))
+            ld, _ = m.loss(b, update_stats=True, edge_samples={k: v.to(d) for k, v in samples.items()})
+            out.append((_step_result(m, ld), float(ld["edge_loss"].detach())))
+            m.eval()
+            depth.append(m.infer(lr, hr, "m1", process_num=4)[0].cpu())
+        (ref, edge_c), (got, edge_g) = out
+        err = float((depth[1] - depth[0]).abs().max()) / float(depth[0].abs().max())
+        label = f"tiny_semi_{'online' if online else 'offline'}"
+        log({"phase": f"{label}_edge_loss", "gpu": edge_g, "cpu": edge_c,
+             "edge_anchors": int(samples["any_edge"].sum()), "infer_m1_err_over_max": err})
+        compare_train_steps(f"{label}_gpu_vs_cpu", got, ref)
+        if not (abs(edge_g - edge_c) <= 1e-5 * abs(edge_c) and err <= 1e-4) or \
+                (not online and not (edge_c > 0 and samples["any_edge"].all())):
+            raise AssertionError(f"{label}: the edge loss or the student's m1 on the card disagrees")
+
+
 def record_resize_plans() -> dict:
     """Wrap ``ops/resize._launch_plan`` so that every later K2 launch counts
     its (channels, element bytes, vec, vstore) in the returned dict."""
@@ -3251,7 +3528,7 @@ def main() -> int:
 
     chk = Checks()
     for check in (check_kernels, check_new_kernels, check_gate_tail, check_tail_conv, check_quant_conv,
-                  check_v1_shapes, check_canny):
+                  check_v1_shapes, check_canny, check_semi_kernels):
         timed(check, chk, dev)
     timed(check_edge_cases, dev)
     plans = record_resize_plans()
@@ -3277,6 +3554,9 @@ def main() -> int:
         timed(tiny_train_gpu_vs_cpu, dev, MOBILE_PRETRAIN_CONFIG, "tiny_mobile_train")
         counts["v1_train_f32"] = timed(v1_train_run, dev)
         timed(tiny_v1_train_gpu_vs_cpu, dev)
+        for label, config in SEMI_CONFIGS.items():
+            counts[f"{label}_f32"] = timed(semi_run, dev, label, config)
+        timed(tiny_semi_gpu_vs_cpu, dev)
     finally:
         import shutil
 

@@ -61,11 +61,17 @@ _NO_INT8 = ("PatchRefiner V1's int8 mode is not ported: the JAX package's would 
 MODELS = {"PatchRefinerPlus": PatchRefinerPlus, "PatchRefiner": PatchRefiner}
 
 
-def build_model(model_cfg, device=None, seed: int = 0) -> PatchRefinerPlus:
+def build_model(model_cfg, device=None, seed: int = 0):
     """The model a config's ``model`` names (``type``, default
-    ``PatchRefinerPlus``, and ``config``), random weights from ``seed``, on
-    ``device`` (``None``: the card). Other types raise."""
+    ``PatchRefinerPlus``, and ``config``; ``PatchRefinerSemi`` takes the
+    whole dict), random weights from ``seed``, on ``device`` (``None``: the
+    card). Other types raise."""
     kind = model_cfg.get("type", "PatchRefinerPlus")
+    if kind == "PatchRefinerSemi":
+        from patchrefinerv2_torch.models.patchrefiner_semi import PatchRefinerSemi
+
+        return PatchRefinerSemi(model_cfg, device=device, seed=seed)
     if kind not in MODELS:
-        raise NotImplementedError(f"model {kind!r} is not ported ({', '.join(MODELS)} are)")
+        raise NotImplementedError(f"model {kind!r} is not ported "
+                                  f"({', '.join(MODELS)} and PatchRefinerSemi are)")
     return MODELS[kind](model_cfg["config"], device=device, seed=seed)

@@ -8,7 +8,7 @@ from __future__ import annotations
 from patchrefinerv2_torch.ops.attention import attention
 from patchrefinerv2_torch.ops.bins import attractor_update, log_binomial_depth
 from patchrefinerv2_torch.ops.blend import TileBlender
-from patchrefinerv2_torch.ops.canny import canny_nms
+from patchrefinerv2_torch.ops.canny import canny_nms, hysteresis_bounded
 from patchrefinerv2_torch.ops.gated import gate_tail
 from patchrefinerv2_torch.ops.layer_norm import layer_norm
 from patchrefinerv2_torch.ops.quant import quant_conv
@@ -53,6 +53,10 @@ KERNELS = {
     "canny_nms": dict(wrapper=canny_nms, route="cuda",
                       source="patchrefinerv2_torch/csrc/canny.cu",
                       replaces="patchrefinerv2_tpu/ops/canny.py:14"),
+    "hysteresis_bounded": dict(wrapper=hysteresis_bounded, route="cuda",
+                               source="patchrefinerv2_torch/csrc/hysteresis.cu",
+                               replaces="patchrefinerv2_tpu/models/losses_extra.py:129-134 "
+                                        "(with _dilate3x3 :81)"),
     "tail_conv": dict(wrapper=tail_conv, route="cuda",
                       source="patchrefinerv2_torch/csrc/tail_conv.cu",
                       replaces="patchrefinerv2_tpu/ops/s2d.py:114,139,156,190,198"),

@@ -29,7 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("roi_align", "resize", "blend", "attention", "gated_conv", "canny", "tail_conv",
-           "quant_conv", "bins")
+           "quant_conv", "bins", "hysteresis")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -115,9 +115,11 @@ def log_binom(n, k, eps: float = 1e-7):
 
 @functools.lru_cache(maxsize=16)
 def _log_binom_table(k: int, device) -> torch.Tensor:
-    """log_binom(K - 1, k) for k = 0 .. K - 1, float32: a constant of K."""
-    idx = torch.arange(k, dtype=torch.float32)
-    return log_binom(torch.tensor(k - 1, dtype=torch.float32), idx).to(device)
+    """log_binom(K - 1, k) for k = 0 .. K - 1, float32: a constant of K
+    (made outside inference mode, as ``resize._taps_on`` is)."""
+    with torch.inference_mode(False):
+        idx = torch.arange(k, dtype=torch.float32)
+        return log_binom(torch.tensor(k - 1, dtype=torch.float32), idx).to(device)
 
 
 def _log_binomial_logits(pt, n_bins: int, min_temp: float, max_temp: float):

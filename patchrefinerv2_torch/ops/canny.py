@@ -1,5 +1,7 @@
 """K11: canny non-maximum suppression, the counterpart of
-``patchrefinerv2_tpu/ops/canny.py`` (``canny_nms`` :14).
+``patchrefinerv2_tpu/ops/canny.py`` (``canny_nms`` :14), and K12: the
+bounded hysteresis of the training losses' canny
+(``patchrefinerv2_tpu/models/losses_extra.py:129-134``, ``_dilate3x3`` :81).
 
 skimage.feature.canny's bilinear-interpolated NMS over the four gradient
 sectors: a pixel is a local maximum when its magnitude is ``>=`` both
@@ -11,6 +13,14 @@ On a CUDA tensor :func:`canny_nms` launches ``csrc/canny.cu`` (float32 or
 float64) or raises; on a CPU tensor it runs :func:`canny_nms_plain`, a
 line-by-line transcription of the reference. ``canny_nms.launches`` counts
 the kernel launches.
+
+:func:`hysteresis_bounded` grows a high mask inside a low mask by ``steps``
+3x3 dilations (zero outside the map), each ANDed with the low mask: JAX's
+``fori_loop``, which reaches at most ``steps`` pixels along a weak chain. On
+a CUDA tensor it launches ``csrc/hysteresis.cu`` or raises; on a CPU tensor
+it runs :func:`hysteresis_bounded_plain`. It takes bool masks, which carry
+no gradient. ``hysteresis_bounded.launches`` counts the calls that launch
+the kernel.
 """
 
 from __future__ import annotations
@@ -20,7 +30,7 @@ import torch.nn.functional as F
 
 from patchrefinerv2_torch.ops import _cuda
 
-__all__ = ["canny_nms", "canny_nms_plain"]
+__all__ = ["canny_nms", "canny_nms_plain", "hysteresis_bounded", "hysteresis_bounded_plain"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
@@ -82,3 +92,44 @@ def canny_nms(isobel: torch.Tensor, jsobel: torch.Tensor, magnitude: torch.Tenso
 
 
 canny_nms.launches = 0
+
+
+def hysteresis_bounded_plain(low: torch.Tensor, high: torch.Tensor, steps: int = 128) -> torch.Tensor:
+    """Plain PyTorch version of :func:`hysteresis_bounded` (any device):
+    ``steps`` times a 3x3 max-pool of the mask (its padding never wins, so
+    the border is zero) ANDed with ``low``."""
+    h, w = high.shape[-2], high.shape[-1]
+    out = high.clone()
+    for _ in range(steps):
+        grown = F.max_pool2d(out.reshape(-1, 1, h, w).float(), 3, 1, 1).reshape(high.shape) > 0
+        out = low & grown
+    return out
+
+
+def hysteresis_bounded(low: torch.Tensor, high: torch.Tensor, steps: int = 128) -> torch.Tensor:
+    """``out = high``, then ``steps`` times ``out = low & dilate3x3(out)``
+    with zeros outside the map, over bool (..., H, W) masks of one shape.
+    No early exit: every step runs, as in JAX."""
+    if low.ndim < 2 or low.shape != high.shape:
+        raise ValueError(f"expected two (..., H, W) masks of one shape, got {tuple(low.shape)}, "
+                         f"{tuple(high.shape)}")
+    if low.dtype != torch.bool or high.dtype != torch.bool:
+        raise TypeError(f"hysteresis_bounded takes bool masks, got {low.dtype}, {high.dtype}")
+    if steps < 0:
+        raise ValueError(f"steps must be >= 0, got {steps}")
+    if _cuda.on_cpu(low):
+        return hysteresis_bounded_plain(low, high, steps)
+    _cuda.require_cuda(low, high)
+    if steps == 0 or low.numel() == 0:
+        return high.clone()
+    h, w = low.shape[-2:]
+    out, tmp = torch.empty_like(high), torch.empty_like(high)
+    fn = _cuda.bind("hysteresis", "prv2_hysteresis_bounded", 4, 4)
+    rc = fn(_cuda.ptr(low), _cuda.ptr(high), _cuda.ptr(out), _cuda.ptr(tmp), low.numel() // (h * w),
+            h, w, steps, 0, _cuda.stream_of(low))
+    _cuda.check(rc, "hysteresis_bounded")
+    hysteresis_bounded.launches += 1
+    return out
+
+
+hysteresis_bounded.launches = 0

@@ -131,7 +131,11 @@ def axis_taps(in_size: int, out_size: int, mode: str, align_corners: bool, scale
 @functools.lru_cache(maxsize=256)
 def _taps_on(in_size, out_size, mode, align_corners, scale, device):
     idx, w = axis_taps(in_size, out_size, mode, align_corners, scale)
-    return torch.from_numpy(idx).to(device), torch.from_numpy(w).to(device)
+    # cached for every later call: made outside inference mode, so that a
+    # first call under ``torch.inference_mode`` (``infer``) does not hand
+    # inference tensors to a later autograd graph
+    with torch.inference_mode(False):
+        return torch.from_numpy(idx).to(device), torch.from_numpy(w).to(device)
 
 
 @functools.lru_cache(maxsize=256)

@@ -3,16 +3,22 @@
     python -m patchrefinerv2_torch.train CONFIG --work-dir D [--cfg-option k=v ...]
                                          [--device cpu] [--seed S] [--resume-from P]
 
-It builds the config's ``model`` by its ``type``, ``PatchRefinerPlus`` or
-``PatchRefiner`` (V1), with random weights from the seed, then the
-checkpoints the config names in ``pretrained`` or ``whole_pretrained``; the
-port trains the refiner's pretraining stage
-(``configs/patchrefinerv2_zoedepth/pretrain_eff_m0s1.py``), stage 3
-(``configs/patchrefinerv2_zoedepth/v2_eff_u4k.py``) and V1 with a ZoeDepth
-fine branch (``configs/patchrefiner_zoedepth/pr_u4k.py``). Then the config's
+It builds the config's ``model`` by its ``type``, ``PatchRefinerPlus``,
+``PatchRefiner`` (V1) or ``PatchRefinerSemi``, with random weights from the
+seed, then the checkpoints the config names in ``pretrained``,
+``whole_pretrained`` or ``teacher_pretrain``; the port trains the refiner's
+pretraining stage (``configs/patchrefinerv2_zoedepth/pretrain_eff_m0s1.py``),
+stage 3 (``configs/patchrefinerv2_zoedepth/v2_eff_u4k.py``), V1 with a
+ZoeDepth fine branch (``configs/patchrefiner_zoedepth/pr_u4k.py``) and the
+Semi transfer with an online teacher
+(``configs/patchrefinerv2_zoedepth_cs/plus_eff_cs_semi_online_ranking_ft.py``;
+an offline config needs the dataset's ``pseudo_label``). Then the config's
 train dataset (of the port's datasets, ``SyntheticDataset``:
-``--cfg-option train_dataloader.dataset.type=SyntheticDataset``), a
-shuffled loader of its ``batch_size``, and runs ``Trainer.run``. The
+``--cfg-option train_dataloader.dataset.type=SyntheticDataset``, whose
+frames must have the model's ``image_raw_shape``: the Cityscapes configs
+keep theirs under ``transform_cfg``, so add
+``train_dataloader.dataset.image_raw_shape=[1024,2048]``), a shuffled
+loader of its ``batch_size``, and runs ``Trainer.run``. The
 validation dataset is skipped when it is not one the port has. It runs on
 the card unless ``--device cpu`` is given, and raises when there is none.
 Float32 matmuls and convolutions run without TF32 (set here, and printed).
@@ -69,8 +75,14 @@ def main(argv=None) -> None:
     work_dir = args.work_dir or os.path.join(
         "./work_dir", os.path.splitext(os.path.basename(args.config))[0], args.tag)
 
+    dataset = build_dataset(cfg.train_dataloader.dataset)
+    raw = tuple((cfg.model.get("model_cfg_student") or cfg.model).config.image_raw_shape)
+    if isinstance(dataset, SyntheticDataset) and tuple(dataset.image_raw_shape) != raw:
+        raise ValueError(f"the synthetic frames are {list(dataset.image_raw_shape)} but the model's "
+                         f"image_raw_shape is {list(raw)}: add --cfg-option "
+                         f"train_dataloader.dataset.image_raw_shape=[{raw[0]},{raw[1]}]")
     model = build_model(cfg.model, device=args.device, seed=args.seed)
-    train_loader = DataLoader(build_dataset(cfg.train_dataloader.dataset),
+    train_loader = DataLoader(dataset,
                               batch_size=cfg.train_dataloader.get("batch_size", 4), shuffle=True,
                               seed=args.seed)
     val_loader = None

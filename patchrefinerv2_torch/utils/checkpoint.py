@@ -68,7 +68,14 @@ def apply_config_pretrained(model) -> dict:
     init. ``pretrain_coarse_model`` and PatchRefiner V1's
     ``pretrain_fine_model`` (``BaselinePretrain`` checkpoints of a depth
     network) raise when their path exists: that model is not ported.
-    Returns, per key applied, the counts of tensors taken and kept."""
+    Returns, per key applied, the counts of tensors taken and kept.
+
+    A ``PatchRefinerSemi`` recurses into its student and teacher (their
+    reports under ``student.``/``teacher.``), then merges its
+    ``teacher_pretrain`` checkpoint into the teacher alike
+    (``patchrefinerv2_tpu/utils/checkpoint.py:118-145``)."""
+    if hasattr(model, "student"):
+        return _apply_semi(model)
     cfg = model.config
     report = {}
     for key in ("pretrain_coarse_model", "pretrain_fine_model"):
@@ -84,14 +91,37 @@ def apply_config_pretrained(model) -> dict:
         if not os.path.exists(path):
             print_log(f"{key}={path} not found; keeping random init")
             continue
-        ckpt = load_checkpoint(path)
-        sd = ckpt.get("state_dict", ckpt)
+        sd = load_checkpoint(path)
+        sd = sd.get("state_dict", sd)
         if key == "pretrained" and not cfg.get("load_whole", True):
             sd = {k: v for k, v in sd.items() if not k.startswith("coarse_branch.")}
-        own = model.net.state_dict()
-        merged, taken, skipped = merge_pretrained(own, sd)
-        model.net.load_state_dict(merged)
-        report[key] = dict(taken=len(taken), skipped=len(skipped), kept=len(own) - len(taken))
-        print_log(f"loaded {key} from {path}: {len(taken)} tensors taken, {len(skipped)} of the "
-                  f"checkpoint's skipped, {len(own) - len(taken)} of the network's kept")
+        report[key] = _merge_into(model.net, sd, key, path)
+    return report
+
+
+def _merge_into(net, sd: dict, key: str, path: str) -> dict:
+    """Merge the state dict ``sd`` into ``net`` by key and shape; returns
+    and logs the counts."""
+    own = net.state_dict()
+    merged, taken, skipped = merge_pretrained(own, sd)
+    net.load_state_dict(merged)
+    print_log(f"loaded {key} from {path}: {len(taken)} tensors taken, {len(skipped)} of the "
+              f"checkpoint's skipped, {len(own) - len(taken)} of the network's kept")
+    return dict(taken=len(taken), skipped=len(skipped), kept=len(own) - len(taken))
+
+
+def _apply_semi(model) -> dict:
+    report = {}
+    for who in ("student", "teacher"):
+        sub = getattr(model, who)
+        if sub is not None:
+            report.update({f"{who}.{k}": v for k, v in apply_config_pretrained(sub).items()})
+    path = model.teacher_pretrain
+    if path and model.teacher is not None:
+        if not os.path.exists(path):
+            print_log(f"teacher_pretrain={path} not found; keeping random init")
+        else:
+            sd = load_checkpoint(path)
+            report["teacher_pretrain"] = _merge_into(model.teacher.net, sd.get("state_dict", sd),
+                                                     "teacher_pretrain", path)
     return report

@@ -2,7 +2,9 @@
 
 ``load_jax_params(model, variables)`` takes the ``{"params", "batch_stats"}``
 tree of the JAX ``PRPlusNet`` (as numpy arrays; PatchRefinerPlus's or
-PatchRefiner V1's) and writes it into the port's modules, whose parameter names are the reference's torch state-dict
+PatchRefiner V1's; ``part="PatchRefinerSemi"``: the student's and the
+teacher's under ``{"student", "teacher"}``) and writes it into the port's
+modules, whose parameter names are the reference's torch state-dict
 keys. It is the inverse of the JAX package's checkpoint converter
 (``convert_patchrefinerplus``): a conv kernel (kh, kw, I, O) becomes
 (O, I, kh, kw), a dense kernel (I, O) becomes (O, I), a transposed-conv
@@ -356,10 +358,22 @@ def _refiner(sd: _SD, p: str, P, S) -> None:
         _refiner_decoder(sd, p + "decoder.scratch.", P["decoder"])
 
 
+def _semi(sd: _SD, P, S) -> None:
+    """PatchRefinerSemi's ``{"student", "teacher"}`` trees (the teacher
+    absent offline), each a ``PRPlusNet``'s, under ``student.`` and
+    ``teacher.``."""
+    for who in ("student", "teacher"):
+        if who in P:
+            sub = _SD()
+            _prplusnet(sub, P[who], S.get(who) or {})
+            sd.update({f"{who}.{k}": v for k, v in sub.items()})
+
+
 # JAX module -> how its variables ({params}, {batch_stats}) fill the port's
 # counterpart module's state dict
 PARTS = {
     "PRPlusNet": _prplusnet,
+    "PatchRefinerSemi": _semi,
     "MidasDPTBEiT": lambda sd, P, S: _beit_midas(sd, "", P),
     "ZoeDepthHead": lambda sd, P, S: _zoe_head(sd, "", P),
     "DinoViT": lambda sd, P, S: _dino_vit(sd, "", P),

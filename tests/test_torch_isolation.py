@@ -111,3 +111,33 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     for call in calls:
         with pytest.raises(ValueError, match="unsupported device"):
             call()
+
+
+def test_semi_modules_are_checked():
+    """PatchRefinerSemi's modules are among the sources checked above."""
+    names = {p.relative_to(PORT).as_posix() for p in _sources() if PORT in p.parents}
+    assert {"models/patchrefiner_semi.py", "models/losses_extra.py", "ops/canny.py"} <= names
+
+
+def test_semi_entry_points_without_device_raise_here():
+    """PatchRefinerSemi, built directly or by the config's model type, needs
+    the card unless the caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default device is the card")
+    from patchrefinerv2_torch.models.patchrefiner import build_model
+    from patchrefinerv2_torch.models.patchrefiner_semi import PatchRefinerSemi
+
+    cfg = dict(type="PatchRefinerSemi", edgeloss=dict(type="ScaleAndShiftInvariantLoss"),
+               model_cfg_student=dict(type="PatchRefinerPlus", config=slice_config()))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PatchRefinerSemi(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+
+
+def test_hysteresis_wrapper_takes_the_plain_version_only_on_the_cpu():
+    from patchrefinerv2_torch.ops import hysteresis_bounded
+
+    m = torch.empty((2, 4, 4), dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        hysteresis_bounded(m, m)
