@@ -132,10 +132,17 @@ Phases (each prints one or more lines; any failure exits non-zero):
    ``Trainer.run`` (the coarse branch frozen: it must not move), timed and
    profiled as in (B), and a tiny V1 step on the card against the CPU;
 10. PatchRefinerSemi: K11 in float32 and K12 (the bounded hysteresis) at
-   the ranking loss's (4, 384, 512) on the canny of a seeded log-depth
-   batch (K12 bit for bit, then at 1xW, Hx1, sizes off its tile, batch 1,
-   an empty high mask, a snake longer than 128 pixels, 45 and 1 steps;
-   ``check_semi_kernels``); three steps of batch 4 through ``Trainer`` of
+   the ranking loss's (4, 384, 512) (``check_semi_kernels``): K12 bit for
+   bit on three masks (the canny of a seeded log-depth batch, whose loop
+   exits early; a snake that runs all 128 steps; a dense random low mask
+   with a sparse high one), each by the resident kernel with 1, 2, 4 and 8
+   CTAs a plane and by the tiled kernel, its exit steps against the plain
+   loop's, with the latency floor of the steps' barriers in one CTA and in
+   clusters of 2, 4 and 8; a resident call must be one kernel event in the
+   profiler; then the edge cases by both kernels (1xW, Hx1, sizes off the
+   tiled kernel's tile, batch 1, planes either side of the resident
+   threshold, (1, 1024, 2048), an empty high mask, a snake longer than 128
+   pixels, 1, 45 and 128 steps); three steps of batch 4 through ``Trainer`` of
    each of ``SEMI_CONFIGS`` (the flagship pair with the ranking loss and
    with SSI + gradient match, and V1's pair with the ranking loss) on
    1024x2048 synthetic frames, each step's launches held to the counts of
@@ -158,7 +165,10 @@ backwards over a step's sites, kept out of the sums, the error there
 relative to each gradient's magnitude); ``launches_by_run`` has
 ``train_f32``, ``train_e2e_f32``, ``v1_train_f32`` and the three
 ``semi_*_f32``, the launches of one step of each; K11 and K12 also record
-``semi_f32``, the Semi loss's shape. The last line is ``{"ok": true, "device": {...}}``.
+``semi_f32``, the Semi loss's shape (K12 also its exit step, the tiled
+kernel's time, the latency floor and its time and exit step on the snake
+and the dense mask). The line before the device's name has the run's total
+seconds, the build included. The last line is ``{"ok": true, "device": {...}}``.
 The script imports nothing of JAX. It exits non-zero and prints no result
 without a CUDA device or without the package beside it.
 """
@@ -1562,7 +1572,7 @@ KERNEL_GROUPS = (
     ("K6 layer_norm", ("ln_rows",)),
     ("K7 blend", ("blend_add_kernel", "blend_finalize_kernel")),
     ("K11 canny", ("canny_nms_kernel",)),
-    ("K12 hysteresis", ("hysteresis_kernel",)),
+    ("K12 hysteresis", ("hysteresis_resident_kernel", "hysteresis_tiled_kernel")),
     ("cudnn layout padding", ("nhwcaddpadding", "nchwtonhwc", "nhwctonchw")),
     ("gather and index", ("gather", "index", "scatter")),
     ("batch norm", ("batch_norm",)),
@@ -3244,12 +3254,11 @@ def check_semi_kernels(chk: Checks, dev) -> None:
     canny of a seeded log-depth batch: K11's mask may differ from its plain
     version's on at most 1e-4 of the pixels (float32 ties), K12's must equal
     it bit for bit (the error is the share of pixels that differ). K12's
-    bound counts 3 bytes a pixel (two masks read, one written)."""
+    bound counts 3 bytes a pixel (two masks read, one written). Then K12 on
+    the three masks of ``hysteresis_masks`` and its edge cases."""
     import torch
 
-    from patchrefinerv2_torch.ops.canny import (
-        canny_nms, canny_nms_plain, hysteresis_bounded, hysteresis_bounded_plain,
-    )
+    from patchrefinerv2_torch.ops.canny import canny_nms, canny_nms_plain, hysteresis_bounded_plain
 
     maps, low, high = semi_canny_maps(dev)
     n = low.numel()
@@ -3257,15 +3266,109 @@ def check_semi_kernels(chk: Checks, dev) -> None:
     chk.add("canny_nms", "semi", torch.float32, float((got != ref).double().mean()), 1e-4,
             time_ms(lambda: canny_nms(*maps)), time_ms(lambda: canny_nms_plain(*maps)), None,
             3 * n * 4 + n, 20 * n)
-    got, ref = hysteresis_bounded(low, high), hysteresis_bounded_plain(low, high)
-    chk.add("hysteresis_bounded", "semi", torch.float32, float((got != ref).double().mean()), 0.0,
-            time_ms(lambda: hysteresis_bounded(low, high)),
-            time_ms(lambda: hysteresis_bounded_plain(low, high), iters=3, warmup=1), None, 3 * n, 0)
+    ref = hysteresis_bounded_plain(low, high)
     log({"check": "semi canny masks", "low": int(low.sum()), "high": int(high.sum()),
          "grown": int(ref.sum()), "of": n})
     if not 0 < int(high.sum()) < int(ref.sum()) < int(low.sum()):
         raise AssertionError("the Semi canny masks do not exercise the hysteresis")
+    times = {name: check_hysteresis_mask(name, lo, hi, dev)
+             for name, (lo, hi) in hysteresis_masks(low, high, dev).items()}
+    canny = times.pop("canny")
+    chk.add("hysteresis_bounded", "semi", torch.float32, canny["differ_share"], 0.0, canny["ms"],
+            canny["plain_ms"], None, 3 * n, 0,
+            extra={"exit_step": canny["exit_step"], "tiled_ms": canny["tiled_ms"],
+                   "latency_floor_ms": canny["floor_ms"],
+                   **{f"{name}_{k}": t[k] for name, t in times.items()
+                      for k in ("ms", "exit_step", "tiled_ms")}})
+    hysteresis_one_event(low, high)
     hysteresis_edge_cases(dev)
+
+
+def hysteresis_masks(low, high, dev) -> dict:
+    """K12's masks at the Semi loss's (4, 384, 512): the canny masks of
+    ``semi_canny_maps`` (weak chains a few pixels long: the loop leaves
+    early), a snake across each plane (one-pixel runs joined at alternate
+    ends, ~48 000 pixels long from one high pixel: every one of the 128
+    steps changes it) and a dense random low mask (60%) with a sparse high
+    one (0.1% of it)."""
+    import torch
+
+    b, h, w = low.shape
+    g = torch.Generator(device=dev).manual_seed(13)
+    dense = torch.rand(low.shape, generator=g, device=dev) < 0.6
+    sparse = dense & (torch.rand(low.shape, generator=g, device=dev) < 0.001)
+    snake_low, snake_high = hysteresis_snake(h, w, dev)
+    return {"canny": (low, high), "snake": (snake_low.expand(b, h, w).contiguous(),
+                                            snake_high.expand(b, h, w).contiguous()),
+            "dense": (dense, sparse)}
+
+
+def check_hysteresis_mask(name: str, low, high, dev) -> dict:
+    """K12 with the wrapper's plan, with each cluster size (the CTAs that
+    share a plane's reads and writes) and by the tiled kernel, bit for bit
+    against the plain version, each resident launch's exit steps equal to
+    the plain loop's (the first step that changes nothing); device ms of
+    each and of the plain version. The latency floor
+    (``hysteresis_latency_floor``): the plan's CTA running the 128 barrier
+    steps of its loop and no work; and the floor of steps shared by a
+    cluster of 2, 4 or 8 CTAs (their cluster barrier and flags a step)."""
+    import torch
+
+    from patchrefinerv2_torch.ops.canny import (
+        RESIDENT_CLUSTERS, hysteresis_bounded, hysteresis_bounded_plain, hysteresis_exit_steps_plain,
+        hysteresis_latency_floor, hysteresis_launch, hysteresis_plan,
+    )
+
+    b, h, w = low.shape
+    ref, want = hysteresis_bounded_plain(low, high), hysteresis_exit_steps_plain(low, high)
+    out = {"plain_ms": time_ms(lambda: hysteresis_bounded_plain(low, high), iters=3, warmup=1)}
+    plans = {f"cluster_{c}": hysteresis_plan(h, w, c) for c in RESIDENT_CLUSTERS}
+    plans["tiled"] = None
+    for label, plan in plans.items():
+        exits = None if plan is None else torch.full((b,), -1, dtype=torch.int32, device=dev)
+        got = hysteresis_launch(low, high, 128, plan, exits)
+        differ = int((got != ref).sum())
+        if differ or (exits is not None and not torch.equal(exits, want)):
+            raise AssertionError(f"hysteresis_bounded {name} {label}: {differ} pixels differ from the "
+                                 f"plain version, exit steps {exits} against {want.tolist()}")
+        out[f"{label}_ms"] = time_ms(lambda: hysteresis_launch(low, high, 128, plan))
+    plan = hysteresis_plan(h, w)
+    for c in RESIDENT_CLUSTERS:
+        out["floor_ms" if c == 1 else f"cluster_{c}_floor_ms"] = time_ms(
+            lambda: hysteresis_latency_floor(b, 128, plan._replace(cluster=c), dev))
+    got = hysteresis_bounded(low, high)
+    out.update(ms=time_ms(lambda: hysteresis_bounded(low, high)), exit_step=int(want.max()),
+               differ_share=float((got != ref).double().mean()))
+    log({"check": f"hysteresis_bounded {name}", "shape": [b, h, w], "plan": plan._asdict(),
+         "exit_steps": want.tolist(), "grown": int(ref.sum()), "low": int(low.sum()),
+         "high": int(high.sum()), **out})
+    if out["differ_share"]:
+        raise AssertionError(f"hysteresis_bounded {name} disagrees with its plain version")
+    if name == "snake" and not (want == 128).all():
+        raise AssertionError("the snake did not run all 128 steps")
+    return out
+
+
+def hysteresis_one_event(low, high) -> None:
+    """A resident call of K12 is one kernel on the card (torch.profiler),
+    and the (1, 1024, 2048) plane's tiled call ceil(128 / 32) = 4."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from patchrefinerv2_torch.ops.canny import hysteresis_bounded
+
+    big = torch.zeros((1, 1024, 2048), dtype=torch.bool, device=low.device)
+    events = {}
+    for label, (lo, hi), want in (("resident", (low, high), 1), ("tiled", (big, big), 4)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            hysteresis_bounded(lo, hi)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        events[label] = names
+        if len(names) != want or not all(f"hysteresis_{label}_kernel" in k for k in names):
+            raise AssertionError(f"a {label} K12 call made the kernel events {names}, not {want}")
+    log({"check": "hysteresis_bounded kernel events a call", **events})
 
 
 def hysteresis_snake(h: int, w: int, dev):
@@ -3284,13 +3387,19 @@ def hysteresis_snake(h: int, w: int, dev):
 
 
 def hysteresis_edge_cases(dev) -> None:
-    """K12 against its plain version, bit for bit: maps 1 pixel high and
-    wide, sizes that are not multiples of its 64x128 tile, batch 1, an
-    empty high mask, a snake longer than 128 pixels (which it must not
-    reach the end of), and step counts that are not multiples of 32."""
+    """K12 against its plain version, bit for bit, by the wrapper's plan and
+    by the tiled kernel: maps 1 pixel high and wide, sizes that are not
+    multiples of the tiled kernel's 64x128 tile, batch 1, an empty high
+    mask, a snake longer than 128 pixels (which it must not reach the end
+    of), 1, 45 and 128 steps, planes either side of the resident threshold
+    (1024 and 1025 pixels wide; 384 and 385 rows at 1024) and the
+    evaluation's (1, 1024, 2048); the resident launches' exit steps equal to
+    the plain loop's."""
     import torch
 
-    from patchrefinerv2_torch.ops.canny import hysteresis_bounded, hysteresis_bounded_plain
+    from patchrefinerv2_torch.ops.canny import (
+        hysteresis_bounded_plain, hysteresis_exit_steps_plain, hysteresis_launch, hysteresis_plan,
+    )
 
     g = torch.Generator(device=dev).manual_seed(12)
 
@@ -3298,25 +3407,37 @@ def hysteresis_edge_cases(dev) -> None:
         return torch.rand(shape, generator=g, device=dev) < p
 
     cases = {}
-    for name, shape in (("1xW", (2, 1, 700)), ("Hx1", (2, 300, 1)), ("odd 97x301", (3, 97, 301)),
-                        ("B=1 65x129", (1, 65, 129))):
+    for name, shape, steps in (("1xW", (2, 1, 700), 128), ("Hx1", (2, 300, 1), 128),
+                               ("odd 97x301", (3, 97, 301), 128), ("B=1 65x129", (1, 65, 129), 45),
+                               ("1024 wide", (2, 64, 1024), 128), ("1025 wide", (2, 64, 1025), 128),
+                               ("384x1024", (2, 384, 1024), 128), ("385x1024", (2, 385, 1024), 45),
+                               ("1024x2048", (1, 1024, 2048), 128)):
         low = rand(shape, 0.6)
-        cases[name] = (low, low & rand(shape, 0.03), 128)
+        cases[name] = (low, low & rand(shape, 0.03), steps)
     low = rand((2, 70, 200), 0.6)
     cases["empty high"] = (low, torch.zeros_like(low), 128)
     cases["snake"] = (*hysteresis_snake(96, 300, dev), 128)
     cases["45 steps"] = (low, low & rand(low.shape, 0.02), 45)
     cases["1 step"] = (low, low & rand(low.shape, 0.02), 1)
     for name, (low, high, steps) in cases.items():
-        got, ref = hysteresis_bounded(low, high, steps), hysteresis_bounded_plain(low, high, steps)
-        err = int((got != ref).sum())
-        log({"check": f"hysteresis_bounded {name}", "shape": list(low.shape), "steps": steps,
-             "grown": int(ref.sum()), "differ": err, "ok": err == 0})
-        if err:
-            raise AssertionError(f"hysteresis_bounded {name}: {err} pixels differ from the plain version")
+        ref = hysteresis_bounded_plain(low, high, steps)
+        want = hysteresis_exit_steps_plain(low, high, steps)
+        plan = hysteresis_plan(*low.shape[-2:])
+        for label, p in ((("resident", plan),) if plan else ()) + (("tiled", None),):
+            exits = None if p is None else torch.full((low.shape[0],), -1, dtype=torch.int32, device=dev)
+            got = hysteresis_launch(low, high, steps, p, exits)
+            err = int((got != ref).sum())
+            log({"check": f"hysteresis_bounded {name}", "path": label, "shape": list(low.shape),
+                 "steps": steps, "plan": p._asdict() if p else None, "grown": int(ref.sum()),
+                 "exit_steps": None if exits is None else exits.tolist(), "differ": err, "ok": err == 0})
+            if err or (exits is not None and not torch.equal(exits, want)):
+                raise AssertionError(f"hysteresis_bounded {name} ({label}): {err} pixels differ from the "
+                                     f"plain version, exit steps {exits} against {want.tolist()}")
+        if name.endswith(("1025 wide", "385x1024", "1024x2048")) == (plan is not None):
+            raise AssertionError(f"hysteresis_bounded {name}: plan {plan} on the wrong side of the threshold")
         if name == "snake" and not steps < int(ref.sum()) < int(low.sum()):
             raise AssertionError("hysteresis_bounded reached the end of the snake")
-        if name == "empty high" and ref.any():
+        if name == "empty high" and (ref.any() or want.any()):
             raise AssertionError("hysteresis_bounded grew an empty high mask")
 
 
@@ -3499,6 +3620,7 @@ def timed(fn, *args):
 
 
 def main() -> int:
+    t_start = time.time()
     import torch
 
     if not torch.cuda.is_available():
@@ -3568,6 +3690,7 @@ def main() -> int:
         kernels.append(dict(
             name=name, route=k["route"], source=k["source"], replaces=k["replaces"],
             launches=sum(by_run.values()), launches_by_run=by_run, **chk.record(name)))
+    log({"phase": "total", "seconds": time.time() - t_start})
     print(smi, flush=True)
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

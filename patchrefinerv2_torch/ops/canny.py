@@ -17,20 +17,25 @@ the kernel launches.
 :func:`hysteresis_bounded` grows a high mask inside a low mask by ``steps``
 3x3 dilations (zero outside the map), each ANDed with the low mask: JAX's
 ``fori_loop``, which reaches at most ``steps`` pixels along a weak chain. On
-a CUDA tensor it launches ``csrc/hysteresis.cu`` or raises; on a CPU tensor
-it runs :func:`hysteresis_bounded_plain`. It takes bool masks, which carry
-no gradient. ``hysteresis_bounded.launches`` counts the calls that launch
-the kernel.
+a CUDA tensor it launches ``csrc/hysteresis.cu`` (one kernel a call, by the
+plan :func:`hysteresis_plan` picks from the plane's size) or raises; on a
+CPU tensor it runs :func:`hysteresis_bounded_plain`. It takes bool masks,
+which carry no gradient. ``hysteresis_bounded.launches`` counts the calls
+that launch the kernel.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from patchrefinerv2_torch.ops import _cuda
 
-__all__ = ["canny_nms", "canny_nms_plain", "hysteresis_bounded", "hysteresis_bounded_plain"]
+__all__ = ["canny_nms", "canny_nms_plain", "hysteresis_bounded", "hysteresis_bounded_plain",
+           "hysteresis_exit_steps_plain", "hysteresis_plan", "hysteresis_launch",
+           "hysteresis_latency_floor"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
@@ -106,10 +111,122 @@ def hysteresis_bounded_plain(low: torch.Tensor, high: torch.Tensor, steps: int =
     return out
 
 
+def hysteresis_exit_steps_plain(low: torch.Tensor, high: torch.Tensor, steps: int = 128) -> torch.Tensor:
+    """For each (H, W) plane, the index of the first of the ``steps`` steps
+    of :func:`hysteresis_bounded_plain` that changes nothing (``steps`` if
+    each one does): the step at which the resident kernel leaves its loop.
+    int32, the shape of the masks' leading dimensions."""
+    h, w = high.shape[-2], high.shape[-1]
+    out = high.reshape(-1, h, w)
+    lo = low.reshape(-1, h, w)
+    exit_at = torch.full((out.shape[0],), steps, dtype=torch.int32, device=high.device)
+    for s in range(steps):
+        grown = lo & (F.max_pool2d(out[:, None].float(), 3, 1, 1)[:, 0] > 0)
+        same = (grown == out).flatten(1).all(1) & (exit_at == steps)
+        exit_at[same] = s
+        out = grown
+        if bool((exit_at < steps).all()):
+            break
+    return exit_at.reshape(high.shape[:-2])
+
+
+class HysteresisPlan(NamedTuple):
+    """The resident kernel's launch: a cluster of ``cluster`` CTAs a plane,
+    each reading and writing a share of its rows, of ``warps`` warps; the
+    first CTA runs the steps, each thread holding ``rows`` rows of one
+    32-pixel word column. A row's words lie on ``seg`` lanes (a power of
+    two), so a warp holds ``32 // seg`` bands of rows."""
+
+    cluster: int
+    rows: int
+    warps: int
+    seg: int
+
+
+# the rows a thread holds and the CTAs a plane may take: the resident
+# kernel's template instances and cluster sizes (csrc/hysteresis.cu,
+# prv2_hysteresis_bounded); a CTA has at most MAX_WARPS warps and a row at
+# most MAX_WORDS words (1024 pixels)
+RESIDENT_ROWS = (2, 4, 6, 8, 12)
+RESIDENT_CLUSTERS = (1, 2, 4, 8)
+MAX_WARPS = 32
+MAX_WORDS = 32
+# the CTAs that share a plane's reads and writes: the fastest of 1, 2, 4
+# and 8 at the loss's (4, 384, 512) on the H100 (PERF.md, K12)
+CLUSTER = 8
+
+
+def hysteresis_plan(h: int, w: int, cluster: int = CLUSTER) -> HysteresisPlan | None:
+    """The resident kernel's plan for an (h, w) plane: ``cluster`` CTAs, the
+    fewest rows a thread that one CTA of at most 32 warps holds the plane
+    with, and the warps that takes; None when no plan does (wider than 1024
+    pixels, or more rows than 32 warps of 12-row strips): such planes take
+    the tiled kernel."""
+    words = -(-w // 32)
+    if h < 1 or w < 1 or words > MAX_WORDS or cluster not in RESIDENT_CLUSTERS:
+        return None
+    seg = 1 << (words - 1).bit_length()
+    bands = 32 // seg  # bands of rows a warp
+    for rows in RESIDENT_ROWS:
+        warps = -(-h // (bands * rows))
+        if warps <= MAX_WARPS:
+            return HysteresisPlan(cluster, rows, warps, seg)
+    return None
+
+
+def hysteresis_launch(low: torch.Tensor, high: torch.Tensor, steps: int, plan: HysteresisPlan | None,
+                      exit_steps: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch K12 on bool (..., H, W) CUDA masks with ``plan`` (None: the
+    tiled kernel, every step run) and return the grown mask. ``exit_steps``
+    (resident plans only): an int32 CUDA tensor of one entry a plane that
+    gets the index of the first step that changed nothing (``steps`` if each
+    one did)."""
+    _cuda.require_cuda(low, high)
+    h, w = low.shape[-2:]
+    planes = low.numel() // (h * w) if h * w else 0
+    if steps < 1 or planes == 0:
+        raise ValueError(f"hysteresis_launch takes steps >= 1 and a nonempty mask, got {steps}, "
+                         f"{tuple(low.shape)}")
+    out = torch.empty_like(high)
+    if plan is None:
+        if exit_steps is not None:
+            raise ValueError("the tiled kernel runs every step and reports no exit step")
+        tmp, geometry = torch.empty_like(high), (0, 0, 0)
+    else:
+        if exit_steps is not None and (exit_steps.dtype != torch.int32 or exit_steps.numel() != planes
+                                       or not exit_steps.is_contiguous()):
+            raise ValueError(f"exit_steps must be {planes} contiguous int32 entries")
+        tmp, geometry = None, (plan.cluster, plan.rows, plan.warps)
+    fn = _cuda.bind("hysteresis", "prv2_hysteresis_bounded", 5, 7)
+    rc = fn(_cuda.ptr(low), _cuda.ptr(high), _cuda.ptr(out), _cuda.ptr(tmp), _cuda.ptr(exit_steps),
+            planes, h, w, steps, *geometry, 0, _cuda.stream_of(low))
+    _cuda.check(rc, "hysteresis_bounded")
+    hysteresis_bounded.launches += 1
+    return out
+
+
+def hysteresis_latency_floor(planes: int, steps: int, plan: HysteresisPlan, device) -> None:
+    """Launch ``planes`` clusters of ``plan.cluster`` CTAs of ``plan.warps``
+    warps running ``steps`` + 1 barrier steps and nothing else: with one
+    CTA, the resident kernel's loop without its work (the latency floor of
+    a chain of dependent steps); with more, the cluster barrier that steps
+    shared by the cluster's CTAs would take. Not a kernel of any path, not
+    counted."""
+    import ctypes
+
+    fn = _cuda.bind("hysteresis", "prv2_hysteresis_floor", 1, 4)
+    rc = fn(_cuda.ptr(None), planes, steps, plan.cluster, plan.warps, 0,
+            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    _cuda.check(rc, "hysteresis_latency_floor")
+
+
 def hysteresis_bounded(low: torch.Tensor, high: torch.Tensor, steps: int = 128) -> torch.Tensor:
     """``out = high``, then ``steps`` times ``out = low & dilate3x3(out)``
     with zeros outside the map, over bool (..., H, W) masks of one shape.
-    No early exit: every step runs, as in JAX."""
+    The resident kernel (planes of :func:`hysteresis_plan`) leaves its loop
+    at the first step that changes no pixel of a plane: every later step
+    would change nothing either, so the mask is JAX's after all ``steps``
+    steps, bit for bit; the tiled kernel runs every step."""
     if low.ndim < 2 or low.shape != high.shape:
         raise ValueError(f"expected two (..., H, W) masks of one shape, got {tuple(low.shape)}, "
                          f"{tuple(high.shape)}")
@@ -122,14 +239,7 @@ def hysteresis_bounded(low: torch.Tensor, high: torch.Tensor, steps: int = 128) 
     _cuda.require_cuda(low, high)
     if steps == 0 or low.numel() == 0:
         return high.clone()
-    h, w = low.shape[-2:]
-    out, tmp = torch.empty_like(high), torch.empty_like(high)
-    fn = _cuda.bind("hysteresis", "prv2_hysteresis_bounded", 4, 4)
-    rc = fn(_cuda.ptr(low), _cuda.ptr(high), _cuda.ptr(out), _cuda.ptr(tmp), low.numel() // (h * w),
-            h, w, steps, 0, _cuda.stream_of(low))
-    _cuda.check(rc, "hysteresis_bounded")
-    hysteresis_bounded.launches += 1
-    return out
+    return hysteresis_launch(low, high, steps, hysteresis_plan(*low.shape[-2:]))
 
 
 hysteresis_bounded.launches = 0

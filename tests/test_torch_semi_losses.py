@@ -15,10 +15,16 @@ versions.
   JAX's ``fori_loop`` of ``low & _dilate3x3(m)``; on a snake longer than 128
   pixels it stops where JAX stops, and differs from the evaluation's
   connected-component hysteresis (``metrics._hysteresis``); with no high
-  pixel it is empty. A numpy model of ``csrc/hysteresis.cu`` (its tile,
-  halo and step constants read from the source, the masks packed 32 pixels
-  to a word, the word formula of the kernel, the launches ping-ponging)
-  equals the plain version: the kernel's design is exact on the CPU too.
+  pixel it is empty. Numpy models of ``csrc/hysteresis.cu``'s two kernels
+  equal the plain version and JAX's loop, so that their designs are exact on
+  the CPU too: the resident kernel (``resident_model``: the cluster's row
+  shares, the leader's per-thread strips and row dilation by shuffles, the
+  edge rows between strips, the rows it skips and the step at which it
+  exits, which must be the plain loop's first step that changes nothing;
+  with each cluster size a plan may take) and the tiled one
+  (``tiled_model``: its tile, halo and step constants read from the source,
+  the launches ping-ponging), on the planes either side of the resident
+  threshold of ``hysteresis_plan``.
 - The ranking loss's body on JAX's own samples, drawn with JAX's key chain
   (``split(rng, b)``, ``split(key, 5)``, ``categorical``/``randint``/
   ``uniform``) from JAX's masks: the loss and the sample count within 1e-5,
@@ -27,6 +33,7 @@ versions.
   edges draws and is masked.
 """
 
+import functools
 import re
 from pathlib import Path
 
@@ -43,7 +50,10 @@ from patchrefinerv2_tpu.models import losses_extra as jle
 from patchrefinerv2_torch.evaluation.metrics import _hysteresis
 from patchrefinerv2_torch.models import losses as pl
 from patchrefinerv2_torch.models import losses_extra as ple
-from patchrefinerv2_torch.ops.canny import hysteresis_bounded, hysteresis_bounded_plain
+from patchrefinerv2_torch.ops.canny import (
+    RESIDENT_CLUSTERS, RESIDENT_ROWS, hysteresis_bounded, hysteresis_bounded_plain,
+    hysteresis_exit_steps_plain, hysteresis_plan,
+)
 from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 HW = (24, 32)
@@ -239,17 +249,18 @@ def test_hysteresis_wrong_inputs_raise():
         hysteresis_bounded(m, m[:3])
 
 
-def kernel_constants() -> dict:
+def tiled_constants() -> dict:
     src = (Path(__file__).resolve().parent.parent / "patchrefinerv2_torch/csrc/hysteresis.cu").read_text()
     return {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1)) for k in ("S", "TW", "TH")}
 
 
-def kernel_model(low, high, steps):
-    """``csrc/hysteresis.cu`` in numpy: per launch (at most S steps), every
-    block's region (TW + 2 words by TH + 2S rows) packed into uint32 words
-    (bit j = pixel 32 c + j, 0 outside the map), the kernel's word formula
-    for each step, the inner tile unpacked into the destination."""
-    k = kernel_constants()
+def tiled_model(low, high, steps):
+    """``csrc/hysteresis.cu``'s tiled kernel (the planes no resident plan
+    holds) in numpy: per launch (at most S steps), every block's region (TW
+    + 2 words by TH + 2S rows) packed into uint32 words (bit j = pixel 32 c +
+    j, 0 outside the map), the kernel's word formula for each step, the
+    inner tile unpacked into the destination."""
+    k = tiled_constants()
     s_max, tw, th = k["S"], k["TW"], k["TH"]
     rw, rh = tw + 2, th + 2 * s_max
     b, h, w = low.shape
@@ -293,21 +304,199 @@ def kernel_model(low, high, steps):
     return src
 
 
-@pytest.mark.parametrize("case,steps", [("random", 128), ("random", 70), ("snake", 128),
-                                        ("odd", 33), ("odd", 1)])
-def test_hysteresis_kernel_model_matches_plain(case, steps):
-    """The tiles, halo and word arithmetic of the CUDA kernel give the plain
-    version's mask at sizes that are and are not multiples of its tile."""
-    if case == "random":
-        low, high = random_masks(17, (2, 150, 300))
-    elif case == "snake":
-        low, high = snake(70, 140)
-    else:
-        low, high = random_masks(18, (1, 65, 129))
+def resident_model(low, high, steps, plan):
+    """``csrc/hysteresis.cu``'s resident kernel in numpy, thread by thread.
+    The ``plan.cluster`` CTAs of a plane each pack rows [r * per, (r + 1) *
+    per) (per = ceil(H / CTAs)) of both masks, 32 pixels a word (bit j =
+    pixel 32 c + j, 0 outside the map), into the leader's stage; the
+    leader's thread t (of ``plan.warps * 32``) holds word column c = t % seg
+    of rows y0 .. y0 + R - 1, y0 = (t // seg) * R, and each row dilated along
+    the row (``h``, by __shfl_up/__shfl_down within segments of seg lanes: a
+    lane's own word at the segment's ends, cleared by the lane masks, and
+    funnel shifts). A step: each thread's first and last ``h`` stored into
+    the edge slots of the threads above and below (double buffered); the
+    plane leaves the loop when no warp changed a row in the previous step;
+    a lane recomputes the rows next to a row its warp changed and its first
+    / last row when the edge above / below it differs from the one it read
+    in the previous step; its warp ORs the rows its lanes changed and
+    recomputes their ``h``. Asserts that no skipped row would have changed.
+    Returns the mask and each plane's exit step (the first step that changed
+    nothing, ``steps`` if each one did)."""
+    cl, rr, warps, seg = plan
+    b, h, w = low.shape
+    nt = warps * 32
+    t = np.arange(nt)
+    c = t % seg
+    ys = (t // seg)[:, None] * rr + np.arange(rr)  # (nt, R)
+    assert (nt // seg) * rr >= h and seg * 32 >= w
+    per = -(-h // cl)
+    shares = [(min(h, r * per), min(h, (r + 1) * per)) for r in range(cl)]
+    assert shares[0][0] == 0 and shares[-1][1] == h and all(
+        a[1] == n[0] for a, n in zip(shares, shares[1:]))  # the CTAs' rows partition the plane
+    bits = np.uint32(1) << np.arange(32, dtype=np.uint32)
+
+    def stage(m):  # the words the CTAs write into the leader's stage, (b, H, seg)
+        px = np.zeros((b, h, seg * 32), bool)
+        px[:, :, :w] = m
+        return (px.reshape(b, h, seg, 32) * bits).sum(-1, dtype=np.uint32)
+
+    def strips(words):  # (b, nt, R): the leader's registers, 0 past the plane
+        return np.where(ys < h, words[:, np.minimum(ys, h - 1), c[:, None]], np.uint32(0))
+
+    lo, cur = strips(stage(low)), strips(stage(high))
+    ones = np.uint32(0xFFFFFFFF)
+    lm = np.where(c > 0, ones, np.uint32(0))[:, None]
+    rm = np.where(c < seg - 1, ones, np.uint32(0))[:, None]
+    up_src = np.where(c > 0, t - 1, t)  # __shfl_up_sync(w, 1, seg): the lane's own word at the start
+    down_src = np.where(c < seg - 1, t + 1, t)
+    one, sh31 = np.uint32(1), np.uint32(31)
+
+    def hdil(x):  # (b, nt, R) -> each word dilated along its row
+        left, right = x[:, up_src] & lm, x[:, down_src] & rm
+        return x | ((x << one) | (left >> sh31)) | ((x >> one) | (right << sh31))
+
+    hd = hdil(cur)
+    edge = np.zeros((2, b, nt, 2), np.uint32)  # [p][b][t]: (x: the row above, y: below)
+    up = np.zeros((b, nt), np.uint32)
+    down = np.zeros((b, nt), np.uint32)
+    rows = np.ones((b, warps, rr), bool)  # step 0 computes every row
+    running = np.ones(b, bool)
+    exit_at = np.full(b, steps)
+    warp = t // 32
+    for s in range(steps + 1):
+        p = s & 1
+        edge[p][:, :nt - seg, 1] = hd[:, seg:, 0]  # thread t >= seg: its first row, to t - seg
+        edge[p][:, seg:, 0] = hd[:, :nt - seg, rr - 1]
+        stop = running & ~rows.any((1, 2))
+        exit_at[stop] = s - 1
+        running &= ~stop
+        if s == steps or not running.any():
+            break
+        ex, ey = edge[p][..., 0], edge[p][..., 1]
+        spread = rows.copy()
+        spread[..., 1:] |= rows[..., :-1]
+        spread[..., :-1] |= rows[..., 1:]
+        need = spread[:, warp].copy()  # (b, nt, R)
+        need[..., 0] |= ex != up
+        need[..., rr - 1] |= ey != down
+        need &= running[:, None, None]
+        up, down = ex, ey
+        hs = np.concatenate([ex[..., None], hd, ey[..., None]], -1)
+        new = lo & (hs[..., :-2] | hs[..., 1:-1] | hs[..., 2:])
+        differ = new != cur
+        assert not (differ & ~need & running[:, None, None]).any(), "a skipped row would change"
+        cur = np.where(need, new, cur)
+        rows = (differ & need).reshape(b, warps, 32, rr).any(2)
+        hd = np.where(rows[:, warp], hdil(cur), hd)
+    out = np.zeros((b, (nt // seg) * rr, seg), np.uint32)
+    out[:, ys, c[:, None]] = cur
+    px = ((out[..., None] >> np.arange(32, dtype=np.uint32)) & 1).astype(bool)
+    return px.reshape(b, -1, seg * 32)[:, :h, :w], exit_at
+
+
+def plain_exit(low, high, steps):
+    return hysteresis_exit_steps_plain(torch.from_numpy(low), torch.from_numpy(high), steps).numpy()
+
+
+def inverted_thresholds(seed, shape):
+    """A high mask not inside the low one (the thresholds swapped)."""
+    rng = np.random.RandomState(seed)
+    return rng.rand(*shape) < 0.5, rng.rand(*shape) < 0.1
+
+
+MODEL_CASES = {  # name -> (low, high), steps
+    "random": (random_masks(17, (2, 150, 300)), 128),
+    "random, 70 steps": (random_masks(17, (2, 150, 300)), 70),
+    "snake": (snake(70, 140), 128),
+    "odd, 33 steps": (random_masks(18, (1, 65, 129)), 33),
+    "odd, 1 step": (random_masks(18, (1, 65, 129)), 1),
+    "empty high": ((random_masks(19, (2, 40, 96))[0], np.zeros((2, 40, 96), bool)), 128),
+    "short chains": ((lambda r: (r.rand(3, 64, 200) < 0.25, r.rand(3, 64, 200) < 0.03))(
+        np.random.RandomState(20)), 128),
+    "snake past 128": (snake(), 128),
+    "45 steps": (random_masks(13, (3, 20, 33)), 45),
+    "inverted thresholds": (inverted_thresholds(21, (2, 33, 70)), 128),
+    "one pixel wide": (random_masks(15, (2, 30, 1)), 128),
+    "one pixel high": (random_masks(22, (2, 1, 700)), 128),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def model_reference(case):
+    """The plain version's mask, JAX's loop's and the plain exit steps."""
+    (low, high), steps = MODEL_CASES[case]
     ref = hysteresis_bounded_plain(torch.from_numpy(low), torch.from_numpy(high), steps).numpy()
-    np.testing.assert_array_equal(kernel_model(low, high, steps), ref)
-    if case == "snake":
-        assert steps < ref.sum() < low.sum()  # the chain is longer than the steps
+    np.testing.assert_array_equal(ref, jax_hysteresis(low, high, steps))
+    return ref, plain_exit(low, high, steps)
+
+
+@pytest.mark.parametrize("cluster", RESIDENT_CLUSTERS)
+@pytest.mark.parametrize("case", list(MODEL_CASES))
+def test_hysteresis_resident_model_matches_plain(case, cluster):
+    """The resident kernel's strips, shuffles, edge buffers, skipped warps
+    and exit give the plain version's (and JAX's) mask, with the cluster
+    sizes it may take, and leave the loop at the plain loop's first step
+    that changes nothing."""
+    (low, high), steps = MODEL_CASES[case]
+    plan = hysteresis_plan(*low.shape[1:], cluster=cluster)
+    assert plan is not None and plan.cluster == cluster
+    ref, want_exit = model_reference(case)
+    got, exit_at = resident_model(low, high, steps, plan)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(exit_at, want_exit)
+    if case == "empty high":
+        assert (exit_at == 0).all() and not got.any()
+    elif case == "short chains":
+        assert 0 < exit_at.max() < 32 and got.sum() > (high & low).sum()
+    elif case in ("snake", "snake past 128"):
+        assert (exit_at == steps).all() and steps < ref.sum() < low.sum()  # cut at 128 steps
+    elif case == "inverted thresholds":
+        assert (high & ~low).any() and not (got & ~low).any()
+
+
+# planes either side of the resident threshold: the widest and the tallest
+# planes a plan holds, and one pixel more (3 steps keep the CPU's work small)
+THRESHOLD_PLANES = {"1024 wide": (6, 1024), "1025 wide": (6, 1025),
+                    "384 x 1024": (384, 1024), "385 x 1024": (385, 1024)}
+
+
+@pytest.mark.parametrize("name", list(THRESHOLD_PLANES))
+def test_hysteresis_threshold_planes_match_plain(name):
+    """Either side of the resident threshold the wrapper's plan (the
+    resident kernel, or None: the tiled one) gives the plain version's and
+    JAX's mask."""
+    h, w = THRESHOLD_PLANES[name]
+    low, high = random_masks(23, (1, h, w))
+    plan = hysteresis_plan(h, w)
+    assert (plan is None) == name.startswith(("1025", "385"))
+    ref = hysteresis_bounded_plain(torch.from_numpy(low), torch.from_numpy(high), 3).numpy()
+    np.testing.assert_array_equal(ref, jax_hysteresis(low, high, 3))
+    got = tiled_model(low, high, 3) if plan is None else resident_model(low, high, 3, plan)[0]
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_hysteresis_plan_is_instantiated():
+    """Every plan fits the kernel's limits and its leader covers the plane,
+    each rows count a plan can take is a template instance of the source
+    and each cluster size one it launches."""
+    src = (Path(__file__).resolve().parent.parent / "patchrefinerv2_torch/csrc/hysteresis.cu").read_text()
+    rows = {int(r) for r in re.findall(r"case (\d+): err = launch_resident<\1>", src)}
+    clusters = {int(c) for c in re.findall(r"case (\d+): return \(int\)launch\(hysteresis_floor_kernel<\1>", src)}
+    assert rows == set(RESIDENT_ROWS) and clusters == set(RESIDENT_CLUSTERS)
+    assert "cluster < 1 || cluster > 8" in src
+    for h in (1, 2, 63, 64, 65, 384, 385, 768, 769, 1000, 2048, 12288, 12289):
+        for w in (1, 31, 32, 33, 301, 512, 1000, 1024, 1025):
+            for cluster in RESIDENT_CLUSTERS:
+                plan = hysteresis_plan(h, w, cluster)
+                words = -(-w // 32)
+                seg = 1 << (words - 1).bit_length()
+                if plan is None:  # wider than 1024 or more rows than 32 warps of 12-row strips
+                    assert words > 32 or h > 32 * (32 // seg) * max(RESIDENT_ROWS)
+                    continue
+                assert plan.seg == seg and plan.warps <= 32 and plan.cluster == cluster
+                assert plan.warps * (32 // seg) * plan.rows >= h
+                assert plan.rows == min(r for r in RESIDENT_ROWS if -(-h // ((32 // seg) * r)) <= 32)
+    assert hysteresis_plan(384, 512, 1) == (1, 6, 32, 16)
 
 
 # ------------------------------------------------------------ the ranking loss
