@@ -17,7 +17,9 @@ Phases (each prints one or more lines; any failure exits non-zero):
    patch, the blend of 16 raw patches and finalize at raw size); the
    metrics' float32 prediction resizes to the gt shape; canny_nms at the
    evaluation's (1, 1024, 2048) in float64, where the masks must be equal,
-   and float32; K5 ``gate_tail`` at the 10 sites of a 16-patch chunk of
+   and float32, in its NMS mode and its mask mode (the eroded mask and both
+   thresholds in the launch), timed in turns beside the unfused path (the
+   NMS launch and the eager epilogue) and at each row count; K5 ``gate_tail`` at the 10 sites of a 16-patch chunk of
    the flagship and DA2 frames in float32 and bfloat16, gate on, and gate
    off at the head's shape (``check_gate_tail``); K9 ``tail_conv`` at each
    of its 9 sites in the 16- and 8-patch chunks of every path
@@ -46,7 +48,9 @@ Phases (each prints one or more lines; any failure exits non-zero):
    float32 and bfloat16 and each shape of the bfloat16 kernel's blocks; the
    gate off, other row counts (one tile of the bfloat16 kernel and one row
    either side) in float32 and bfloat16, normed / exp / sum attractors, canny
-   ties, zero gradients and maps one pixel wide or high); and the shapes
+   ties, zero gradients and maps one pixel wide or high in both modes, and
+   canny at widths and heights either side of its column strips and row
+   bands on its vector and scalar paths); and the shapes
    PatchRefiner V1 gives the kernels (``check_v1_shapes``: its fine depth
    network runs on every 16-patch chunk, so K3 or K4, K6, K8 and the DPT
    neck's K2 meet batch 16, and FusionUnet's K2, K6 and K9 sites);
@@ -131,7 +135,8 @@ Phases (each prints one or more lines; any failure exits non-zero):
    after (E) three V1 training steps of batch 4 in float32 through
    ``Trainer.run`` (the coarse branch frozen: it must not move), timed and
    profiled as in (B), and a tiny V1 step on the card against the CPU;
-10. PatchRefinerSemi: K11 in float32 and K12 (the bounded hysteresis) at
+10. PatchRefinerSemi: K11 in float32 in both modes (the mask mode over the
+   interior, as the loss runs it) and K12 (the bounded hysteresis) at
    the ranking loss's (4, 384, 512) (``check_semi_kernels``): K12 bit for
    bit on three masks (the canny of a seeded log-depth batch, whose loop
    exits early; a snake that runs all 128 steps; a dense random low mask
@@ -142,7 +147,9 @@ Phases (each prints one or more lines; any failure exits non-zero):
    profiler; then the edge cases by both kernels (1xW, Hx1, sizes off the
    tiled kernel's tile, batch 1, planes either side of the resident
    threshold, (1, 1024, 2048), an empty high mask, a snake longer than 128
-   pixels, 1, 45 and 128 steps); three steps of batch 4 through ``Trainer`` of
+   pixels, 1, 45 and 128 steps); the ranking loss at that shape on a pseudo
+   label with edges against the CPU with the same samples, K11 and K12 once
+   a call (``ranking_loss_on_edges``); three steps of batch 4 through ``Trainer`` of
    each of ``SEMI_CONFIGS`` (the flagship pair with the ranking loss and
    with SSI + gradient match, and V1's pair with the ranking loss) on
    1024x2048 synthetic frames, each step's launches held to the counts of
@@ -165,7 +172,8 @@ backwards over a step's sites, kept out of the sums, the error there
 relative to each gradient's magnitude); ``launches_by_run`` has
 ``train_f32``, ``train_e2e_f32``, ``v1_train_f32`` and the three
 ``semi_*_f32``, the launches of one step of each; K11 and K12 also record
-``semi_f32``, the Semi loss's shape (K12 also its exit step, the tiled
+``semi_f32``, the Semi loss's shape (K11 its mask mode's time with the NMS
+mode's, the unfused path's and each row count's as extras; K12 also its exit step, the tiled
 kernel's time, the latency floor and its time and exit step on the snake
 and the dense mask). The line before the device's name has the run's total
 seconds, the build included. The last line is ``{"ok": true, "device": {...}}``.
@@ -1242,30 +1250,104 @@ def quant_edge_cases(dev, g) -> None:
                     raise AssertionError(f"{name} ({dt}): kernel and plain version disagree: {err}")
 
 
+def unfused_masks(maps, lo: float, hi: float, region=None):
+    """The callers' (low, high) masks as the port computed them before K11's
+    mask mode: the NMS launch, then the epilogue in eager ops (the loss's
+    interior built in two)."""
+    import torch
+
+    from patchrefinerv2_torch.ops.canny import canny_nms
+
+    lm, mag = canny_nms(*maps), maps[2]
+    if region is None:
+        region = torch.zeros(mag.shape, dtype=torch.bool, device=mag.device)
+        region[..., 1:-1, 1:-1] = True
+    lm = lm & region & (mag > 0)
+    return lm & (mag >= lo), lm & (mag >= hi)
+
+
+def check_k11(chk: Checks, path: str, maps, lo: float, hi: float, region=None, main: bool = True) -> None:
+    """K11 on the (B, H, W) ``maps`` in both modes against the plain
+    versions: float64 bit for bit, float32 at most 1e-4 of the pixels
+    differing (the error is the share of pixels whose mask differs; the
+    counts are logged). Recorded: the mask mode, which the path runs, with
+    the NMS mode's time, plain time and bound, the unfused path's time (the
+    NMS launch and the old eager epilogue; timed in turns with the mask
+    mode: fused, unfused, unfused, fused), each row count's and the scalar
+    path's time as extras. Bounds count each map read once (3 x 4 or 8
+    bytes a pixel) and each mask written once (1 byte; the mask mode 2,
+    and 1 more read with a ``region``)."""
+    import torch
+
+    from patchrefinerv2_torch.ops import _cuda
+    from patchrefinerv2_torch.ops.canny import (
+        NMS_ROWS, canny_nms, canny_nms_masks, canny_nms_masks_plain, canny_nms_plain, canny_nms_plan,
+        nms_launch,
+    )
+
+    mag = maps[2]
+    dt, n, eb = mag.dtype, mag.numel(), mag.element_size()
+    h, w = mag.shape[-2:]
+    tol = 0.0 if dt == torch.float64 else 1e-4
+    lm, ref = canny_nms(*maps), canny_nms_plain(*maps)
+    nms_differ = int((lm != ref).sum())
+    nms_ms, nms_plain_ms = time_ms(lambda: canny_nms(*maps)), time_ms(lambda: canny_nms_plain(*maps))
+    chk.add("canny_nms", path, dt, nms_differ / n, tol, nms_ms, nms_plain_ms, None, 3 * n * eb + n, 20 * n,
+            main=False, extra={"mode": "nms"})
+    (low, high), (r_low, r_high) = (canny_nms_masks(*maps, lo, hi, region),
+                                    canny_nms_masks_plain(*maps, lo, hi, region))
+    differ = int(((low != r_low) | (high != r_high)).sum())
+    def fused():
+        return canny_nms_masks(*maps, lo, hi, region)
+
+    def unfused():
+        return unfused_masks(maps, lo, hi, region)
+
+    turns = [time_ms(f) for f in (fused, unfused, unfused, fused)]
+    fused_ms, unfused_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    extra = {"nms_ms": nms_ms, "nms_plain_ms": nms_plain_ms,
+             "nms_bound_ms": bound_ms(3 * n * eb + n, 20 * n)[0], "unfused_ms": unfused_ms,
+             **{f"rows_{r}_ms": time_ms(lambda r=r: nms_launch(*maps, True, lo, hi, region, rows=r))
+                for r in NMS_ROWS},
+             "scalar_ms": time_ms(lambda: nms_launch(*maps, True, lo, hi, region, vector=False))}
+    chk.add("canny_nms", path, dt, differ / n, tol, fused_ms,
+            time_ms(lambda: canny_nms_masks_plain(*maps, lo, hi, region)), None,
+            3 * n * eb + 2 * n + (n if region is not None else 0), 20 * n, main=main,
+            extra={**extra, "mode": "masks"} if not main else extra)
+    log({"check": "canny_nms pixels", "path": path, "dtype": str(dt)[6:], "shape": list(mag.shape),
+         "region": "mask" if region is not None else "interior", "nms_differ": nms_differ,
+         "masks_differ": differ, "of": n, "local_maxima": int(ref.sum()), "low": int(r_low.sum()),
+         "high": int(r_high.sum()), "rows": canny_nms_plan(n // (h * w), h, w, _cuda.sms(mag.device)),
+         "fused_ms_turns": [turns[0], turns[3]], "unfused_ms_turns": [turns[1], turns[2]]})
+    if not 0 < int(r_high.sum()) < int(r_low.sum()) < int(ref.sum()):
+        raise AssertionError(f"K11's masks at {tuple(mag.shape)} do not exercise both thresholds")
+
+
 def check_canny(chk: Checks, dev) -> None:
     """K11 at the evaluation's shape, one (1, 1024, 2048) Cityscapes frame:
     the Sobel gradients of a seeded random smooth map, in float64 (the
     evaluation's dtype: the masks must equal the plain version's) and in
     float32 (at most 1e-4 of the pixels may differ; logged, not recorded
-    for the path). The error is the share of pixels whose mask differs."""
+    for the path), by ``check_k11``: the evaluation's form of the mask mode,
+    over the eroded mask of a map with a hole, the thresholds the 60% and
+    90% quantiles of the magnitude."""
     import torch
+    import torch.nn.functional as F
 
     from patchrefinerv2_torch.evaluation.metrics import _gaussian_filter, _sobel
-    from patchrefinerv2_torch.ops.canny import canny_nms, canny_nms_plain
 
     g = torch.Generator(device=dev).manual_seed(4)
     x = _gaussian_filter(torch.randn((1024, 2048), generator=g, device=dev, dtype=torch.float64), 2.0)
     gi, gj = _sobel(x, 0).contiguous(), _sobel(x, 1).contiguous()
     maps64 = [t[None] for t in (gi, gj, torch.hypot(gi, gj))]
-    for dt, tol in ((torch.float64, 0.0), (torch.float32, 1e-4)):
-        maps = [t.to(dt).contiguous() for t in maps64]
-        got, ref = canny_nms(*maps), canny_nms_plain(*maps)
-        err = float((got != ref).double().mean())
-        n = ref.numel()
-        chk.add("canny_nms", "cityscapes_eval", dt, err, tol, time_ms(lambda: canny_nms(*maps)),
-                time_ms(lambda: canny_nms_plain(*maps)), None,
-                3 * n * torch.finfo(dt).bits // 8 + n, 20 * n, main=dt == torch.float64)
-        log({"check": "canny_nms local maxima", "dtype": str(dt), "count": int(ref.sum()), "of": n})
+    lo, hi = (float(q) for q in torch.quantile(maps64[2].flatten()[::8], torch.tensor(
+        [0.6, 0.9], dtype=torch.float64, device=dev)))
+    mask = torch.ones((1, 1024, 2048), dtype=torch.float64, device=dev)
+    mask[:, 300:500, 800:1200] = 0.0
+    eroded = (1 - F.max_pool2d(1 - F.pad(mask, (1, 1, 1, 1))[None], 3, stride=1))[0] > 0
+    for dt in (torch.float64, torch.float32):
+        check_k11(chk, "cityscapes_eval", [t.to(dt).contiguous() for t in maps64], lo, hi, eroded,
+                  main=dt == torch.float64)
 
 
 def check_edge_cases(dev) -> None:
@@ -1533,10 +1615,14 @@ def canny_edge_cases(dev, g) -> list:
     """(name, kernel mask, plain mask) as float: exact ties (small integer
     gradients, a flat magnitude, pure axis and diagonal directions), all-zero
     gradients, maps 1 pixel wide or high and several maps in a batch, in
-    float64 and float32."""
+    float64 and float32, each in the NMS mode and in the mask mode over the
+    interior and over a random region (thresholds at magnitudes the maps
+    hold). Then ``canny_boundary_cases``."""
     import torch
 
-    from patchrefinerv2_torch.ops.canny import canny_nms, canny_nms_plain
+    from patchrefinerv2_torch.ops.canny import (
+        canny_nms, canny_nms_masks, canny_nms_masks_plain, canny_nms_plain,
+    )
 
     def ints(shape):
         return torch.randint(-2, 3, shape, generator=g, device=dev).double()
@@ -1553,11 +1639,73 @@ def canny_edge_cases(dev, g) -> list:
     }
     cases = []
     for name, m in maps.items():
+        region = torch.rand(m[2].shape, generator=g, device=dev) < 0.8
         for dt in (torch.float64, torch.float32):
             m_dt = [t.to(dt).contiguous() for t in m]
             cases.append((f"canny_nms {name} {str(dt)[6:]}", canny_nms(*m_dt).float(),
                           canny_nms_plain(*m_dt).float()))
+            for form, r in (("interior", None), ("region", region)):
+                got = canny_nms_masks(*m_dt, 1.0, 1.5, r)
+                ref = canny_nms_masks_plain(*m_dt, 1.0, 1.5, r)
+                cases += [(f"canny_nms_masks {name} {form} {which} {str(dt)[6:]}", a.float(), b.float())
+                          for which, a, b in zip(("low", "high"), got, ref)]
+    canny_boundary_cases(dev, g)
     return cases
+
+
+def canny_boundary_cases(dev, g) -> None:
+    """K11 in both modes (the interior and a random region) with each row
+    count R, on the vector path where the width allows it and on the scalar
+    path, at batch 3, widths 1, 3, 127, 128, 129, 257, 512 and 513 and heights
+    1, R - 1, R and R + 1 (normal gradients, thresholds 0.5 and 1.5), and
+    through the wrappers on maps that start 4 or 8 bytes off a 16-byte
+    boundary (the scalar path): float64 bit for bit, float32 at most 1e-4
+    of all the pixels differing (the counts are logged)."""
+    import torch
+
+    from patchrefinerv2_torch.ops.canny import (
+        NMS_ROWS, canny_nms, canny_nms_masks, canny_nms_masks_plain, canny_nms_plain, nms_launch,
+        nms_vector_path,
+    )
+
+    differ = {torch.float64: 0, torch.float32: 0}
+    pixels = {torch.float64: 0, torch.float32: 0}  # mask pixels compared
+    launches = 0
+
+    def compare(dt, got, ref):
+        differ[dt] += sum(int((a != b).sum()) for a, b in zip(got, ref))
+        pixels[dt] += sum(a.numel() for a in got)
+
+    for rows in NMS_ROWS:
+        for h in sorted({1, rows - 1, rows, rows + 1}):
+            for w in (1, 3, 127, 128, 129, 257, 512, 513):
+                m64 = [torch.randn((3, h, w), generator=g, device=dev, dtype=torch.float64) for _ in range(2)]
+                m64.append(torch.hypot(*m64))
+                region = torch.rand((3, h, w), generator=g, device=dev) < 0.8
+                for dt in differ:
+                    m = [t.to(dt).contiguous() for t in m64]
+                    refs = ([canny_nms_plain(*m)], canny_nms_masks_plain(*m, 0.5, 1.5),
+                            canny_nms_masks_plain(*m, 0.5, 1.5, region))
+                    for vector in (True, False) if nms_vector_path(w, *m, region) else (False,):
+                        compare(dt, [nms_launch(*m, rows=rows, vector=vector)], refs[0])
+                        compare(dt, nms_launch(*m, True, 0.5, 1.5, rows=rows, vector=vector), refs[1])
+                        compare(dt, nms_launch(*m, True, 0.5, 1.5, region, rows=rows, vector=vector), refs[2])
+                        launches += 3
+    for dt in differ:  # rows off a 16-byte boundary: the wrappers take the scalar path
+        flat = torch.randn((2 * 3 * 40 * 512 + 1,), generator=g, device=dev, dtype=dt)
+        gi, gj = flat[1:].view(2, 3, 40, 512)
+        m = [gi, gj, torch.hypot(gi, gj)]
+        if nms_vector_path(512, *m):
+            raise AssertionError("an offset view should not take K11's vector path")
+        compare(dt, [canny_nms(*m)], [canny_nms_plain(*m)])
+        compare(dt, canny_nms_masks(*m, 0.5, 1.5), canny_nms_masks_plain(*m, 0.5, 1.5))
+        launches += 2
+    share = differ[torch.float32] / pixels[torch.float32]
+    log({"check": "canny_nms boundary shapes", "launches": launches, "pixels_f64": pixels[torch.float64],
+         "pixels_f32": pixels[torch.float32],
+         "differ_f64": differ[torch.float64], "differ_f32": differ[torch.float32], "f32_share": share})
+    if differ[torch.float64] or share > 1e-4:
+        raise AssertionError(f"K11 disagrees with its plain version at the boundary shapes: {differ}")
 
 
 # kernel-name fragments -> the layer they belong to (first match wins)
@@ -3231,41 +3379,45 @@ def v1_train_run(dev) -> dict:
 SEMI_LOSS_SHAPE = (4, 384, 512)
 
 
-def semi_canny_maps(dev, shape=SEMI_LOSS_SHAPE, seed: int = 6):
-    """``canny_masks`` of the loss (the float32 gradients and the low and
-    high masks) for a seeded log-depth map of ``shape`` with steps and
-    ramps."""
+def semi_depth(dev, shape=SEMI_LOSS_SHAPE, seed: int = 6):
+    """A seeded (B, H, W) depth batch with ramps and a step in each map, a
+    little noise on top: a pseudo label with canny edges."""
     import torch
-
-    from patchrefinerv2_torch.models.losses_extra import canny_masks
 
     g = torch.Generator(device=dev).manual_seed(seed)
     b, h, w = shape
     yy = torch.linspace(0, 1, h, device=dev)[:, None]
     xx = torch.linspace(0, 1, w, device=dev)[None, :]
-    depth = 2.0 + 10.0 * torch.rand((b, 1, 1), generator=g, device=dev) * (yy + xx) \
+    return 2.0 + 10.0 * torch.rand((b, 1, 1), generator=g, device=dev) * (yy + xx) \
         + 4.0 * (xx > torch.rand((b, 1, 1), generator=g, device=dev)) \
         + 0.5 * torch.rand(shape, generator=g, device=dev)
-    return canny_masks(torch.log(depth))
+
+
+def semi_canny_maps(dev, shape=SEMI_LOSS_SHAPE, seed: int = 6):
+    """``canny_masks`` of the loss (the float32 gradients and the low and
+    high masks) for the log of ``semi_depth``'s batch."""
+    import torch
+
+    from patchrefinerv2_torch.models.losses_extra import canny_masks
+
+    return canny_masks(torch.log(semi_depth(dev, shape, seed)))
 
 
 def check_semi_kernels(chk: Checks, dev) -> None:
     """K11 in float32 and K12 at the Semi loss's (4, 384, 512), each on the
-    canny of a seeded log-depth batch: K11's mask may differ from its plain
-    version's on at most 1e-4 of the pixels (float32 ties), K12's must equal
-    it bit for bit (the error is the share of pixels that differ). K12's
+    canny of a seeded log-depth batch: K11 in both modes by ``check_k11``
+    (the loss's form of the mask mode: the interior, thresholds 0.1 and
+    0.2; at most 1e-4 of the pixels may differ from the plain version's),
+    K12 bit for bit (the error is the share of pixels that differ). K12's
     bound counts 3 bytes a pixel (two masks read, one written). Then K12 on
     the three masks of ``hysteresis_masks`` and its edge cases."""
     import torch
 
-    from patchrefinerv2_torch.ops.canny import canny_nms, canny_nms_plain, hysteresis_bounded_plain
+    from patchrefinerv2_torch.ops.canny import hysteresis_bounded_plain
 
     maps, low, high = semi_canny_maps(dev)
     n = low.numel()
-    got, ref = canny_nms(*maps), canny_nms_plain(*maps)
-    chk.add("canny_nms", "semi", torch.float32, float((got != ref).double().mean()), 1e-4,
-            time_ms(lambda: canny_nms(*maps)), time_ms(lambda: canny_nms_plain(*maps)), None,
-            3 * n * 4 + n, 20 * n)
+    check_k11(chk, "semi", maps, 0.1, 0.2)
     ref = hysteresis_bounded_plain(low, high)
     log({"check": "semi canny masks", "low": int(low.sum()), "high": int(high.sum()),
          "grown": int(ref.sum()), "of": n})
@@ -3282,6 +3434,52 @@ def check_semi_kernels(chk: Checks, dev) -> None:
                       for k in ("ms", "exit_step", "tiled_ms")}})
     hysteresis_one_event(low, high)
     hysteresis_edge_cases(dev)
+
+
+def ranking_loss_on_edges(dev) -> None:
+    """The Semi ranking loss at full size on a pseudo label with edges:
+    ``EdgeguidedRankingLoss`` as ``SEMI_CONFIGS["semi_ranking"]`` configures
+    it (10000 point pairs), float32 at (4, 384, 512), the pseudo label
+    ``semi_depth``'s batch and the prediction a seeded perturbation of it.
+    The samples are drawn once on the CPU (from the CPU's edges) and given
+    to both sides. The loss on the card must be within 1e-5 of the CPU's
+    (relative), its canny must find edge pixels, and one call must launch
+    K11 and K12 once each; the edge pixels and the call's device ms are
+    logged."""
+    import torch
+
+    from patchrefinerv2_torch import ops
+    from patchrefinerv2_torch.config import Config
+    from patchrefinerv2_torch.models.losses import build_loss
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    loss = build_loss(Config.fromfile(os.path.join(here, SEMI_CONFIGS["semi_ranking"])).model.edgeloss)
+    depth = semi_depth(dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    pred = (depth * (1.0 + 0.05 * torch.randn(depth.shape, generator=g, device=dev)))[..., None]
+    target = depth[..., None]
+    cpu = (pred.cpu(), target.cpu())
+    maps = loss.maps(*cpu)
+    samples = loss.sample(maps[2], maps[4], torch.Generator().manual_seed(7))
+    ref, ref_count = (float(v) for v in loss(*cpu, samples=samples))
+    on_card = {k: v.to(dev) for k, v in samples.items()}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    got, count = loss(pred, target, samples=on_card)
+    got, count = float(got), float(count)
+    counts = ops.launch_counts()
+    edges = int(loss.maps(pred, target)[2].sum())
+    ms = time_ms(lambda: loss(pred, target, samples=on_card))
+    log({"phase": "semi_ranking_loss_on_edges", "shape": list(depth.shape), "point_pairs": loss.point_pairs,
+         "loss": got, "loss_cpu": ref, "rel_err": abs(got - ref) / abs(ref), "samples": count,
+         "samples_cpu": ref_count, "edge_pixels": edges, "edge_pixels_cpu": int(maps[2].sum()),
+         "k11": counts["canny_nms"], "k12": counts["hysteresis_bounded"], "device_ms": ms})
+    if not (abs(got - ref) <= 1e-5 * abs(ref) and ref > 0 and edges > 0):
+        raise AssertionError(f"the ranking loss on the card ({got}, {edges} edge pixels) disagrees with "
+                             f"the CPU's ({ref})")
+    if counts["canny_nms"] != 1 or counts["hysteresis_bounded"] != 1:
+        raise AssertionError(f"a ranking loss call launched K11 {counts['canny_nms']} and K12 "
+                             f"{counts['hysteresis_bounded']} times, not once each")
 
 
 def hysteresis_masks(low, high, dev) -> dict:
@@ -3652,6 +3850,7 @@ def main() -> int:
     for check in (check_kernels, check_new_kernels, check_gate_tail, check_tail_conv, check_quant_conv,
                   check_v1_shapes, check_canny, check_semi_kernels):
         timed(check, chk, dev)
+    timed(ranking_loss_on_edges, dev)
     timed(check_edge_cases, dev)
     plans = record_resize_plans()
     counts = {**timed(flagship, dev), **timed(depth_anything_v2, dev), **timed(cityscapes_eval, dev),

@@ -8,8 +8,10 @@ The maps are float64 tensors on the device of the prediction; each metric
 is returned as a Python float. The pred -> gt bilinear resize is K2 in
 float32 (the JAX package resizes in float64: expect ~1e-7 relative). Canny
 runs on the device: masked gaussian smoothing and Sobel gradients written
-in scipy's order of operations, K11 (``ops/canny.canny_nms``) for the
-non-maximum suppression, and exact hysteresis. The Euclidean distance
+in scipy's order of operations, K11 in its mask mode
+(``ops/canny.canny_nms_masks``: the non-maximum suppression, the eroded
+mask, the nonzero magnitude and both thresholds in one launch), and exact
+hysteresis. The Euclidean distance
 transforms of the boundary metrics run on the host through scipy, as in the
 JAX package; the gaussian extends of the edge masks are 5x5 max pools on
 the device. Nothing here needs cv2 or PIL.
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from patchrefinerv2_torch.ops.canny import canny_nms
+from patchrefinerv2_torch.ops.canny import canny_nms_masks
 from patchrefinerv2_torch.ops.resize import resize
 
 __all__ = ["compute_errors", "compute_metrics", "soft_edge_error", "get_boundaries", "canny",
@@ -200,8 +202,8 @@ def _hysteresis(low: torch.Tensor, high: torch.Tensor) -> torch.Tensor:
 def canny(image, sigma=1.0, low_threshold=0.1, high_threshold=0.2, mask=None) -> torch.Tensor:
     """skimage.feature.canny of a (H, W) map as ``_canny_numpy`` computes it,
     in float64: masked gaussian smoothing with the bleed compensation, Sobel
-    gradients, K11 non-maximum suppression inside the eroded mask, the
-    absolute low/high thresholds and hysteresis. Returns a bool mask."""
+    gradients, K11's non-maximum suppression with the eroded mask and the
+    absolute low/high thresholds in one launch, and hysteresis. Returns a bool mask."""
     image = torch.as_tensor(image).to(torch.float64)
     dev = image.device
     mask = (torch.ones(image.shape, dtype=torch.bool, device=dev) if mask is None
@@ -215,9 +217,8 @@ def canny(image, sigma=1.0, low_threshold=0.1, high_threshold=0.2, mask=None) ->
     isobel = _sobel(smoothed, axis=0).contiguous()
     magnitude = torch.hypot(isobel, jsobel)
 
-    local_maxima = canny_nms(isobel, jsobel, magnitude) & eroded & (magnitude > 0)
-    low_mask = local_maxima & (magnitude >= low_threshold)
-    high_mask = local_maxima & (magnitude >= high_threshold)
+    low_mask, high_mask = canny_nms_masks(isobel, jsobel, magnitude, low_threshold, high_threshold,
+                                          eroded)
     return _hysteresis(low_mask, high_mask)
 
 

@@ -7,8 +7,8 @@
 reference's bounded hysteresis: a 9x9 Gaussian with constant padding and
 bleed compensation, Sobel gradients with replicate padding (numpy's
 ``symmetric`` at width 1), ``jnp.hypot``'s formula, K11's non-maximum
-suppression in float32, the interior and nonzero-magnitude masks, the two
-thresholds, then K12 (``ops/canny.hysteresis_bounded``), which grows the
+suppression in float32 in its mask mode (the interior and nonzero-magnitude
+masks and the two thresholds in the same launch), then K12 (``ops/canny.hysteresis_bounded``), which grows the
 high mask for at most 128 steps. The Gaussian and Sobel cross-correlations
 are ``F.conv2d`` in float32 with TF32 off (JAX's ``Precision.HIGHEST``).
 Edges are no function of a gradient: they run under no gradient.
@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from patchrefinerv2_torch.models.losses import _align_pred
-from patchrefinerv2_torch.ops.canny import canny_nms, hysteresis_bounded
+from patchrefinerv2_torch.ops.canny import canny_nms_masks, hysteresis_bounded
 
 __all__ = ["conv2d_same", "kornia_sobel_magnitude", "canny_edges_graph", "canny_masks",
            "EdgeguidedRankingLoss"]
@@ -103,12 +103,8 @@ def canny_masks(x: torch.Tensor, sigma: float = 1.0, low_threshold: float = 0.1,
         jsobel = conv2d_same(smoothed, smooth[:, None] * deriv[None, :], "replicate")
         isobel = conv2d_same(smoothed, deriv[:, None] * smooth[None, :], "replicate")
         magnitude = _hypot(isobel, jsobel)
-        local_maxima = canny_nms(isobel, jsobel, magnitude)
-        interior = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
-        interior[:, 1:-1, 1:-1] = True
-        local_maxima = local_maxima & interior & (magnitude > 0)
-        return ((isobel, jsobel, magnitude), local_maxima & (magnitude >= low_threshold),
-                local_maxima & (magnitude >= high_threshold))
+        low, high = canny_nms_masks(isobel, jsobel, magnitude, low_threshold, high_threshold)
+        return (isobel, jsobel, magnitude), low, high
 
 
 def _draw(mask: torch.Tensor, n: int, generator) -> tuple[torch.Tensor, torch.Tensor]:

@@ -109,14 +109,16 @@ def library(name: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def bind(name: str, symbol: str, n_ptr: int, n_int: int, n_float: int = 0):
+def bind(name: str, symbol: str, n_ptr: int, n_int: int, n_float: int = 0, n_double: int = 0):
     """Declare a C entry of the form ``int f(void* x n_ptr, long long x n_int,
-    float x n_float, int dtype, void* stream)`` and return it."""
+    float x n_float, double x n_double, int dtype, void* stream)`` and return
+    it."""
     fn = getattr(library(name), symbol)
     fn.argtypes = (
         [ctypes.c_void_p] * n_ptr
         + [ctypes.c_longlong] * n_int
         + [ctypes.c_float] * n_float
+        + [ctypes.c_double] * n_double
         + [ctypes.c_int, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int

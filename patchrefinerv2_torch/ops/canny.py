@@ -1,18 +1,26 @@
 """K11: canny non-maximum suppression, the counterpart of
-``patchrefinerv2_tpu/ops/canny.py`` (``canny_nms`` :14), and K12: the
-bounded hysteresis of the training losses' canny
-(``patchrefinerv2_tpu/models/losses_extra.py:129-134``, ``_dilate3x3`` :81).
+``patchrefinerv2_tpu/ops/canny.py`` (``canny_nms`` :14), with a mask mode
+that also applies its callers' epilogue, and K12: the bounded hysteresis of
+the training losses' canny (``patchrefinerv2_tpu/models/losses_extra.py:129-134``,
+``_dilate3x3`` :81).
 
 skimage.feature.canny's bilinear-interpolated NMS over the four gradient
 sectors: a pixel is a local maximum when its magnitude is ``>=`` both
-neighbours interpolated along its gradient (zero outside the map). The
-result is not yet restricted to the eroded mask or a nonzero magnitude:
-callers apply their own conventions (``evaluation/metrics.canny``).
+neighbours interpolated along its gradient (zero outside the map).
+:func:`canny_nms` returns that mask alone. :func:`canny_nms_masks` returns
+the low and high masks that both JAX callers take from it
+(``models/losses_extra.py:125-128``, ``evaluation/metrics.py:107-110``):
+``lm & region & (magnitude > 0)``, at or above each threshold, the region
+being the 1-pixel interior or a given mask.
 
-On a CUDA tensor :func:`canny_nms` launches ``csrc/canny.cu`` (float32 or
-float64) or raises; on a CPU tensor it runs :func:`canny_nms_plain`, a
-line-by-line transcription of the reference. ``canny_nms.launches`` counts
-the kernel launches.
+On a CUDA tensor both launch ``csrc/canny.cu`` (float32 or float64) or
+raise: one launch a call of a register-strip stencil, a warp walking
+:func:`canny_nms_plan`'s rows down a 128-pixel column strip, on 16-byte
+vectors where the rows allow them (:func:`nms_vector_path`) and element by
+element where they do not. On a CPU tensor they run :func:`canny_nms_plain`
+and :func:`canny_nms_masks_plain`, line-by-line transcriptions of the
+reference. ``canny_nms.launches`` counts the kernel's launches in either
+mode.
 
 :func:`hysteresis_bounded` grows a high mask inside a low mask by ``steps``
 3x3 dilations (zero outside the map), each ANDed with the low mask: JAX's
@@ -33,11 +41,20 @@ import torch.nn.functional as F
 
 from patchrefinerv2_torch.ops import _cuda
 
-__all__ = ["canny_nms", "canny_nms_plain", "hysteresis_bounded", "hysteresis_bounded_plain",
-           "hysteresis_exit_steps_plain", "hysteresis_plan", "hysteresis_launch",
-           "hysteresis_latency_floor"]
+__all__ = ["canny_nms", "canny_nms_plain", "canny_nms_masks", "canny_nms_masks_plain",
+           "canny_nms_plan", "nms_vector_path", "nms_launch", "hysteresis_bounded",
+           "hysteresis_bounded_plain", "hysteresis_exit_steps_plain", "hysteresis_plan",
+           "hysteresis_launch", "hysteresis_latency_floor"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+
+# csrc/canny.cu: the pixels a thread holds (V), a warp's column strip (32 V
+# pixels), the rows R a warp may walk (its template instances) and the warps
+# an SM the plan gives the grid at least, where it can
+NMS_PIXELS = 4
+NMS_STRIP = 32 * NMS_PIXELS
+NMS_ROWS = (4, 8)
+NMS_WARPS_PER_SM = 8
 
 
 def canny_nms_plain(isobel, jsobel, magnitude):
@@ -72,31 +89,119 @@ def canny_nms_plain(isobel, jsobel, magnitude):
     return local_maxima
 
 
+def canny_nms_masks_plain(isobel, jsobel, magnitude, low_threshold: float, high_threshold: float,
+                          mask=None):
+    """Plain PyTorch version of :func:`canny_nms_masks` (any device): the
+    NMS mask, then the callers' epilogue as separate ops."""
+    local_maxima = canny_nms_plain(isobel, jsobel, magnitude)
+    if mask is None:
+        mask = torch.zeros(magnitude.shape, dtype=torch.bool, device=magnitude.device)
+        mask[..., 1:-1, 1:-1] = True
+    local_maxima = local_maxima & mask & (magnitude > 0)
+    return (local_maxima & (magnitude >= float(low_threshold)),
+            local_maxima & (magnitude >= float(high_threshold)))
+
+
+def canny_nms_plan(planes: int, h: int, w: int, sms: int) -> int:
+    """The rows R that each warp of K11 walks down its column strip, for
+    ``planes`` (h, w) maps on a card of ``sms`` SMs: the most of
+    ``NMS_ROWS`` that still gives the grid ``NMS_WARPS_PER_SM`` warps an SM,
+    else the fewest."""
+    strips = -(-w // NMS_STRIP)
+    for rows in reversed(NMS_ROWS):
+        if planes * strips * -(-h // rows) >= NMS_WARPS_PER_SM * sms:
+            return rows
+    return NMS_ROWS[0]
+
+
+def nms_vector_path(w: int, *tensors) -> bool:
+    """Whether K11 runs on its vector path: rows a multiple of ``NMS_PIXELS``
+    wide and every map and mask starting on a 16-byte boundary (so that each
+    thread's pixels are one aligned vector, all inside the row or all
+    outside it); else it reads and writes element by element."""
+    return w % NMS_PIXELS == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _check_maps(what: str, isobel, jsobel, magnitude, mask=None) -> None:
+    if magnitude.ndim < 2 or isobel.shape != magnitude.shape or jsobel.shape != magnitude.shape:
+        raise ValueError(f"{what}: expected three (..., H, W) maps of one shape, got "
+                         f"{tuple(isobel.shape)}, {tuple(jsobel.shape)}, {tuple(magnitude.shape)}")
+    if mask is not None:
+        if mask.shape != magnitude.shape:
+            raise ValueError(f"{what}: expected a mask of the maps' shape {tuple(magnitude.shape)}, "
+                             f"got {tuple(mask.shape)}")
+        if mask.dtype != torch.bool:
+            raise TypeError(f"{what} takes a bool mask, got {mask.dtype}")
+
+
+def _check_cuda(what: str, isobel, jsobel, magnitude, mask=None) -> None:
+    if not (isobel.dtype == jsobel.dtype == magnitude.dtype) or magnitude.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what} takes float32 or float64 maps of one dtype, got "
+                        f"{isobel.dtype}, {jsobel.dtype}, {magnitude.dtype}")
+    _cuda.require_cuda(isobel, jsobel, magnitude, *(() if mask is None else (mask,)))
+
+
+def nms_launch(isobel, jsobel, magnitude, masks: bool = False, low_threshold: float = 0.0,
+               high_threshold: float = 0.0, mask=None, rows: int | None = None,
+               vector: bool | None = None):
+    """Launch K11 on checked (..., H, W) CUDA maps: the local-maxima mask,
+    or with ``masks`` the (low, high) pair over ``mask`` (None: the 1-pixel
+    interior). ``rows`` (None: :func:`canny_nms_plan`'s) and ``vector``
+    (None: :func:`nms_vector_path`; False forces the scalar path) choose the
+    launch."""
+    h, w = magnitude.shape[-2:]
+    planes = magnitude.numel() // (h * w) if h * w else 0
+    if rows is None:
+        rows = canny_nms_plan(planes, h, w, _cuda.sms(magnitude.device))
+    if rows not in NMS_ROWS:
+        raise ValueError(f"rows must be one of {NMS_ROWS}, got {rows}")
+    out = torch.empty(magnitude.shape, dtype=torch.bool, device=magnitude.device)
+    high = torch.empty_like(out) if masks else None
+    io = [t for t in (isobel, jsobel, magnitude, mask, out, high) if t is not None]
+    can = nms_vector_path(w, *io)
+    if vector is None:
+        vector = can
+    elif vector and not can:
+        raise ValueError("the vector path needs rows a multiple of 4 pixels wide on 16-byte boundaries")
+    mode = 0 if not masks else 1 if mask is None else 2
+    fn = _cuda.bind("canny", "prv2_canny_nms", 6, 6, 0, 2)
+    rc = fn(_cuda.ptr(isobel), _cuda.ptr(jsobel), _cuda.ptr(magnitude), _cuda.ptr(mask),
+            _cuda.ptr(out), _cuda.ptr(high), planes, h, w, rows, int(vector), mode,
+            float(low_threshold), float(high_threshold), _DTYPE_CODES[magnitude.dtype],
+            _cuda.stream_of(magnitude))
+    _cuda.check(rc, "canny_nms")
+    canny_nms.launches += 1
+    return (out, high) if masks else out
+
+
 def canny_nms(isobel: torch.Tensor, jsobel: torch.Tensor, magnitude: torch.Tensor) -> torch.Tensor:
     """Local-maxima mask (bool, the shape of ``magnitude``) of the (..., H, W)
     gradients ``isobel`` (along H), ``jsobel`` (along W) and their
     ``magnitude``, all float32 or all float64."""
-    if magnitude.ndim < 2 or isobel.shape != magnitude.shape or jsobel.shape != magnitude.shape:
-        raise ValueError(f"expected three (..., H, W) maps of one shape, got {tuple(isobel.shape)}, "
-                         f"{tuple(jsobel.shape)}, {tuple(magnitude.shape)}")
+    _check_maps("canny_nms", isobel, jsobel, magnitude)
     if _cuda.on_cpu(magnitude):
         return canny_nms_plain(isobel, jsobel, magnitude)
-    if not (isobel.dtype == jsobel.dtype == magnitude.dtype) or magnitude.dtype not in _DTYPE_CODES:
-        raise TypeError(f"canny_nms takes float32 or float64 maps of one dtype, got "
-                        f"{isobel.dtype}, {jsobel.dtype}, {magnitude.dtype}")
-    _cuda.require_cuda(isobel, jsobel, magnitude)
-    h, w = magnitude.shape[-2:]
-    out = torch.empty(magnitude.shape, dtype=torch.bool, device=magnitude.device)
-    fn = _cuda.bind("canny", "prv2_canny_nms", 4, 3)
-    rc = fn(_cuda.ptr(isobel), _cuda.ptr(jsobel), _cuda.ptr(magnitude), _cuda.ptr(out),
-            magnitude.numel() // (h * w) if h * w else 0, h, w, _DTYPE_CODES[magnitude.dtype],
-            _cuda.stream_of(magnitude))
-    _cuda.check(rc, "canny_nms")
-    canny_nms.launches += 1
-    return out
+    _check_cuda("canny_nms", isobel, jsobel, magnitude)
+    return nms_launch(isobel, jsobel, magnitude)
 
 
 canny_nms.launches = 0
+
+
+def canny_nms_masks(isobel: torch.Tensor, jsobel: torch.Tensor, magnitude: torch.Tensor,
+                    low_threshold: float, high_threshold: float,
+                    mask: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bool (low, high) masks of the (..., H, W) maps, in one K11 launch:
+    ``lm & region & (magnitude > 0) & (magnitude >= threshold)`` for each
+    threshold, ``lm`` the local-maxima mask of :func:`canny_nms` and the
+    region the 1-pixel interior (``mask`` None) or the bool ``mask`` of the
+    maps' shape. The thresholds compare in the maps' dtype, as a Python
+    float does against a tensor. Counted on ``canny_nms.launches``."""
+    _check_maps("canny_nms_masks", isobel, jsobel, magnitude, mask)
+    if _cuda.on_cpu(magnitude):
+        return canny_nms_masks_plain(isobel, jsobel, magnitude, low_threshold, high_threshold, mask)
+    _check_cuda("canny_nms_masks", isobel, jsobel, magnitude, mask)
+    return nms_launch(isobel, jsobel, magnitude, True, low_threshold, high_threshold, mask)
 
 
 def hysteresis_bounded_plain(low: torch.Tensor, high: torch.Tensor, steps: int = 128) -> torch.Tensor:
