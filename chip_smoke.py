@@ -157,7 +157,25 @@ Phases (each prints one or more lines; any failure exits non-zero):
    once with the ranking loss), no plain call, every teacher parameter
    decayed by AdamW's ``lr * wd`` alone (replayed, within an ulp), ms a
    step, peak memory; and a tiny Semi step, online and offline, and the
-   student's m1 on the card against the CPU.
+   student's m1 on the card against the CPU;
+11. the data path (``data_run``), through the entry points on files it
+   writes under ``_work/data``: 8 UnrealStereo4K frames at 2160x3840 (raw
+   BGR blobs, disparities, extrinsics); the train loader's host ms a batch
+   of 4 with 1 and 4 loader threads, and a sample's by transform;
+   ``patchrefinerv2_torch.train.main`` on ``pretrain_eff_m0s1.py`` for 10
+   steps of batch 4 on 4 loader threads (each step counted as in (B), its
+   ms and its wait on the loader; from step 3 the median wait and share of
+   the loop outside the step);
+   ``patchrefinerv2_torch.test.main`` on ``v2_eff_u4k.py`` in m1, bfloat16,
+   process_num 16 over 2 val frames (launches those of the flagship's m1
+   frame, finite metrics, the ms of a frame loading, inferring and on the
+   metrics); then 8 Cityscapes frames at 1024x2048 (PNGs, camera json,
+   sky, gtFine colour maps, offline pseudo labels): 2 steps of the offline
+   Semi transfer (``plus_eff_cs_semi_offline_ssigm_ft.py``) through
+   ``train.main`` on the reader's pseudo labels (the edge loss finite and
+   not 0) and ``test.main`` on ``plus_eff_cs_pretrain.py`` in m1 over 2
+   val frames, whose infer sample carries no ``seg_image`` (as the JAX
+   reader's).
 
 The line before the last is one JSON object with a record per kernel: its
 launches in each main-path run and their sum, and its times, bound and
@@ -171,7 +189,9 @@ runs (``PATH_DTYPES``), with each path's own under ``<path>_<dtype>``
 backwards over a step's sites, kept out of the sums, the error there
 relative to each gradient's magnitude); ``launches_by_run`` has
 ``train_f32``, ``train_e2e_f32``, ``v1_train_f32`` and the three
-``semi_*_f32``, the launches of one step of each; K11 and K12 also record
+``semi_*_f32``, the launches of one step of each, and the data runs'
+(``data_u4k_train_f32`` and ``data_cs_semi_offline_f32`` a step,
+``data_u4k_eval_bf16`` and ``data_cs_eval_bf16`` over 2 frames); K11 and K12 also record
 ``semi_f32``, the Semi loss's shape (K11 its mask mode's time with the NMS
 mode's, the unfused path's and each row count's as extras; K12 also its exit step, the tiled
 kernel's time, the latency floor and its time and exit step on the snake
@@ -186,6 +206,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -2393,7 +2414,7 @@ def synthetic_cityscapes(length: int, lr_shape):
         def __getitem__(self, idx):
             import numpy as np
 
-            from patchrefinerv2_torch.datasets.synthetic import resize_hwc
+            from patchrefinerv2_torch.datasets.transforms import resize_hwc
             from patchrefinerv2_torch.evaluation.metrics import get_boundaries
 
             rng = np.random.RandomState(idx)
@@ -2421,7 +2442,7 @@ def synthetic_cityscapes(length: int, lr_shape):
             self.preds.append(result)
             return out
 
-    ds = Frames(min_depth=1e-3, max_depth=250)
+    ds = Frames("infer", os.devnull, {}, min_depth=1e-3, max_depth=250)  # no split: no files
     ds.metric_ms, ds.preds = [], []
     return ds
 
@@ -2532,7 +2553,7 @@ def eval_gpu_vs_cpu(dev) -> None:
     seg = rng.randint(0, 256, (19, 3))[lab].astype(np.uint8)
     pred = np.clip(gt[::2, ::2], 2.0, None) * np.exp(0.05 * rng.randn(h // 2, w // 2))
     pred = torch.from_numpy(pred.astype(np.float32))
-    ds = CityScapesDataset()
+    ds = CityScapesDataset("infer", os.devnull, {}, min_depth=1e-3, max_depth=250)
     got = ds.get_metrics(gt, pred.to(dev), seg_image=seg)
     ref = ds.get_metrics(gt, pred, seg_image=seg)
     errs = {k: abs(got[k] - v) / max(abs(v), 1e-12) for k, v in ref.items()}
@@ -3086,6 +3107,47 @@ def pretrain_run(dev, config: str = PRETRAIN_CONFIG, label: str = "pretrain",
     return steps[0]
 
 
+def count_step(step, model, batch, label: str, kernels, exact, steps: list, times=None,
+               losses_out=None) -> dict:
+    """``step(batch)``, one training step of ``model``, with the launch
+    counters set to 0 just before it and read just after: each kernel of
+    ``kernels`` launches (``exact``: that many times), no other kernel and
+    no plain version runs, losses and gradients are finite. The counts are
+    appended to ``steps``, the step's ms to ``times`` and its losses to
+    ``losses_out``."""
+    import torch
+
+    from patchrefinerv2_torch import ops
+
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with PlainCalls() as plain:
+        out = step(batch)
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    ms = (time.time() - t0) * 1e3
+    if times is not None:
+        times.append(ms)
+    losses = {k: float(v) for k, v in out.items()}
+    if losses_out is not None:
+        losses_out.append(losses)
+    finite = all(math.isfinite(v) for v in losses.values())
+    grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in model.net.parameters()
+                       if p.grad is not None)
+    steps.append(counts)
+    log({"phase": f"{label}_step_{len(steps)}", "ms": ms, "losses": losses,
+         "grads_finite": grads_finite, "plain_calls": plain.count, "launches": counts})
+    idle = [k for k in kernels if counts[k] == 0]
+    other = {k: v for k, v in counts.items() if k not in kernels and v}
+    wrong = {k: counts[k] for k, n in (exact or {}).items() if counts[k] != n}
+    if idle or other or wrong or plain.count or not grads_finite or not finite:
+        raise AssertionError(f"{label} step {len(steps)}: idle {idle}, other kernels {other}, "
+                             f"counts off {wrong}, {plain.count} plain calls, finite grads "
+                             f"{grads_finite}, losses {losses}")
+    return out
+
+
 def run_counted(tr, label: str, kernels, exact=None, moves=("bn_buffers", "params"), still=(),
                 epoch_only: bool = False, times=None) -> list:
     """``tr.run()`` (``epoch_only``: ``tr.train_epoch``, no checkpoint) with
@@ -3099,39 +3161,9 @@ def run_counted(tr, label: str, kernels, exact=None, moves=("bn_buffers", "param
     appended to ``times``."""
     import torch
 
-    from patchrefinerv2_torch import ops
-
     before = {k: v.detach().clone() for k, v in tr.model.net.state_dict().items()}
     steps, step = [], tr.train_step
-
-    def counted(batch):
-        ops.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        with PlainCalls() as plain:
-            out = step(batch)
-            torch.cuda.synchronize()
-        counts = ops.launch_counts()
-        ms = (time.time() - t0) * 1e3
-        if times is not None:
-            times.append(ms)
-        losses = {k: float(v) for k, v in out.items()}
-        finite = all(math.isfinite(v) for v in losses.values())
-        grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in tr.model.net.parameters()
-                           if p.grad is not None)
-        steps.append(counts)
-        log({"phase": f"{label}_step_{len(steps)}", "ms": ms, "losses": losses,
-             "grads_finite": grads_finite, "plain_calls": plain.count, "launches": counts})
-        idle = [k for k in kernels if counts[k] == 0]
-        other = {k: v for k, v in counts.items() if k not in kernels and v}
-        wrong = {k: counts[k] for k, n in (exact or {}).items() if counts[k] != n}
-        if idle or other or wrong or plain.count or not grads_finite or not finite:
-            raise AssertionError(f"{label} step {len(steps)}: idle {idle}, other kernels {other}, "
-                                 f"counts off {wrong}, {plain.count} plain calls, finite grads "
-                                 f"{grads_finite}, losses {losses}")
-        return out
-
-    tr.train_step = counted
+    tr.train_step = lambda batch: count_step(step, tr.model, batch, label, kernels, exact, steps, times)
     t0 = time.time()
     tr.train_epoch(tr.start_epoch) if epoch_only else tr.run()
     log({"phase": f"{label}_trainer_run", "seconds": time.time() - t0, "steps": tr.step})
@@ -3666,15 +3698,16 @@ def semi_config(config: str, batch: int = 4, steps: int = 3):
 
 def semi_exact(model, ranking: bool) -> dict:
     """The launches a Semi step makes of the kernels that launch a fixed
-    number of times: the student's and the teacher's forward each run K1
-    7 times and the modules' ``kernel_calls`` (a frame and a chunk) of K8
-    (and, V1, K3, K6 and K9); the ranking loss one K11 and one K12."""
+    number of times: the student's and (online) the teacher's forward each
+    run K1 7 times and the modules' ``kernel_calls`` (a frame and a chunk)
+    of K8 (and, V1, K3, K6 and K9); the ranking loss one K11 and one K12."""
     per = {"roi_align": 7, "attractor_update": 4, "log_binomial_depth": 1}
     if model.student.v1:
         per_frame, per_chunk = v1_calls(model.student)
         per.update({k: per_frame.get(k, 0) + per_chunk.get(k, 0) for k in V1_TRAIN_KERNELS
                     if k not in ("resize", "roi_align")})
-    out = {k: 2 * v for k, v in per.items()}
+    forwards = 2 if model.teacher is not None else 1
+    out = {k: forwards * v for k, v in per.items()}
     out.update(canny_nms=int(ranking), hysteresis_bounded=int(ranking))
     return out
 
@@ -3790,6 +3823,389 @@ def tiny_semi_gpu_vs_cpu(dev) -> None:
             raise AssertionError(f"{label}: the edge loss or the student's m1 on the card disagrees")
 
 
+DATA_DIR = os.path.join(WORK_DIR, "data")  # the data phase's files (removed with WORK_DIR)
+CS_PRETRAIN_CONFIG = "configs/patchrefinerv2_zoedepth_cs/plus_eff_cs_pretrain.py"
+CS_OFFLINE_CONFIG = "configs/patchrefinerv2_zoedepth_cs/plus_eff_cs_semi_offline_ssigm_ft.py"
+
+
+def write_u4k(root: str, frames: int) -> dict:
+    """UnrealStereo4K files at full size, made with a seeded numpy RNG: for
+    each frame a raw 2160x3840x3 uint8 BGR blob, a float32 disparity in
+    (1, 64) (constant 240x240 blocks plus a ramp and noise, so that the
+    boundary has edges) and the Extrinsics0/1 files (focal 1000, base 0.2);
+    a train split of every frame, a val split of the first two and a split
+    that lists every frame five times (ten batches of 4). Returns their
+    paths."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    lines = []
+    ramp = np.linspace(0.0, 2.0, 3840, dtype=np.float32)[None, :]
+    for i in range(frames):
+        scene = os.path.join(root, f"{i:05d}")
+        for d in ("Image0", "Disp0", "Extrinsics0", "Extrinsics1"):
+            os.makedirs(os.path.join(scene, d), exist_ok=True)
+        rng.randint(0, 256, (2160, 3840, 3), dtype=np.uint8).tofile(
+            os.path.join(scene, "Image0", "00000.raw"))
+        blocks = np.kron(rng.uniform(2.0, 60.0, (9, 16)), np.ones((240, 240))).astype(np.float32)
+        disp = blocks + ramp + rng.uniform(0.0, 1.0, (2160, 3840)).astype(np.float32)
+        np.save(os.path.join(scene, "Disp0", "00000.npy"), disp)
+        for name, tx in (("Extrinsics0", 0.0), ("Extrinsics1", -0.2)):
+            with open(os.path.join(scene, name, "00000.txt"), "w") as f:
+                f.write(f"1000.0 0.0 1920.0\n0.0 1.0 0.0 {tx}\n")
+        lines.append(f"/{i:05d}/Image0/00000.raw")
+    splits = {"train": lines, "val": lines[:2], "five": lines * 5}
+    out = {"root": root}
+    for name, ls in splits.items():
+        out[name] = os.path.join(root, f"{name}.txt")
+        with open(out[name], "w") as f:
+            f.write("\n".join(ls) + "\n")
+    return out
+
+
+def write_cityscapes(root: str, frames: int) -> dict:
+    """Cityscapes files at full size (1024x2048), made with a seeded numpy
+    RNG: for each frame the ``leftImg8bit`` PNG, a uint16 ``disparity`` PNG
+    (256 d + 1 over 128x128 blocks of d in (2, 60), 0 in a few invalid
+    blocks), the ``camera`` json, a ``skyArea`` PNG (the top rows), the
+    offline pseudo label ``<pl>/leftImg8bit_..._uint16.png`` (256 depth),
+    and for the first two the gtFine colour map (label colours by block,
+    the sky's (70, 130, 180) on top); a train split of every frame and a
+    val split of the first two. Returns their paths."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(1)
+    h, w = 1024, 2048
+    pl_dir = os.path.join(root, "pl")
+    os.makedirs(pl_dir, exist_ok=True)
+
+    def png(rel, arr):
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(arr).save(path, compress_level=1)
+
+    lines = []
+    for i in range(frames):
+        stem = f"smoke_{i:06d}_000019"
+        img, dsp = (f"leftImg8bit/train/smoke/{stem}_leftImg8bit.png",
+                    f"disparity/train/smoke/{stem}_disparity.png")
+        png(img, rng.randint(0, 256, (h, w, 3), dtype=np.uint8))
+        lab = rng.randint(0, 19, (h // 128, w // 128))
+        d = np.kron(rng.uniform(2.0, 60.0, lab.shape), np.ones((128, 128)))
+        stored = (d * 256.0 + 1.0).astype(np.uint16)
+        stored[:128, :128] = 0
+        png(dsp, stored)
+        cam = os.path.join(root, f"camera/train/smoke/{stem}_camera.json")
+        os.makedirs(os.path.dirname(cam), exist_ok=True)
+        with open(cam, "w") as f:
+            json.dump({"extrinsic": {"baseline": 0.209313}, "intrinsic": {"fx": 2262.52}}, f)
+        sky = np.zeros((h, w), np.uint8)
+        sky[:96] = 255
+        png(f"skyArea/train/smoke/{stem}_skyArea.png", sky)
+        depth = 0.209313 * 2262.52 / d
+        png(os.path.join("pl", f"leftImg8bit_train_smoke_{stem}_leftImg8bit_uint16.png"),
+            np.clip(depth * 256.0, 0, 65535).astype(np.uint16))
+        if i < 2:
+            seg = rng.randint(0, 256, (19, 3)).astype(np.uint8)[np.kron(lab, np.ones((128, 128), int))]
+            seg[:96] = (70, 130, 180)
+            png(f"gtFine/train/smoke/{stem}_gtFine_color.png", seg)
+        lines.append(f"{img} {dsp}")
+    out = {"root": root, "pl": pl_dir}
+    for name, ls in (("train", lines), ("val", lines[:2])):
+        out[name] = os.path.join(root, f"{name}.txt")
+        with open(out[name], "w") as f:
+            f.write("\n".join(ls) + "\n")
+    return out
+
+
+def waits_on(loader_waits: list, batch_keys: list):
+    """A context in which every loader's iteration records, in the loop
+    that consumes it, the host ms each batch was waited for and the keys of
+    each batch."""
+    from unittest import mock
+
+    from patchrefinerv2_torch.datasets.base import DataLoader
+
+    iterate = DataLoader.__iter__
+
+    def timed_iter(self):
+        it = iterate(self)
+        try:
+            while True:
+                t0 = time.time()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                loader_waits.append((time.time() - t0) * 1e3)
+                batch_keys.append(sorted(batch))
+                yield batch
+        finally:
+            it.close()
+
+    return mock.patch.object(DataLoader, "__iter__", timed_iter)
+
+
+def loader_ms(config: str, options: list, workers: int) -> dict:
+    """Host ms a batch of the config's train loader alone (batch 4,
+    shuffled, prefetching on ``workers`` threads) over one pass of its
+    split, and the first batch's latency."""
+    from patchrefinerv2_torch.config import Config
+    from patchrefinerv2_torch.datasets.base import DataLoader
+    from patchrefinerv2_torch.train import build_dataset
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = Config.fromfile(os.path.join(here, config))
+    cfg.merge_from_options(options)
+    loader = DataLoader(build_dataset(cfg.train_dataloader.dataset), batch_size=4, shuffle=True,
+                        num_workers=workers)
+    t0, first, n = time.time(), None, 0
+    for _ in loader:
+        n += 1
+        first = first or (time.time() - t0) * 1e3
+    return {"workers": workers, "batches": n, "ms_per_batch": (time.time() - t0) * 1e3 / n,
+            "first_batch_ms": first}
+
+
+def sample_parts(config: str, options: list, samples: int = 4) -> dict:
+    """Host ms of ``samples`` train samples of the config's dataset loaded
+    one after the other in this thread, and of each transform in them
+    (cProfile's cumulative time of the functions of
+    ``datasets/transforms.py``; the rest is the reads, BGR to RGB and the
+    float conversion), each a sample's mean; the global RNGs seeded 0, as
+    the CLI seeds them."""
+    import cProfile
+    import pstats
+    import random
+
+    import numpy as np
+
+    from patchrefinerv2_torch.config import Config
+    from patchrefinerv2_torch.train import build_dataset
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = Config.fromfile(os.path.join(here, config))
+    cfg.merge_from_options(options)
+    ds = build_dataset(cfg.train_dataloader.dataset)
+    random.seed(0)
+    np.random.seed(0)
+    prof = cProfile.Profile()
+    t0 = time.time()
+    prof.enable()
+    for i in range(samples):
+        ds[i % len(ds)]
+    prof.disable()
+    total = (time.time() - t0) * 1e3 / samples
+    parts = {name: ct * 1e3 / samples for (path, _, name), (_, _, _, ct, _)
+             in pstats.Stats(prof).stats.items() if path.endswith(os.path.join("datasets", "transforms.py"))}
+    return {"samples": samples, "ms_per_sample": total, "transforms_ms": parts,
+            "rest_ms": total - sum(v for k, v in parts.items() if k != "crop_bbox")}
+
+
+def cli_train(label: str, config: str, options: list, kernels, exact_of=None,
+              pseudo_label: bool = False, save: bool = True) -> dict:
+    """``patchrefinerv2_torch.train.main`` on ``config`` (its files by
+    ``options``) on the card, each step counted (``count_step``: every
+    kernel of ``kernels`` in every step, ``exact_of(model)`` exactly, no
+    other kernel, no plain version, finite losses and gradients), the batch
+    the step got holding the reader's ``pseudo_label`` when asked; the loop's
+    wait on the loader and the step's ms recorded. ``save`` off skips the
+    checkpoint write (a Semi student's is ~5 GB with its optimizer state).
+    Returns the steps' counts, ms, start times (host seconds), waits and
+    losses."""
+    from unittest import mock
+
+    from patchrefinerv2_torch.train import main as train_main
+    from patchrefinerv2_torch.training.trainer import Trainer
+
+    steps, times, starts, losses, waits, keys = [], [], [], [], [], []
+    step = Trainer.train_step
+
+    def counted(self, batch):
+        starts.append(time.time())
+        if pseudo_label and "pseudo_label" not in batch:
+            raise AssertionError(f"{label}: the step's batch has no pseudo_label ({sorted(batch)})")
+        exact = exact_of(self.model) if exact_of else None
+        return count_step(lambda b: step(self, b), self.model, batch, label, kernels, exact, steps,
+                          times, losses)
+
+    def skip_save(self, epoch):
+        log({"phase": f"{label}_checkpoint", "written": False, "epoch": epoch})
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    with mock.patch.object(Trainer, "train_step", counted), waits_on(waits, keys), \
+            mock.patch.object(Trainer, "save", Trainer.save if save else skip_save):
+        train_main([os.path.join(here, config), "--work-dir", os.path.join(WORK_DIR, label),
+                    "--seed", "0", "--cfg-option", *options])
+    out = {"counts": steps, "step_ms": times, "starts": starts, "loader_wait_ms": waits,
+           "losses": losses, "seconds": time.time() - t0}
+    log({"phase": label, **{k: v for k, v in out.items() if k not in ("counts", "starts")}})
+    return out
+
+
+def cli_test(label: str, config: str, options: list, frames: int, ref_counts: dict,
+             idle_ok=()) -> tuple:
+    """``patchrefinerv2_torch.test.main`` on ``config`` (its files and
+    bfloat16 by ``options``), m1 with process_num 16, on the card, the launch
+    counters set to 0 just before and read just after: every kernel of the
+    path but ``idle_ok`` launched, K5 and K9 as the head's ``kernel_calls``
+    say a chunk, K8 4 + 1 a frame, and every kernel but K2 and canny (the
+    metrics' own) as often as in ``ref_counts`` (a full-width phase's run of
+    the same network over the same number of frames); finite metrics. The
+    host ms of each frame spent waiting on the loader, inferring and on the
+    metrics are printed. Returns (counts, the batches' keys)."""
+    from unittest import mock
+
+    import torch
+
+    from patchrefinerv2_torch import ops
+    from patchrefinerv2_torch import test as evaluate
+    from patchrefinerv2_torch.datasets.base import DepthDataset
+    from patchrefinerv2_torch.datasets.cityscapes import CityScapesDataset
+
+    models, infer_ms, metric_ms, waits, keys = [], [], [], [], []
+    build = evaluate.build_model
+
+    def synced_ms(fn, into):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            into.append((time.time() - t0) * 1e3)
+            return out
+        return run
+
+    def built(*a, **k):
+        model = build(*a, **k)
+        model.infer = synced_ms(model.infer, infer_ms)
+        models.append(model)
+        return model
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ops.reset_launches()
+    t0 = time.time()
+    timed_metrics = [mock.patch.object(cls, "get_metrics", synced_ms(cls.get_metrics, metric_ms))
+                     for cls in (DepthDataset, CityScapesDataset)]
+    with mock.patch.object(evaluate, "build_model", built), waits_on(waits, keys), \
+            timed_metrics[0], timed_metrics[1]:
+        metrics = evaluate.main([os.path.join(here, config), "--cai-mode", "m1", "--process-num",
+                                 "16", "--cfg-option", *options])
+    seconds = time.time() - t0
+    counts = ops.launch_counts()
+    model = models[0]
+    log({"phase": label, "metrics": metrics, "frames": len(infer_ms), "seconds": seconds,
+         "loader_wait_ms_per_frame": waits, "infer_ms_per_frame": infer_ms,
+         "metrics_ms_per_frame": metric_ms, "infer_dtype": str(model.infer_dtype),
+         "launches": counts})
+    if len(infer_ms) != frames or not metrics or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"{label}: {len(infer_ms)} frames, metrics {metrics}")
+    idle = [k for k, v in counts.items() if v == 0 and k not in idle_ok]
+    if idle:
+        raise AssertionError(f"{label}: kernels never launched: {idle}")
+    check_frame_launches(label, counts, model, frames)
+    off = {k: (counts[k], ref_counts[k]) for k in counts
+           if k not in ("resize", "canny_nms") and counts[k] != ref_counts[k]}
+    if off:
+        raise AssertionError(f"{label}: launches differ from the reference run's: {off}")
+    del models, model
+    torch.cuda.empty_cache()
+    return counts, keys
+
+
+def data_run(dev, flagship_m1: dict, cs_eval_m1: dict) -> dict:
+    """The data path at full width, through the entry points, on files it
+    writes under ``DATA_DIR`` (random weights, seed 0):
+
+    (a) UnrealStereo4K training: 8 frames at 2160x3840 (``write_u4k``); the
+        host ms a batch of 4 of the train loader alone with 1 loader thread
+        (2 batches) and 4 (10 batches), and of a sample by part
+        (``sample_parts``); then ``train.main`` on ``pretrain_eff_m0s1.py``
+        for 10 steps of batch 4 with 4 loader threads (the split that lists
+        the frames five times), K2, K5, K6 and K9 in each step (as
+        ``pretrain_run``), finite losses, the ms of each step and what it
+        waited on the loader, and from step 3 on (the pipeline filled) the
+        median wait and the median share of a step's period (from one
+        step's start to the next) spent outside ``train_step``;
+    (b) UnrealStereo4K evaluation: ``test.main`` on ``v2_eff_u4k.py``, m1,
+        bfloat16, process_num 16, over the 2 val frames, its launches a
+        chunk and a frame those of the ``flagship`` phase's m1 frame;
+    (c) Cityscapes: 8 frames at 1024x2048 (``write_cityscapes``); 2 steps
+        of the offline Semi transfer (``plus_eff_cs_semi_offline_ssigm_ft``)
+        through ``train.main``, the reader's pseudo label in each batch, the
+        student's kernels counted as in ``semi_run``, the edge loss finite
+        and not 0 (its checkpoint not written); then ``test.main`` on
+        ``plus_eff_cs_pretrain.py`` in m1, bfloat16, over the 2 val frames,
+        its launches those of the ``cityscapes_eval`` phase's m1 run but
+        K2's and canny's: the reader's infer sample carries no
+        ``seg_image`` (as the JAX reader's), so no boundary F1 and no canny.
+
+    Returns the launch counts of each run for the kernels line."""
+    import shutil
+
+    t_phase = time.time()
+    try:
+        t0 = time.time()
+        u4k = write_u4k(os.path.join(DATA_DIR, "u4k"), 8)
+        log({"phase": "data_u4k_files", "frames": 8, "seconds": time.time() - t0})
+        data = [f"train_dataloader.dataset.data_root={u4k['root']}"]
+        host = [loader_ms(PRETRAIN_CONFIG, data + [f"train_dataloader.dataset.split={u4k[split]}"],
+                          workers) for workers, split in ((1, "train"), (4, "five"))]
+        log({"phase": "data_u4k_loader_host_ms", "batch": 4, "runs": host})
+        log({"phase": "data_u4k_sample_host_ms",
+             **sample_parts(PRETRAIN_CONFIG, data + [f"train_dataloader.dataset.split={u4k['train']}"])})
+        train = cli_train("data_u4k_train", PRETRAIN_CONFIG, data + [
+            f"train_dataloader.dataset.split={u4k['five']}", "train_dataloader.batch_size=4",
+            "train_dataloader.num_workers=4", "val_dataloader=None", "train_cfg.max_epochs=1",
+            "train_cfg.log_interval=1", "train_cfg.save_checkpoint_interval=1"], TRAIN_KERNELS)
+        if len(train["counts"]) != 10:
+            raise AssertionError(f"data_u4k_train ran {len(train['counts'])} steps, not 10")
+        periods = [(b - a) * 1e3 for a, b in zip(train["starts"], train["starts"][1:])]
+        outside = [1.0 - ms / p for ms, p in zip(train["step_ms"], periods)]
+        log({"phase": "data_u4k_train_vs_loader", "step_ms": train["step_ms"],
+             "loader_wait_ms": train["loader_wait_ms"], "period_ms": periods,
+             "share_outside_step": outside,
+             "steady_from_step_3": {"median_step_ms": statistics.median(train["step_ms"][2:]),
+                                    "median_wait_ms": statistics.median(train["loader_wait_ms"][2:]),
+                                    "median_period_ms": statistics.median(periods[2:]),
+                                    "median_share_outside_step": statistics.median(outside[2:])},
+             "loader_host_ms_per_batch": {r["workers"]: r["ms_per_batch"] for r in host}})
+        u4k_eval, _ = cli_test("data_u4k_eval_bfloat16", STAGE3_CONFIG, [
+            f"test_in_dataloader.dataset.data_root={u4k['root']}",
+            f"test_in_dataloader.dataset.split={u4k['val']}", "model.config.infer_dtype=bfloat16"],
+            2, {k: 2 * v for k, v in flagship_m1.items()}, idle_ok=FRAME_IDLE_OK)
+
+        t0 = time.time()
+        cs = write_cityscapes(os.path.join(DATA_DIR, "cityscapes"), 8)
+        log({"phase": "data_cs_files", "frames": 8, "seconds": time.time() - t0})
+        semi_kernels = ("resize", "layer_norm", "attention", "tail_conv", "gate_tail", "roi_align",
+                        "attractor_update", "log_binomial_depth")
+        semi = cli_train("data_cs_semi_offline", CS_OFFLINE_CONFIG, [
+            f"train_dataloader.dataset.data_root={cs['root']}",
+            f"train_dataloader.dataset.split={cs['train']}",
+            f"train_dataloader.dataset.pseudo_label_path={cs['pl']}", "train_dataloader.batch_size=4",
+            "train_dataloader.num_workers=4", "train_cfg.max_epochs=1", "train_cfg.log_interval=1"],
+            semi_kernels, lambda m: semi_exact(m, False), pseudo_label=True, save=False)
+        edge = [step["edge_loss"] for step in semi["losses"]]
+        if len(edge) != 2 or not all(math.isfinite(e) and e != 0.0 for e in edge):
+            raise AssertionError(f"data_cs_semi_offline: edge losses {edge}")
+        cs_eval, keys = cli_test("data_cs_eval_bfloat16", CS_PRETRAIN_CONFIG, [
+            "test_in_dataloader=None", f"val_dataloader.dataset.data_root={cs['root']}",
+            f"val_dataloader.dataset.split={cs['val']}", "model.config.infer_dtype=bfloat16"],
+            2, cs_eval_m1, idle_ok=("quant_conv", "hysteresis_bounded", "canny_nms"))
+        log({"phase": "data_cs_infer_sample", "keys": keys[0],
+             "seg_image": any("seg_image" in k for k in keys), "as_in_jax": True})
+        if any("seg_image" in k for k in keys):
+            raise AssertionError("the Cityscapes infer sample carries seg_image, unlike the JAX reader's")
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
+    log({"phase": "seconds", "of": "data_run_total", "s": time.time() - t_phase})
+    return {"data_u4k_train_f32": train["counts"][0], "data_u4k_eval_bf16": u4k_eval,
+            "data_cs_semi_offline_f32": semi["counts"][0], "data_cs_eval_bf16": cs_eval}
+
+
 def record_resize_plans() -> dict:
     """Wrap ``ops/resize._launch_plan`` so that every later K2 launch counts
     its (channels, element bytes, vec, vstore) in the returned dict."""
@@ -3878,6 +4294,7 @@ def main() -> int:
         for label, config in SEMI_CONFIGS.items():
             counts[f"{label}_f32"] = timed(semi_run, dev, label, config)
         timed(tiny_semi_gpu_vs_cpu, dev)
+        counts.update(timed(data_run, dev, counts["m1"], counts["eval_m1"]))
     finally:
         import shutil
 

@@ -1,12 +1,13 @@
-"""Dataset base and a single-process batch loader, the port of
+"""Dataset base and the batch loader, the port of
 ``patchrefinerv2_tpu/datasets/base.py`` (``DepthDataset`` :17,
-``default_collate`` :59, ``DataLoader`` :72 without prefetch threads and
-process sharding: batches load in the calling thread). Batches are dicts of
-NHWC numpy arrays."""
+``default_collate`` :59, ``DataLoader`` :72). Batches are dicts of NHWC
+numpy arrays."""
 
 from __future__ import annotations
 
 import random
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Iterator
 
 import numpy as np
@@ -53,19 +54,31 @@ def default_collate(samples: list[dict]) -> dict:
 
 
 class DataLoader:
-    """Batches of ``batch_size`` samples; with ``shuffle`` the order is
-    ``random.Random(seed + epoch)``'s shuffle of the indices (the JAX
-    loader's, ``set_epoch`` sets the epoch); ``drop_last`` drops a short
-    last batch."""
+    """Batches of ``batch_size`` samples. With ``shuffle`` the order is
+    ``random.Random(seed + epoch)``'s shuffle of the indices (``set_epoch``
+    sets the epoch); ``drop_last`` drops a short last batch.
+
+    Batches load ahead of the consumer on ``num_workers`` threads and are
+    yielded in order: ``PREFETCH`` finished batches wait while every thread
+    loads one more (JAX's loader keeps its ``num_prefetch`` + 1 in flight
+    whatever its thread count, which leaves threads idle when
+    ``num_workers`` is larger). One worker loads the batches one after the
+    other, so the readers' draws from the global RNGs come in batch order;
+    with more, in the order the threads take them (as in JAX's loader).
+    The readers' numpy, PIL and host library calls release the GIL, so the
+    threads overlap."""
+
+    PREFETCH = 2  # JAX's default num_prefetch
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False, drop_last: bool = True,
-                 seed: int = 0):
+                 seed: int = 0, num_workers: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
         self.epoch = 0
+        self.num_workers = max(1, int(num_workers))
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -82,7 +95,27 @@ class DataLoader:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
+    def _load(self, batch: list[int]) -> dict:
+        return default_collate([self.dataset[i] for i in batch])
+
     def __iter__(self) -> Iterator[dict]:
         idx = self._indices()
-        for i in range(0, len(idx), self.batch_size):
-            yield default_collate([self.dataset[j] for j in idx[i:i + self.batch_size]])
+        batches = [idx[i:i + self.batch_size] for i in range(0, len(idx), self.batch_size)]
+        pool = ThreadPoolExecutor(max_workers=self.num_workers, thread_name_prefix="loader")
+        pending: deque = deque()
+        todo = iter(batches)
+        try:
+            for b in todo:
+                pending.append(pool.submit(self._load, b))
+                if len(pending) >= self.PREFETCH + self.num_workers:
+                    break
+            while pending:
+                done = pending.popleft()
+                nxt = next(todo, None)
+                if nxt is not None:
+                    pending.append(pool.submit(self._load, nxt))
+                yield done.result()
+        finally:
+            # a consumer that stops early cancels what has not started and
+            # waits for what has: no load outlives the iteration
+            pool.shutdown(wait=True, cancel_futures=True)

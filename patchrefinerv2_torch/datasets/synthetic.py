@@ -5,23 +5,16 @@ index`` with the JAX dataset's draws. ``mode="infer"`` (the port's default)
 gives the image, its low-resolution copy and the depth; ``mode="train"`` the
 low-resolution image, one random crop (its resized image, depth and bbox in
 the process frame) and the full depth, or with ``consistency`` the 16 fixed
-overlapping crops (u4k_dataset.py:158-184). The resizes are K2's plain
-version (bilinear, align_corners) in float32."""
+overlapping crops (u4k_dataset.py:158-184). The resizes are the host
+library's (``transforms.resize_hwc``: bilinear, align_corners), as the JAX
+dataset's are."""
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from patchrefinerv2_torch.datasets.base import DepthDataset
-from patchrefinerv2_torch.ops.resize import resize
-
-
-def resize_hwc(image: np.ndarray, size, mode: str = "bilinear", align_corners: bool = True) -> np.ndarray:
-    """Host resize of an (H, W, C) float32 array with ``F.interpolate``
-    semantics (K2's plain version on the CPU)."""
-    x = torch.from_numpy(np.ascontiguousarray(image, np.float32))[None]
-    return resize(x, tuple(size), mode, align_corners)[0].numpy()
+from patchrefinerv2_torch.datasets.transforms import resize_hwc
 
 
 class SyntheticDataset(DepthDataset):

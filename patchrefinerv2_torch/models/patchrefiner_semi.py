@@ -58,7 +58,10 @@ class PatchRefinerSemi:
     card). ``config`` is the config's ``model`` dict: ``model_cfg_student``,
     ``model_cfg_teacher`` (None: offline), ``teacher_pretrain``,
     ``edgeloss``, ``edge_loss_weight``, ``mix_loss`` and its losses. The
-    student's weights come from ``seed``, the teacher's from ``seed + 1``."""
+    student's weights come from ``seed``, the teacher's from ``seed + 1``.
+    ``batch_keys``: the batch keys the loss reads beyond the config's
+    ``collect_input_args`` (offline the pseudo label, which the configs
+    leave out of that list, so that the JAX trainer drops it)."""
 
     def __init__(self, config: dict, device=None, seed: int = 0):
         from patchrefinerv2_torch.models.patchrefiner import build_model
@@ -74,6 +77,7 @@ class PatchRefinerSemi:
         self.student = build_model(cfg.model_cfg_student, device=device, seed=seed)
         teacher_cfg = cfg.get("model_cfg_teacher")
         self.teacher = build_model(teacher_cfg, device=device, seed=seed + 1) if teacher_cfg else None
+        self.batch_keys = () if self.teacher else ("pseudo_label",)
         self.teacher_pretrain = cfg.get("teacher_pretrain")
         self.edge_loss_weight = float(cfg.get("edge_loss_weight", 1.0))
         self.edgeloss = build_loss(edge_cfg)

@@ -1,0 +1,113 @@
+"""Evaluation entry point, the port's counterpart of ``tools/test.py`` in its
+``normal`` test type:
+
+    python -m patchrefinerv2_torch.test CONFIG [--ckp-path P] [--cai-mode m1|m2|rN]
+                                        [--process-num N] [--image-raw-shape H W]
+                                        [--patch-split-num h w] [--cfg-option k=v ...]
+                                        [--device cpu]
+
+It builds the config's ``model`` (random weights from seed 0, as the JAX
+tool's ``PRNGKey(0)``), merges the checkpoints the config names
+(``pretrained``, ``whole_pretrained``, ...) and then the ``--ckp-path``
+checkpoint, one of the port's ``torch.save`` files (``work_dir/checkpoint_NN``
+of ``patchrefinerv2_torch.train``, or a bare state dict), by key and shape;
+a tensor of it that the model cannot take raises.
+It reads the config's ``test_in_dataloader``, else its ``val_dataloader``
+(UnrealStereo4K, Cityscapes or synthetic frames), loads it with the
+config's ``num_workers`` threads, takes the tile geometry from the model's
+``tile_cfg`` unless given, runs ``Tester.run`` and prints the dataset's
+aggregate of the per-image metrics. ``--cfg-option
+model.config.infer_dtype=bfloat16`` infers in bfloat16. The other test
+types (``general``, ``consistency``, ``gen``, ``benchmark``) and ``--save``
+are not ported (ROADMAP.md, Queue 1 item 6) and raise. It runs on the card
+unless ``--device cpu`` is given, and raises when there is none. Float32
+matmuls and convolutions run without TF32.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import random
+
+import numpy as np
+import torch
+
+from patchrefinerv2_torch.config import Config
+from patchrefinerv2_torch.datasets.base import DataLoader
+from patchrefinerv2_torch.evaluation.tester import Tester
+from patchrefinerv2_torch.models.patchrefiner import build_model
+from patchrefinerv2_torch.train import build_dataset
+from patchrefinerv2_torch.utils.checkpoint import (
+    apply_config_pretrained, load_checkpoint, merge_pretrained,
+)
+from patchrefinerv2_torch.utils.logging import print_log
+
+TEST_TYPES = ("normal", "general", "consistency", "gen", "benchmark")
+
+
+def load_weights(model, path: str) -> int:
+    """Merge a port checkpoint (a training state with ``state_dict``, or a
+    state dict) into ``model.net`` by key and shape; returns the number of
+    tensors taken. Raises when the checkpoint has a tensor the model lacks
+    or holds in another shape: evaluating a model the checkpoint did not
+    fill would report random weights."""
+    ckpt = load_checkpoint(path)
+    state = ckpt.get("state_dict", ckpt)
+    merged, taken, skipped = merge_pretrained(model.net.state_dict(), state)
+    if skipped:
+        raise ValueError(f"{path}: {len(skipped)} of its {len(state)} tensors do not fit the "
+                         f"model (key or shape), e.g. {skipped[:3]}")
+    model.net.load_state_dict(merged)
+    return len(taken)
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("config")
+    parser.add_argument("--ckp-path", default=None)
+    parser.add_argument("--cai-mode", default="m1")
+    parser.add_argument("--process-num", type=int, default=4)
+    parser.add_argument("--test-type", default="normal", choices=TEST_TYPES)
+    parser.add_argument("--save", action="store_true")
+    parser.add_argument("--image-raw-shape", nargs=2, type=int, default=None)
+    parser.add_argument("--patch-split-num", nargs=2, type=int, default=None)
+    parser.add_argument("--cfg-option", nargs="+", default=None, help="dotted key=value overrides")
+    parser.add_argument("--device", default=None, help="cpu runs the plain versions of the kernels")
+    args = parser.parse_args(argv)
+    if args.test_type != "normal" or args.save:
+        what = "--save" if args.save else f"--test-type {args.test_type}"
+        raise NotImplementedError(f"{what} is not ported (ROADMAP.md, Queue 1 item 6)")
+
+    cfg = Config.fromfile(args.config)
+    cfg.merge_from_options(args.cfg_option)
+    random.seed(621)
+    np.random.seed(621)
+    torch.manual_seed(621)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    model = build_model(cfg.model, device=args.device, seed=0)
+    apply_config_pretrained(model)
+    if args.ckp_path:
+        taken = load_weights(model, args.ckp_path)
+        print_log(f"loaded {args.ckp_path}: {taken} tensors")
+    tc = model.tile_cfg
+    raw = tuple(args.image_raw_shape or tc.image_raw_shape)
+    split = tuple(args.patch_split_num or tc.patch_split_num)
+
+    ds_cfg = cfg.get("test_in_dataloader") or cfg.get("val_dataloader")
+    if not ds_cfg:
+        raise ValueError("the config has neither test_in_dataloader nor val_dataloader")
+    loader = DataLoader(build_dataset(ds_cfg.dataset), batch_size=1, shuffle=False,
+                        num_workers=ds_cfg.get("num_workers", 1))
+    print_log(f"testing {len(loader.dataset)} images on {model.device}: {args.cai_mode}, "
+              f"process_num {args.process_num}, raw {list(raw)}, split {list(split)}")
+    metrics = Tester(cfg, model, loader).run(cai_mode=args.cai_mode, process_num=args.process_num,
+                                              image_raw_shape=raw, patch_split_num=split)
+    print(json.dumps({"metrics": metrics}), flush=True)
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

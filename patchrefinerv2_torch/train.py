@@ -12,16 +12,20 @@ stage 3 (``configs/patchrefinerv2_zoedepth/v2_eff_u4k.py``), V1 with a
 ZoeDepth fine branch (``configs/patchrefiner_zoedepth/pr_u4k.py``) and the
 Semi transfer with an online teacher
 (``configs/patchrefinerv2_zoedepth_cs/plus_eff_cs_semi_online_ranking_ft.py``;
-an offline config needs the dataset's ``pseudo_label``). Then the config's
-train dataset (of the port's datasets, ``SyntheticDataset``:
+the offline transfer, ``plus_eff_cs_semi_offline_ssigm_ft.py``, takes the
+Cityscapes reader's ``pseudo_label``). Then the config's train dataset
+(``UnrealStereo4kDataset`` and ``CityScapesDataset`` read their files
+under ``data_root`` by their ``split``; ``SyntheticDataset`` makes frames:
 ``--cfg-option train_dataloader.dataset.type=SyntheticDataset``, whose
 frames must have the model's ``image_raw_shape``: the Cityscapes configs
 keep theirs under ``transform_cfg``, so add
 ``train_dataloader.dataset.image_raw_shape=[1024,2048]``), a shuffled
-loader of its ``batch_size``, and runs ``Trainer.run``. The
-validation dataset is skipped when it is not one the port has. It runs on
-the card unless ``--device cpu`` is given, and raises when there is none.
-Float32 matmuls and convolutions run without TF32 (set here, and printed).
+loader of its ``batch_size`` that loads ahead on the config's
+``num_workers`` threads, and runs ``Trainer.run``. The validation dataset
+is skipped when the port has no such reader or its files cannot be read.
+It runs on the card unless ``--device cpu`` is given, and raises when
+there is none. Float32 matmuls and convolutions run without TF32 (set
+here, and printed).
 """
 
 from __future__ import annotations
@@ -35,12 +39,15 @@ import torch
 
 from patchrefinerv2_torch.config import Config
 from patchrefinerv2_torch.datasets.base import DataLoader
+from patchrefinerv2_torch.datasets.cityscapes import CityScapesDataset
 from patchrefinerv2_torch.datasets.synthetic import SyntheticDataset
+from patchrefinerv2_torch.datasets.u4k import UnrealStereo4kDataset
 from patchrefinerv2_torch.models.patchrefiner import build_model
 from patchrefinerv2_torch.training.trainer import Trainer
 from patchrefinerv2_torch.utils.logging import print_log
 
-DATASETS = {"SyntheticDataset": SyntheticDataset}
+DATASETS = {"SyntheticDataset": SyntheticDataset, "UnrealStereo4kDataset": UnrealStereo4kDataset,
+            "CityScapesDataset": CityScapesDataset}
 
 
 def build_dataset(cfg: dict):
@@ -82,14 +89,14 @@ def main(argv=None) -> None:
                          f"image_raw_shape is {list(raw)}: add --cfg-option "
                          f"train_dataloader.dataset.image_raw_shape=[{raw[0]},{raw[1]}]")
     model = build_model(cfg.model, device=args.device, seed=args.seed)
-    train_loader = DataLoader(dataset,
-                              batch_size=cfg.train_dataloader.get("batch_size", 4), shuffle=True,
-                              seed=args.seed)
+    train_loader = DataLoader(dataset, batch_size=cfg.train_dataloader.get("batch_size", 4),
+                              shuffle=True, seed=args.seed,
+                              num_workers=cfg.train_dataloader.get("num_workers", 1))
     val_loader = None
     if cfg.get("val_dataloader"):
         try:
             val_loader = DataLoader(build_dataset(cfg.val_dataloader.dataset), batch_size=1)
-        except NotImplementedError as e:
+        except (NotImplementedError, OSError) as e:
             print_log(f"val dataset unavailable ({e}); skipping validation")
     Trainer(cfg, model, train_loader, val_loader, work_dir=work_dir).run()
 

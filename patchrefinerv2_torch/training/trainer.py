@@ -80,8 +80,11 @@ class Trainer:
                   f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN TF32 {torch.backends.cudnn.allow_tf32}")
 
     def device_batch(self, batch: dict) -> dict:
-        """The config's ``collect_input_args`` of a loader batch, on the device."""
+        """The config's ``collect_input_args`` of a loader batch, and the
+        model's ``batch_keys`` (the offline pseudo label), on the device."""
         collect = self.config.get("collect_input_args")
+        if collect:
+            collect = (*collect, *getattr(self.model, "batch_keys", ()))
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()
                 if isinstance(v, np.ndarray | torch.Tensor) and (not collect or k in collect)}
 

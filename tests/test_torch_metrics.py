@@ -136,8 +136,8 @@ def test_compute_boundary_metrics_matches_jax(seed):
 def cityscapes(tmp_path_factory):
     split = tmp_path_factory.mktemp("cs") / "empty.txt"
     split.write_text("")
-    return (JCityScapes(mode="infer", split=str(split), transform_cfg={}, min_depth=1e-3,
-                        max_depth=250), CityScapesDataset(min_depth=1e-3, max_depth=250))
+    kw = dict(mode="infer", split=str(split), transform_cfg={}, min_depth=1e-3, max_depth=250)
+    return JCityScapes(**kw), CityScapesDataset(**kw)
 
 
 def cs_frame(seed, shape=(64, 96)):

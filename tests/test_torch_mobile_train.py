@@ -37,6 +37,7 @@ config's ``lr_mult`` of 0.1.
 
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -59,6 +60,15 @@ from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op
 from tests.test_torch_mobile import build_both, mobile_config
 from tests.test_torch_train_e2e import make_batch
 from tests.test_torch_train_slice import grad_errors, hacked_draws, stats_of
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed after the test: a checkpoint written
+    here takes up to 1.5 GB, and pytest keeps the temp dirs of three runs."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
 
 B = 2
 HW = (48, 64)

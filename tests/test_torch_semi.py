@@ -32,6 +32,7 @@ online ranking config; what raises.
 import glob
 import json
 import os
+import shutil
 import pathlib
 
 import numpy as np
@@ -57,6 +58,15 @@ from tests.test_torch_mobile import random_variables
 from tests.test_torch_slice import assert_rel, slice_config
 from tests.test_torch_train_e2e import HW, make_batch, one_bn_group  # noqa: F401 (autouse)
 from tests.test_torch_train_slice import grad_errors, stats_of
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed after the test: a checkpoint written
+    here takes up to 1.5 GB, and pytest keeps the temp dirs of three runs."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
 
 KEY = jax.random.PRNGKey(31)
 ROOT = pathlib.Path(__file__).resolve().parent.parent

@@ -29,6 +29,7 @@ the port wrote, at the tiny flagship topology of tests/test_torch_slice.py
 
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -44,6 +45,15 @@ from patchrefinerv2_torch.train import main as train_main
 from patchrefinerv2_torch.training.trainer import Trainer
 from patchrefinerv2_torch.utils.checkpoint import apply_config_pretrained, save_checkpoint
 from tests.test_torch_train_e2e import B, HW, e2e_config, make_batch
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed after the test: a checkpoint written
+    here takes up to 1.5 GB, and pytest keeps the temp dirs of three runs."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
 
 CONFIGS = os.path.abspath("configs/patchrefinerv2_zoedepth")
 
@@ -95,7 +105,8 @@ def stage2_checkpoint(tmp_path_factory):
     sd = PatchRefinerPlus(cfg.model.config, device="cpu", seed=7).net.state_dict()
     path = str(tmp / "checkpoint_01")
     save_checkpoint(path, {"state_dict": sd})
-    return path, sd
+    yield path, sd
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _tree(sd: dict) -> dict:

@@ -46,6 +46,7 @@ weights' round trip.
 """
 
 import json
+import shutil
 
 import numpy as np
 import pytest
@@ -68,6 +69,15 @@ from patchrefinerv2_torch.utils.jax_weights import jax_to_state_dict, load_jax_p
 from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 from tests.test_torch_modules import assert_same_tree, randomize
 from tests.test_torch_slice import slice_config
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed after the test: a checkpoint written
+    here takes up to 1.5 GB, and pytest keeps the temp dirs of three runs."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
 
 B = 2
 KEY = jax.random.PRNGKey(3)
