@@ -14,8 +14,11 @@ Phases (each prints one or more lines; any failure exits non-zero):
    in float32 (TF32 off) and bfloat16; the Cityscapes 1024x2048 frame in
    bfloat16; the raw-canvas work of r32 on both frames (``check_rn``: the
    canvases resized to the raw frame, the predictions back to the raw
-   patch, the blend of 16 raw patches and finalize at raw size); the
-   metrics' float32 prediction resizes to the gt shape; canny_nms at the
+   patch, the blend of 16 raw patches and finalize at raw size); K1 (the 7
+   calls of a chunk at the split's boxes), the K2 crop-resize and K7 (an m1
+   and an m2 chunk, finalize) at the other readers' frames in bfloat16
+   (KITTI 352x1216 split 2x4, ScanNet++ 1440x1920 and ETH3D 4032x6048
+   split 2x2); the metrics' float32 prediction resizes to the gt shape; canny_nms at the
    evaluation's (1, 1024, 2048) in float64, where the masks must be equal,
    and float32, in its NMS mode and its mask mode (the eroded mask and both
    thresholds in the launch), timed in turns beside the unfused path (the
@@ -175,7 +178,18 @@ Phases (each prints one or more lines; any failure exits non-zero):
    ``train.main`` on the reader's pseudo labels (the edge loss finite and
    not 0) and ``test.main`` on ``plus_eff_cs_pretrain.py`` in m1 over 2
    val frames, whose infer sample carries no ``seg_image`` (as the JAX
-   reader's).
+   reader's);
+12. the other readers and test types (``datasets_run``), on files it writes
+   under ``_work/data``: 4 KITTI frames at 375x1242 with sparse depth
+   through ``test.main`` on ``plus_eff_onlyreal.py`` in m1 and m2 (bfloat16,
+   process_num 8), ``--test-type gen`` over them as a folder (each pseudo
+   label equal to ``save_raw_16bit`` of the returned depth) and 2 offline
+   ``semi_eff.py`` steps on those pseudo labels; 2 ScanNet++ frames at
+   1440x1920 (one depth at 720x960) with the ``edge_``/``flat_`` metrics; one
+   ETH3D frame at 4032x6048 with a ``.raw`` depth on the flagship split 2x2
+   (peak memory printed); ``--test-type general --save`` over a raw 4K blob
+   and a 1000x1500 PNG (both PNGs written per image, the bicubic read's
+   host ms printed); each frame's loading, inference and metric host ms.
 
 The line before the last is one JSON object with a record per kernel: its
 launches in each main-path run and their sum, and its times, bound and
@@ -191,7 +205,11 @@ relative to each gradient's magnitude); ``launches_by_run`` has
 ``train_f32``, ``train_e2e_f32``, ``v1_train_f32`` and the three
 ``semi_*_f32``, the launches of one step of each, and the data runs'
 (``data_u4k_train_f32`` and ``data_cs_semi_offline_f32`` a step,
-``data_u4k_eval_bf16`` and ``data_cs_eval_bf16`` over 2 frames); K11 and K12 also record
+``data_u4k_eval_bf16`` and ``data_cs_eval_bf16`` over 2 frames; the
+``datasets_*`` runs: KITTI m1, m2 and gen over 4 frames and a Semi step,
+ScanNet++ over 2, ETH3D over 1, ``general`` over 2); K1, the K2
+crop-resize and K7 also record ``kitti_bf16``, ``scannet_bf16`` and
+``eth3d_bf16``; K11 and K12 also record
 ``semi_f32``, the Semi loss's shape (K11 its mask mode's time with the NMS
 mode's, the unfused path's and each row count's as extras; K12 also its exit step, the tiled
 kernel's time, the latency floor and its time and exit step on the snake
@@ -258,20 +276,33 @@ def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS) -> tuple[floa
 
 # The main paths' frames: the flagship's BEiT coarse branch at 384x512 and
 # Depth-Anything-V2's DINOv2 at 448x448, each over a 2160x3840 frame, and the
-# Cityscapes evaluation's flagship network over a 1024x2048 frame; each split
-# 4x4, one chunk of 16 patches. Levels: the six coarse levels and the coarse
-# depth that roi_align crops, (h, w, C). ``dtypes``: those the frame's
-# kernels are checked in (the evaluation runs bfloat16 only).
+# Cityscapes evaluation's flagship network over a 1024x2048 frame, each split
+# 4x4, one chunk of 16 patches; the evaluations of the other readers' frames
+# by the flagship network (``datasets_run``): KITTI's 352x1216 split 2x4 (its
+# 176x304 patches upsampled to 384x512, one chunk of 8), ScanNet++'s
+# 1440x1920 and ETH3D's 4032x6048 split 2x2 (one chunk of 4; ETH3D's
+# 2016x3024 patches downsampled ~5.9x), where only the kernels whose shapes
+# the split sets are checked (``tiles_only``: K1, the K2 crop-resize, K7;
+# and ``check_metric_resizes``, the K2 resize of the canvas to the gt).
+# Levels: the six coarse levels and the coarse depth that roi_align crops,
+# (h, w, C). ``dtypes``: those the frame's kernels are checked in (the
+# evaluations run bfloat16 only).
 FLAGSHIP_LEVELS = [(12, 16, 256), (24, 32, 256), (48, 64, 256), (96, 128, 256), (192, 256, 256),
                    (384, 512, 32), (384, 512, 1)]
 PATHS = {
-    "flagship": dict(frame=(2160, 3840), process=(384, 512), levels=FLAGSHIP_LEVELS,
+    "flagship": dict(frame=(2160, 3840), split=(4, 4), process=(384, 512), levels=FLAGSHIP_LEVELS,
                      dtypes=("float32", "bfloat16")),
-    "da2": dict(frame=(2160, 3840), process=(448, 448), levels=[
+    "da2": dict(frame=(2160, 3840), split=(4, 4), process=(448, 448), levels=[
         (16, 16, 256), (32, 32, 256), (64, 64, 256), (128, 128, 256), (256, 256, 256),
         (448, 448, 128), (448, 448, 1)], dtypes=("float32", "bfloat16")),
-    "cityscapes_eval": dict(frame=(1024, 2048), process=(384, 512), levels=FLAGSHIP_LEVELS,
-                            dtypes=("bfloat16",)),
+    "cityscapes_eval": dict(frame=(1024, 2048), split=(4, 4), process=(384, 512),
+                            levels=FLAGSHIP_LEVELS, dtypes=("bfloat16",)),
+    "kitti": dict(frame=(352, 1216), split=(2, 4), process=(384, 512), levels=FLAGSHIP_LEVELS,
+                  dtypes=("bfloat16",), tiles_only=True),
+    "scannet": dict(frame=(1440, 1920), split=(2, 2), process=(384, 512), levels=FLAGSHIP_LEVELS,
+                    dtypes=("bfloat16",), tiles_only=True),
+    "eth3d": dict(frame=(4032, 6048), split=(2, 2), process=(384, 512), levels=FLAGSHIP_LEVELS,
+                  dtypes=("bfloat16",), tiles_only=True),
 }
 
 
@@ -284,7 +315,9 @@ PATH_DTYPES = {"flagship": ("bfloat16",), "da2": ("bfloat16",), "r32": ("bfloat1
                "cityscapes_eval": ("bfloat16", "float32", "float64"),
                "v1": ("bfloat16",), "v1_da2": ("bfloat16",),
                "train_backward": ("float32",), "train_e2e_backward": ("float32",),
-               "train_v1_backward": ("float32",), "semi": ("float32",)}
+               "train_v1_backward": ("float32",), "semi": ("float32",),
+               "kitti": ("bfloat16", "float32"), "scannet": ("bfloat16", "float32"),
+               "eth3d": ("bfloat16", "float32")}
 SHORT = {"bfloat16": "bf16", "float32": "f32", "float64": "f64"}
 
 
@@ -381,9 +414,36 @@ def roi_grid(boxes, size, spatial_scale, map_hw):
     return torch.stack([gx, gy], dim=-1).contiguous()
 
 
+def crop_read_bytes(tc, starts, es: int) -> int:
+    """The bytes the crop-resize must fetch from the (H, W, 3) frame: the
+    32-byte sectors that its bilinear align-corners taps touch, in every
+    source row a tap reads (all rows and columns when it upsamples; at
+    ETH3D's ~5.9x downsample the tapped columns lie closer than a sector,
+    so each such row's whole span). ``starts``: the patches' (h, w) origins."""
+    import numpy as np
+
+    from patchrefinerv2_torch.ops.resize import axis_taps
+
+    (prh, prw), (pph, ppw) = tc.patch_raw_shape, tc.patch_process_shape
+    iy, wy = axis_taps(prh, pph, "bilinear", True)
+    ix, wx = axis_taps(prw, ppw, "bilinear", True)
+    rows = np.unique(iy[wy != 0]).astype(np.int64)
+    cols = np.unique(ix[wx != 0]).astype(np.int64)
+    offsets = ((cols[:, None] * 3 + np.arange(3)) * es).ravel()  # in a row, from its patch's left
+    total = 0
+    for y0, x0 in np.asarray(starts, np.int64):
+        row_start = ((y0 + rows) * tc.image_raw_shape[1] + x0) * 3 * es
+        phases, n_rows = np.unique(row_start % 32, return_counts=True)
+        for phase, n in zip(phases, n_rows):
+            total += int(n) * len(np.unique((phase + offsets) // 32)) * 32
+    return total
+
+
 def check_kernels(chk: Checks, dev) -> None:
     """The PR 1 kernels (K1, K2 bilinear, K6, K7) at the shapes of every
-    path's frame, and the rN and metric shapes."""
+    path's frame (one chunk of the path's split; ``tiles_only`` paths K1,
+    the K2 crop-resize and K7), the rN shapes, and the metric resizes of
+    the Cityscapes, KITTI, ScanNet++ and ETH3D evaluations."""
     import torch
     import torch.nn.functional as F
 
@@ -395,11 +455,12 @@ def check_kernels(chk: Checks, dev) -> None:
     g = torch.Generator(device=dev).manual_seed(1)
     for path, geo in PATHS.items():
         pph, ppw = geo["process"]
-        tc = TileCfg(geo["frame"], (4, 4), (pph, ppw))
+        tc = TileCfg(geo["frame"], geo["split"], (pph, ppw))
         prh, prw = tc.patch_raw_shape
-        m1 = regular_pass(tc, (0, 0), 16)
+        n = geo["split"][0] * geo["split"][1]
+        m1 = regular_pass(tc, (0, 0), n)
         boxes = torch.from_numpy(m1.bboxes).to(dev)
-        bidx = torch.zeros(16, dtype=torch.int32, device=dev)
+        bidx = torch.zeros(n, dtype=torch.int32, device=dev)
         starts = torch.from_numpy(m1.starts_raw).to(dev)
         for dt in (getattr(torch, d) for d in geo["dtypes"]):
             es = torch.finfo(dt).bits // 8
@@ -414,7 +475,7 @@ def check_kernels(chk: Checks, dev) -> None:
                 args = (f, boxes, bidx, (h, w), h / pph)
                 ref = roi_align_plain(*args)
                 err = err_of(roi_align(*args), ref)
-                fx = f.float().permute(0, 3, 1, 2).expand(16, c, h, w)
+                fx = f.float().permute(0, 3, 1, 2).expand(n, c, h, w)
                 grid = roi_grid(boxes, (h, w), h / pph, (h, w))
                 lib_out = F.grid_sample(fx, grid, mode="bilinear", padding_mode="border",
                                         align_corners=False).permute(0, 2, 3, 1)
@@ -430,17 +491,21 @@ def check_kernels(chk: Checks, dev) -> None:
                                                     align_corners=False))
                 chk.add("roi_align", path, dt, err, tol_of(ref, dt), time_ms(lambda: roi_align(*args)),
                         time_ms(lambda: roi_align_plain(*args)), lib,
-                        f.numel() * es + 16 * 5 * 4 + ref.numel() * es, 10 * ref.numel())
+                        f.numel() * es + n * 5 * 4 + ref.numel() * es, 10 * ref.numel())
                 del f, ref, lib_out, fx
-            # K2: crop-resize of the 16 raw patches -> the process shape
+            # K2: crop-resize of the n raw patches -> the process shape (the
+            # bytes of the source sectors its taps touch)
             img = torch.rand((*tc.image_raw_shape, 3), generator=g, device=dev).to(dt)
             crop = (img, starts, (prh, prw), (pph, ppw))
             ref = crop_resize_plain(*crop)
             err = err_of(crop_resize(*crop), ref)
             chk.add("crop_resize", path, dt, err, tol_of(ref, dt), time_ms(lambda: crop_resize(*crop)),
                     time_ms(lambda: crop_resize_plain(*crop)), None,
-                    16 * prh * prw * 3 * es + 16 * 2 * 4 + ref.numel() * es, 6 * ref.numel())
+                    crop_read_bytes(tc, m1.starts_raw, es) + n * 2 * 4 + ref.numel() * es,
+                    6 * ref.numel())
             del img, ref
+            if geo.get("tiles_only"):
+                continue
             # K2 bilinear: C2F refinenet1's x2 upsample of 16 patches at 256
             # channels; DA2 also the DPT head's 256x256 -> 448x448 at 128
             ups = [(16, pph // 2, ppw // 2, 256)] + ([(1, 256, 256, 128)] if path == "da2" else [])
@@ -456,7 +521,10 @@ def check_kernels(chk: Checks, dev) -> None:
     cs_tc = TileCfg(PATHS["cityscapes_eval"]["frame"], (4, 4), PATHS["cityscapes_eval"]["process"])
     check_rn(chk, dev, g, "r32", flagship_tc)
     check_rn(chk, dev, g, "cityscapes_eval", cs_tc)
-    check_metric_resizes(chk, dev, g, cs_tc)
+    check_metric_resizes(chk, dev, g, "cityscapes_eval", cs_tc)
+    for path in ("kitti", "scannet", "eth3d"):
+        geo = PATHS[path]
+        check_metric_resizes(chk, dev, g, path, TileCfg(geo["frame"], geo["split"], geo["process"]))
 
 
 def check_bilinear(chk: Checks, path, dt, g, dev, shape, size) -> None:
@@ -496,28 +564,44 @@ def check_layer_norm(chk: Checks, path, dt, g, dev, m: int, c: int) -> None:
             8 * x.numel())
 
 
+def blend_chunks(path: str, tc) -> list:
+    """The (starts on the canvas, init flags) of the chunks ``check_blend``
+    blends: for the flagship and the Cityscapes frame an m2 chunk of 8
+    overlapping patches that straddles the init pass and the first shifted
+    pass; for DA2 the m1 init pass of 16 patches; for the other readers'
+    frames the m1 init pass of their split and the m2 chunk after the first
+    (``min(patches, 8)`` patches)."""
+    import numpy as np
+
+    from patchrefinerv2_torch.models.tiling import merge_all_passes, regular_pass
+
+    n = tc.patch_split_num[0] * tc.patch_split_num[1]
+    chunk = min(n, 8)
+    m1 = (regular_pass(tc, (0, 0), n).starts_process, np.ones(n, np.float32))
+    stream, initv = merge_all_passes(
+        [regular_pass(tc, off, n) for off in ((0, 0), (0, 1), (1, 0), (1, 1))], chunk)
+    m2 = (stream.starts_process[chunk:2 * chunk], initv[chunk:2 * chunk])
+    if PATHS[path].get("tiles_only"):
+        return [m1, m2]
+    return [m1] if path == "da2" else [m2]
+
+
 def check_blend(chk: Checks, dev, g, path, tc, dtypes) -> None:
-    """K7 on one chunk of the path's frame: for the flagship and the
-    Cityscapes frame an m2 chunk of 8 overlapping patches that straddles the
-    init pass and the first shifted pass, blended into canvases as an
-    earlier chunk leaves them; for DA2 the m1 init pass of 16 patches. Then
-    finalize."""
+    """K7 on each chunk of ``blend_chunks``, blended into canvases as an
+    earlier chunk leaves them. Then finalize."""
+    for starts_np, initv in blend_chunks(path, tc):
+        check_blend_chunk(chk, dev, g, path, tc, dtypes, starts_np, initv)
+
+
+def check_blend_chunk(chk: Checks, dev, g, path, tc, dtypes, starts_np, initv) -> None:
     import numpy as np
     import torch
 
-    from patchrefinerv2_torch.models.tiling import merge_all_passes, regular_pass
     from patchrefinerv2_torch.ops.blend import TileBlender, add_pass_plain, finalize_plain
     from patchrefinerv2_torch.ops.masks import generate_blend_mask
 
     pph, ppw = tc.patch_process_shape
     canvas_hw = tc.patch_reensemble_shape
-    if path != "da2":
-        stream, initv = merge_all_passes(
-            [regular_pass(tc, off, 16) for off in ((0, 0), (0, 1), (1, 0), (1, 1))], 8)
-        starts_np, initv = stream.starts_process[8:16], initv[8:16]
-    else:
-        starts_np = regular_pass(tc, (0, 0), 16).starts_process
-        initv = np.ones(16, np.float32)
     n = len(starts_np)
     st = torch.from_numpy(starts_np).to(dev)
     iv = torch.from_numpy(initv).to(dev)
@@ -637,10 +721,12 @@ def check_rn(chk: Checks, dev, g, path, tc) -> None:
             None, 4 * npx * 4, 2 * npx)
 
 
-def check_metric_resizes(chk: Checks, dev, g, tc) -> None:
-    """K2 in the Cityscapes metrics of an m1 or m2 frame: the float32
+def check_metric_resizes(chk: Checks, dev, g, path: str, tc) -> None:
+    """K2 in the metrics of an m1 or m2 frame of ``path``: the float32
     prediction on the reensemble canvas to the gt shape, bilinear with
-    align_corners off (the depth metrics) and on (the boundary metrics)."""
+    align_corners off (the depth metrics) and on (the Cityscapes boundary
+    metrics; the other readers' metrics do not run it, so there it is
+    checked but not recorded)."""
     import torch
     import torch.nn.functional as F
 
@@ -653,10 +739,12 @@ def check_metric_resizes(chk: Checks, dev, g, tc) -> None:
         err = err_of(resize(x, size, "bilinear", ac), ref)
         lib = time_ms(lambda: F.interpolate(x.permute(0, 3, 1, 2), size, mode="bilinear",
                                             align_corners=ac))
-        chk.add("resize", "cityscapes_eval", x.dtype, err, tol_of(ref, x.dtype),
+        chk.add("resize", path, x.dtype, err, tol_of(ref, x.dtype),
                 time_ms(lambda: resize(x, size, "bilinear", ac)),
                 time_ms(lambda: resize_plain(x, size, "bilinear", ac)), lib,
-                4 * (x.numel() + ref.numel()), 6 * ref.numel())
+                4 * (x.numel() + ref.numel()), 6 * ref.numel(),
+                main=not ac or path == "cityscapes_eval")
+        del ref
 
 
 # The flagship's bins head: the four attractor layers (64 bins, 16/8/4/1
@@ -3828,6 +3916,11 @@ CS_PRETRAIN_CONFIG = "configs/patchrefinerv2_zoedepth_cs/plus_eff_cs_pretrain.py
 CS_OFFLINE_CONFIG = "configs/patchrefinerv2_zoedepth_cs/plus_eff_cs_semi_offline_ssigm_ft.py"
 
 
+# the kernels of an offline Semi step of the flagship student (no teacher)
+SEMI_STUDENT_KERNELS = ("resize", "layer_norm", "attention", "tail_conv", "gate_tail", "roi_align",
+                        "attractor_update", "log_binomial_depth")
+
+
 def write_u4k(root: str, frames: int) -> dict:
     """UnrealStereo4K files at full size, made with a seeded numpy RNG: for
     each frame a raw 2160x3840x3 uint8 BGR blob, a float32 disparity in
@@ -4045,74 +4138,94 @@ def cli_train(label: str, config: str, options: list, kernels, exact_of=None,
     return out
 
 
-def cli_test(label: str, config: str, options: list, frames: int, ref_counts: dict,
-             idle_ok=()) -> tuple:
+def cli_test(label: str, config: str, options: list, frames: int, ref_counts: dict | None = None,
+             idle_ok=(), args=(), process_num: int = 16, expect: str = "metrics") -> dict:
     """``patchrefinerv2_torch.test.main`` on ``config`` (its files and
-    bfloat16 by ``options``), m1 with process_num 16, on the card, the launch
-    counters set to 0 just before and read just after: every kernel of the
-    path but ``idle_ok`` launched, K5 and K9 as the head's ``kernel_calls``
-    say a chunk, K8 4 + 1 a frame, and every kernel but K2 and canny (the
-    metrics' own) as often as in ``ref_counts`` (a full-width phase's run of
-    the same network over the same number of frames); finite metrics. The
-    host ms of each frame spent waiting on the loader, inferring and on the
-    metrics are printed. Returns (counts, the batches' keys)."""
+    bfloat16 by ``options``; more flags in ``args``, m1 unless they say),
+    with ``process_num``, on the card, the launch counters set to 0 just
+    before and read just after: every kernel of the path but ``idle_ok``
+    launched, K5 and K9 as the head's ``kernel_calls`` say a chunk, K8 4 +
+    1 a frame, and with ``ref_counts`` (a full-width phase's run of the same
+    network over the same number of frames) every kernel but K2 and canny
+    (the metrics' own) as often; ``expect``: finite metrics (``"metrics"``),
+    none (``"none"``: no ground truth) or one pseudo label written a frame
+    (``"pseudo_labels"``: ``--test-type gen``). The host ms of each frame spent loading (on a loader
+    thread), waited on, inferring and on the metrics are printed. Returns
+    the counts, the batches' keys, the metrics (or the pseudo labels'
+    paths), each frame's depth on the host and the peak device bytes."""
     from unittest import mock
 
     import torch
 
     from patchrefinerv2_torch import ops
     from patchrefinerv2_torch import test as evaluate
-    from patchrefinerv2_torch.datasets.base import DepthDataset
+    from patchrefinerv2_torch.datasets.base import DataLoader, DepthDataset
     from patchrefinerv2_torch.datasets.cityscapes import CityScapesDataset
+    from patchrefinerv2_torch.datasets.scannet import ScanNetDataset
 
-    models, infer_ms, metric_ms, waits, keys = [], [], [], [], []
-    build = evaluate.build_model
+    models, infer_ms, metric_ms, load_ms, waits, keys, depths = [], [], [], [], [], [], []
+    build, load = evaluate.build_model, DataLoader._load
 
-    def synced_ms(fn, into):
+    def synced_ms(fn, into, keep=None):
         def run(*a, **k):
             torch.cuda.synchronize()
             t0 = time.time()
             out = fn(*a, **k)
             torch.cuda.synchronize()
             into.append((time.time() - t0) * 1e3)
+            if keep is not None:
+                keep.append(out[0].float().cpu().numpy())
             return out
         return run
 
     def built(*a, **k):
         model = build(*a, **k)
-        model.infer = synced_ms(model.infer, infer_ms)
+        model.infer = synced_ms(model.infer, infer_ms, depths)
         models.append(model)
         return model
 
+    def timed_load(self, batch):
+        t0 = time.time()
+        out = load(self, batch)
+        load_ms.append((time.time() - t0) * 1e3)
+        return out
+
     here = os.path.dirname(os.path.abspath(__file__))
     ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     timed_metrics = [mock.patch.object(cls, "get_metrics", synced_ms(cls.get_metrics, metric_ms))
-                     for cls in (DepthDataset, CityScapesDataset)]
+                     for cls in (DepthDataset, CityScapesDataset, ScanNetDataset)]
     with mock.patch.object(evaluate, "build_model", built), waits_on(waits, keys), \
-            timed_metrics[0], timed_metrics[1]:
-        metrics = evaluate.main([os.path.join(here, config), "--cai-mode", "m1", "--process-num",
-                                 "16", "--cfg-option", *options])
+            mock.patch.object(DataLoader, "_load", timed_load), \
+            timed_metrics[0], timed_metrics[1], timed_metrics[2]:
+        out = evaluate.main([os.path.join(here, config), "--cai-mode", "m1", "--process-num",
+                             str(process_num), *args, "--cfg-option", *options])
     seconds = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
     counts = ops.launch_counts()
     model = models[0]
-    log({"phase": label, "metrics": metrics, "frames": len(infer_ms), "seconds": seconds,
-         "loader_wait_ms_per_frame": waits, "infer_ms_per_frame": infer_ms,
-         "metrics_ms_per_frame": metric_ms, "infer_dtype": str(model.infer_dtype),
-         "launches": counts})
-    if len(infer_ms) != frames or not metrics or not all(math.isfinite(v) for v in metrics.values()):
-        raise AssertionError(f"{label}: {len(infer_ms)} frames, metrics {metrics}")
+    log({"phase": label, "result": out, "frames": len(infer_ms), "seconds": seconds,
+         "load_ms_per_frame": load_ms, "loader_wait_ms_per_frame": waits,
+         "infer_ms_per_frame": infer_ms, "metrics_ms_per_frame": metric_ms,
+         "infer_dtype": str(model.infer_dtype), "max_memory_allocated": peak, "launches": counts})
+    if expect == "pseudo_labels":
+        ok = len(out["pseudo_labels"]) == frames and all(os.path.exists(p) for p in out["pseudo_labels"])
+    else:
+        ok = out == {} if expect == "none" else bool(out) and all(math.isfinite(v) for v in out.values())
+    if len(infer_ms) != frames or not ok:
+        raise AssertionError(f"{label}: {len(infer_ms)} frames, result {out}")
     idle = [k for k, v in counts.items() if v == 0 and k not in idle_ok]
     if idle:
         raise AssertionError(f"{label}: kernels never launched: {idle}")
     check_frame_launches(label, counts, model, frames)
     off = {k: (counts[k], ref_counts[k]) for k in counts
-           if k not in ("resize", "canny_nms") and counts[k] != ref_counts[k]}
+           if ref_counts is not None and k not in ("resize", "canny_nms") and counts[k] != ref_counts[k]}
     if off:
         raise AssertionError(f"{label}: launches differ from the reference run's: {off}")
     del models, model
     torch.cuda.empty_cache()
-    return counts, keys
+    return {"counts": counts, "keys": keys, "result": out, "depths": depths, "peak_bytes": peak}
 
 
 def data_run(dev, flagship_m1: dict, cs_eval_m1: dict) -> dict:
@@ -4172,29 +4285,28 @@ def data_run(dev, flagship_m1: dict, cs_eval_m1: dict) -> dict:
                                     "median_period_ms": statistics.median(periods[2:]),
                                     "median_share_outside_step": statistics.median(outside[2:])},
              "loader_host_ms_per_batch": {r["workers"]: r["ms_per_batch"] for r in host}})
-        u4k_eval, _ = cli_test("data_u4k_eval_bfloat16", STAGE3_CONFIG, [
+        u4k_eval = cli_test("data_u4k_eval_bfloat16", STAGE3_CONFIG, [
             f"test_in_dataloader.dataset.data_root={u4k['root']}",
             f"test_in_dataloader.dataset.split={u4k['val']}", "model.config.infer_dtype=bfloat16"],
-            2, {k: 2 * v for k, v in flagship_m1.items()}, idle_ok=FRAME_IDLE_OK)
+            2, {k: 2 * v for k, v in flagship_m1.items()}, idle_ok=FRAME_IDLE_OK)["counts"]
 
         t0 = time.time()
         cs = write_cityscapes(os.path.join(DATA_DIR, "cityscapes"), 8)
         log({"phase": "data_cs_files", "frames": 8, "seconds": time.time() - t0})
-        semi_kernels = ("resize", "layer_norm", "attention", "tail_conv", "gate_tail", "roi_align",
-                        "attractor_update", "log_binomial_depth")
         semi = cli_train("data_cs_semi_offline", CS_OFFLINE_CONFIG, [
             f"train_dataloader.dataset.data_root={cs['root']}",
             f"train_dataloader.dataset.split={cs['train']}",
             f"train_dataloader.dataset.pseudo_label_path={cs['pl']}", "train_dataloader.batch_size=4",
             "train_dataloader.num_workers=4", "train_cfg.max_epochs=1", "train_cfg.log_interval=1"],
-            semi_kernels, lambda m: semi_exact(m, False), pseudo_label=True, save=False)
+            SEMI_STUDENT_KERNELS, lambda m: semi_exact(m, False), pseudo_label=True, save=False)
         edge = [step["edge_loss"] for step in semi["losses"]]
         if len(edge) != 2 or not all(math.isfinite(e) and e != 0.0 for e in edge):
             raise AssertionError(f"data_cs_semi_offline: edge losses {edge}")
-        cs_eval, keys = cli_test("data_cs_eval_bfloat16", CS_PRETRAIN_CONFIG, [
+        cs_run = cli_test("data_cs_eval_bfloat16", CS_PRETRAIN_CONFIG, [
             "test_in_dataloader=None", f"val_dataloader.dataset.data_root={cs['root']}",
             f"val_dataloader.dataset.split={cs['val']}", "model.config.infer_dtype=bfloat16"],
             2, cs_eval_m1, idle_ok=("quant_conv", "hysteresis_bounded", "canny_nms"))
+        cs_eval, keys = cs_run["counts"], cs_run["keys"]
         log({"phase": "data_cs_infer_sample", "keys": keys[0],
              "seg_image": any("seg_image" in k for k in keys), "as_in_jax": True})
         if any("seg_image" in k for k in keys):
@@ -4204,6 +4316,227 @@ def data_run(dev, flagship_m1: dict, cs_eval_m1: dict) -> dict:
     log({"phase": "seconds", "of": "data_run_total", "s": time.time() - t_phase})
     return {"data_u4k_train_f32": train["counts"][0], "data_u4k_eval_bf16": u4k_eval,
             "data_cs_semi_offline_f32": semi["counts"][0], "data_cs_eval_bf16": cs_eval}
+
+
+KITTI_CONFIG = "configs/patchrefinerv2_zoedepth_kitti/plus_eff_onlyreal.py"
+KITTI_SEMI_CONFIG = "configs/patchrefinerv2_zoedepth_kitti/semi_eff.py"
+SCANNET_CONFIG = "configs/patchrefinerv2_zoedepth_scannet/plus_eff_onlyreal.py"
+ETH_DATASET_CONFIG = "configs/_base_/datasets/eth.py"
+
+
+def _png(path: str, arr) -> None:
+    from PIL import Image
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    Image.fromarray(arr).save(path, compress_level=1)
+
+
+def write_kitti(root: str, frames: int) -> dict:
+    """KITTI files at the raw size (375x1242), made with a seeded numpy RNG:
+    for each frame an RGB PNG named ``NNNNNN.png`` in ``root`` itself (a
+    flat name: the reader's pseudo-label name and ``gen``'s agree only for
+    those) and a uint16 depth PNG under ``gt/`` (256 x depth over 25x54
+    blocks of depth in (2, 80), ~5% of the pixels valid, as LiDAR gives);
+    a split of every frame. Returns their paths."""
+    import numpy as np
+
+    rng = np.random.RandomState(2)
+    h, w = 375, 1242
+    lines = []
+    for i in range(frames):
+        name = f"{i:06d}.png"
+        _png(os.path.join(root, name), rng.randint(0, 256, (h, w, 3), dtype=np.uint8))
+        depth = np.kron(rng.uniform(2.0, 80.0, (h // 25, w // 54)), np.ones((25, 54)))
+        _png(os.path.join(root, "gt", name),
+             np.where(rng.rand(h, w) < 0.05, depth * 256.0, 0.0).astype(np.uint16))
+        lines.append(f"{name} gt/{name}")
+    split = os.path.join(root, "split.txt")
+    with open(split, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return {"root": root, "split": split}
+
+
+def write_scannet(root: str, frames: int) -> dict:
+    """ScanNet++ files (1440x1920 RGB PNGs and uint16 depth PNGs, 1000 x depth
+    over 120x120 blocks of depth in (0.5, 9)), made with a seeded numpy RNG;
+    the second frame's depth at 720x960, so that the reader resizes it by
+    the nearest rule. Returns the root and the split."""
+    import numpy as np
+
+    rng = np.random.RandomState(3)
+    lines = []
+    for i in range(frames):
+        img, dep = f"scene{i}/rgb/DSC{i:05d}.png", f"scene{i}/depth/DSC{i:05d}.png"
+        _png(os.path.join(root, img), rng.randint(0, 256, (1440, 1920, 3), dtype=np.uint8))
+        h, w, b = (1440, 1920, 120) if i != 1 else (720, 960, 60)
+        depth = np.kron(rng.uniform(0.5, 9.0, (h // b, w // b)), np.ones((b, b)))
+        _png(os.path.join(root, dep), (depth * 1000.0).astype(np.uint16))
+        lines.append(f"{img} {dep}")
+    split = os.path.join(root, "split.txt")
+    with open(split, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return {"root": root, "split": split}
+
+
+def write_eth3d(root: str) -> dict:
+    """One ETH3D frame: a 4032x6048 RGB PNG and its float32 ``.raw`` depth
+    (252x252 blocks of depth in (0.5, 30), a NaN and an infinity in the
+    first row), made with a seeded numpy RNG, a split, and a config on the
+    flagship with the val loader of ``configs/_base_/datasets/eth.py`` on
+    them. Returns the config's path."""
+    import numpy as np
+
+    rng = np.random.RandomState(4)
+    img, dep = "courtyard/images/DSC_0001.png", "courtyard/depth/DSC_0001.raw"
+    _png(os.path.join(root, img), rng.randint(0, 256, (4032, 6048, 3), dtype=np.uint8))
+    depth = np.kron(rng.uniform(0.5, 30.0, (16, 24)), np.ones((252, 252))).astype(np.float32)
+    depth[0, :2] = (np.nan, np.inf)
+    os.makedirs(os.path.dirname(os.path.join(root, dep)), exist_ok=True)
+    depth.tofile(os.path.join(root, dep))
+    split = os.path.join(root, "split.txt")
+    with open(split, "w") as f:
+        f.write(f"{img} {dep}\n")
+    here = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(root, "eth3d_flagship.py")
+    with open(config, "w") as f:
+        f.write(f"_base_ = [{os.path.join(here, STAGE3_CONFIG)!r}, "
+                f"{os.path.join(here, ETH_DATASET_CONFIG)!r}]\n"
+                f"test_in_dataloader = None\n"
+                f"val_dataloader = dict(dataset=dict(data_root={root!r}, split={split!r}))\n")
+    return config
+
+
+def write_images(root: str) -> dict:
+    """A folder of images for the ``general`` type: a raw 2160x3840 BGR blob
+    (``a.raw``) and a 1000x1500 RGB PNG (``b.png``, which the reader resizes
+    to 2160x3840 by its bicubic path), made with a seeded numpy RNG."""
+    import numpy as np
+
+    rng = np.random.RandomState(5)
+    os.makedirs(root, exist_ok=True)
+    rng.randint(0, 256, (2160, 3840, 3), dtype=np.uint8).tofile(os.path.join(root, "a.raw"))
+    _png(os.path.join(root, "b.png"), rng.randint(0, 256, (1000, 1500, 3), dtype=np.uint8))
+    return {"root": root, "png": os.path.join(root, "b.png")}
+
+
+def datasets_run(dev, flagship_m1: dict) -> dict:
+    """The other readers and the ``general`` / ``gen`` test types at full
+    width, through the entry points, on files written under ``DATA_DIR``
+    (random weights, seed 0), each frame's loading, inference and metric
+    host ms printed by ``cli_test``:
+
+    (a) KITTI: 4 frames at 375x1242 (``write_kitti``); ``test.main`` on
+        ``plus_eff_onlyreal.py`` (352x1216 split 2x4, one chunk of 8) in m1
+        and m2, bfloat16, finite metrics, K5 and K9 a chunk and K8 4 + 1 a
+        frame; ``--test-type gen`` on the same config over the frames as a
+        folder (``dataset_name=kitti``: the KB crop), each pseudo label
+        reading back equal to ``save_raw_16bit`` of the depth ``infer``
+        returned; then 2 steps of batch 2 of ``semi_eff.py`` through
+        ``train.main`` on those pseudo labels (each step counted as in
+        ``semi_run``, finite losses; no checkpoint written);
+    (b) ScanNet++: 2 frames at 1440x1920, one depth at 720x960
+        (``write_scannet``); ``test.main`` on its ``plus_eff_onlyreal.py``
+        (split 2x2), m1, bfloat16: the ``edge_*`` and ``flat_*`` metrics
+        present and finite;
+    (c) ETH3D: one 4032x6048 frame with a ``.raw`` depth (``write_eth3d``);
+        ``test.main`` with the flagship and ``eth.py``'s val loader at
+        ``--image-raw-shape 4032 6048 --patch-split-num 2 2``, m1, bfloat16,
+        finite metrics, the peak device memory printed;
+    (d) ``test.main --test-type general --save`` on ``v2_eff_u4k.py``, m1,
+        bfloat16, over a raw 4K blob and a 1000x1500 PNG (``write_images``):
+        both PNGs written for each image, launches twice the flagship m1
+        frame's but K2's; the host ms of the PNG's bicubic read printed.
+
+    Returns the launch counts of each run for the kernels line."""
+    import shutil
+
+    import cv2
+    import numpy as np
+
+    from patchrefinerv2_torch.datasets.general import read_general_image
+    from patchrefinerv2_torch.utils.color import save_raw_16bit
+
+    t_phase, runs = time.time(), {}
+    bf16 = "model.config.infer_dtype=bfloat16"
+    try:
+        t0 = time.time()
+        kitti = write_kitti(os.path.join(DATA_DIR, "kitti"), 4)
+        log({"phase": "datasets_kitti_files", "frames": 4, "seconds": time.time() - t0})
+        val = ["test_in_dataloader=None", f"val_dataloader.dataset.data_root={kitti['root']}",
+               f"val_dataloader.dataset.split={kitti['split']}", bf16]
+        for mode in ("m1", "m2"):
+            runs[f"datasets_kitti_eval_{mode}_bf16"] = cli_test(
+                f"datasets_kitti_eval_{mode}_bfloat16", KITTI_CONFIG, val, 4, idle_ok=FRAME_IDLE_OK,
+                args=["--cai-mode", mode], process_num=8)["counts"]
+        pl_dir = os.path.join(DATA_DIR, "kitti_pl")
+        gen = cli_test("datasets_kitti_gen_bfloat16", KITTI_CONFIG, [
+            f"general_dataloader.dataset.rgb_image_dir={kitti['root']}",
+            "general_dataloader.dataset.dataset_name=kitti", bf16], 4, idle_ok=FRAME_IDLE_OK,
+            args=["--test-type", "gen", "--work-dir", pl_dir], process_num=8, expect="pseudo_labels")
+        runs["datasets_kitti_gen_bf16"] = gen["counts"]
+        ref = os.path.join(DATA_DIR, "ref_uint16.png")
+        for path, depth in zip(gen["result"]["pseudo_labels"], gen["depths"]):
+            save_raw_16bit(depth, ref)
+            got, want = (cv2.imread(p, cv2.IMREAD_UNCHANGED) for p in (path, ref))
+            if got.dtype != np.uint16 or got.shape != depth.shape or not np.array_equal(got, want):
+                raise AssertionError(f"{path}: the pseudo label is not save_raw_16bit of the depth")
+        log({"phase": "datasets_kitti_gen_files", "written": gen["result"]["pseudo_labels"],
+             "shape": list(gen["depths"][0].shape), "equal_to_save_raw_16bit": True})
+        semi = cli_train("datasets_kitti_semi_offline", KITTI_SEMI_CONFIG, [
+            f"train_dataloader.dataset.data_root={kitti['root']}",
+            f"train_dataloader.dataset.split={kitti['split']}",
+            f"train_dataloader.dataset.pseudo_label_path={pl_dir}", "train_dataloader.batch_size=2",
+            "train_dataloader.num_workers=2", "val_dataloader=None", "train_cfg.max_epochs=1",
+            "train_cfg.log_interval=1"],
+            SEMI_STUDENT_KERNELS, lambda m: semi_exact(m, False), pseudo_label=True, save=False)
+        if len(semi["counts"]) != 2:
+            raise AssertionError(f"datasets_kitti_semi_offline ran {len(semi['counts'])} steps, not 2")
+        runs["datasets_kitti_semi_offline_f32"] = semi["counts"][0]
+
+        t0 = time.time()
+        sn = write_scannet(os.path.join(DATA_DIR, "scannet"), 2)
+        log({"phase": "datasets_scannet_files", "frames": 2, "seconds": time.time() - t0})
+        scannet = cli_test("datasets_scannet_eval_bfloat16", SCANNET_CONFIG, [
+            "test_in_dataloader=None", f"val_dataloader.dataset.data_root={sn['root']}",
+            f"val_dataloader.dataset.split={sn['split']}", bf16], 2, idle_ok=FRAME_IDLE_OK,
+            process_num=4)
+        split_keys = [k for k in scannet["result"] if k.startswith(("edge_", "flat_"))]
+        if not any(k.startswith("edge_") for k in split_keys) or not any(
+                k.startswith("flat_") for k in split_keys):
+            raise AssertionError(f"datasets_scannet: no edge_ / flat_ metrics in {scannet['result']}")
+        runs["datasets_scannet_eval_bf16"] = scannet["counts"]
+
+        t0 = time.time()
+        eth_config = write_eth3d(os.path.join(DATA_DIR, "eth3d"))
+        log({"phase": "datasets_eth3d_files", "frames": 1, "seconds": time.time() - t0})
+        eth = cli_test("datasets_eth3d_eval_bfloat16", eth_config, [bf16], 1, idle_ok=FRAME_IDLE_OK,
+                       args=["--image-raw-shape", "4032", "6048", "--patch-split-num", "2", "2"],
+                       process_num=4)
+        log({"phase": "datasets_eth3d_peak_memory", "max_memory_allocated": eth["peak_bytes"]})
+        runs["datasets_eth3d_eval_bf16"] = eth["counts"]
+
+        images = write_images(os.path.join(DATA_DIR, "images"))
+        t0 = time.time()
+        read_general_image(images["png"], "", (2160, 3840))
+        log({"phase": "datasets_general_bicubic_read", "source": [1000, 1500], "to": [2160, 3840],
+             "host_ms": (time.time() - t0) * 1e3})
+        out_dir = os.path.join(DATA_DIR, "general_out")
+        general = cli_test("datasets_general_save_bfloat16", STAGE3_CONFIG, [
+            f"general_dataloader.dataset.rgb_image_dir={images['root']}", bf16], 2,
+            {k: 2 * v for k, v in flagship_m1.items()}, idle_ok=FRAME_IDLE_OK,
+            args=["--test-type", "general", "--save", "--work-dir", out_dir], expect="none")
+        written = sorted(os.listdir(out_dir))
+        shapes = [list(cv2.imread(os.path.join(out_dir, f), cv2.IMREAD_UNCHANGED).shape) for f in written]
+        canvas = list(general["depths"][0].shape)  # the reensemble canvas, 1536x2048
+        log({"phase": "datasets_general_files", "written": written, "shapes": shapes})
+        if written != ["a.png", "a_uint16.png", "b.png", "b_uint16.png"] or shapes != [
+                canvas + [3], canvas] * 2:
+            raise AssertionError(f"datasets_general: wrote {written} of shapes {shapes}")
+        runs["datasets_general_bf16"] = general["counts"]
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
+    log({"phase": "seconds", "of": "datasets_run_total", "s": time.time() - t_phase})
+    return runs
 
 
 def record_resize_plans() -> dict:
@@ -4295,6 +4628,7 @@ def main() -> int:
             counts[f"{label}_f32"] = timed(semi_run, dev, label, config)
         timed(tiny_semi_gpu_vs_cpu, dev)
         counts.update(timed(data_run, dev, counts["m1"], counts["eval_m1"]))
+        counts.update(timed(datasets_run, dev, counts["m1"]))
     finally:
         import shutil
 

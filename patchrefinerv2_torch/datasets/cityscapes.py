@@ -39,19 +39,11 @@ from patchrefinerv2_torch.datasets.base import DepthDataset
 from patchrefinerv2_torch.datasets.transforms import (
     aug_color, aug_flip, aug_rotate, crop_bbox, random_crop, resize_hwc,
 )
+from patchrefinerv2_torch.datasets.utils import read_image
 from patchrefinerv2_torch.evaluation.metrics import (
     compute_boundary_metrics, compute_metrics, extract_edges, get_boundaries,
 )
 from patchrefinerv2_torch.ops.resize import resize
-
-
-def _read(path: str, dtype=None, mode: str | None = None) -> np.ndarray:
-    """An image file as an array (PIL: 16-bit PNGs as uint16), converted to
-    ``mode`` first when given."""
-    from PIL import Image
-
-    with Image.open(path) as im:
-        return np.asarray(im.convert(mode) if mode else im, dtype)
 
 
 def _nearest(x: np.ndarray, shape) -> np.ndarray:
@@ -116,11 +108,11 @@ class CityScapesDataset(DepthDataset):
         """The offline pseudo label and its rescaled uncertainty (or None)."""
         if self.mode != "train" or not self.with_pseudo_label:
             return None, None
-        pseudo = _nearest(_read(info["pseudo_label_path"], np.float32) / 256.0, shape)
+        pseudo = _nearest(read_image(info["pseudo_label_path"], np.float32) / 256.0, shape)
         if not self.with_uncert:
             return pseudo, None
-        un = _read(info["uncertain_path"], np.float32) / 256.0
-        count = _read(info["count_path"], np.float32) / 256.0
+        un = read_image(info["uncertain_path"], np.float32) / 256.0
+        count = read_image(info["count_path"], np.float32) / 256.0
         un[count < (16 + 9 + 9 + 9 + 128) * self.filter_thr] = 1.0
         un = np.log(1 + _nearest(un, shape)) / np.log(self.base)
         span = un.max() - un.min()
@@ -128,10 +120,10 @@ class CityScapesDataset(DepthDataset):
 
     def __getitem__(self, idx: int) -> dict:
         info = self.data_infos[idx]
-        image = _read(info["img_path"], mode="RGB")
+        image = read_image(info["img_path"], mode="RGB")
         with open(info["camera_info"]) as f:
             cam = json.load(f)
-        disp = _read(info["depth_map_path"]).astype(np.float32)
+        disp = read_image(info["depth_map_path"]).astype(np.float32)
         disp[disp > 0] = (disp[disp > 0] - 1) / 256.0
         with np.errstate(divide="ignore", invalid="ignore"):
             depth_gt = (cam["extrinsic"]["baseline"] * cam["intrinsic"]["fx"]) / disp
@@ -143,10 +135,10 @@ class CityScapesDataset(DepthDataset):
         train = self.mode == "train"
 
         if self.with_seg_map and not train:
-            seg = _read(info["seg_map"], mode="RGB")
+            seg = read_image(info["seg_map"], mode="RGB")
             depth_gt[(seg[:, :, 0] == 70) & (seg[:, :, 1] == 130)] = 0.0
         if train and self.filter_sky and osp.exists(info.get("sky_seg_path", "")):
-            depth_gt[_nearest(_read(info["sky_seg_path"], np.float32), depth_gt.shape) > 0] = -2.0
+            depth_gt[_nearest(read_image(info["sky_seg_path"], np.float32), depth_gt.shape) > 0] = -2.0
         pseudo, uncert = self._pseudo(info, depth_gt.shape)
 
         if train:

@@ -1,7 +1,9 @@
 """Evaluation entry point, the port's counterpart of ``tools/test.py`` in its
-``normal`` test type:
+``normal``, ``general`` and ``gen`` test types:
 
     python -m patchrefinerv2_torch.test CONFIG [--ckp-path P] [--cai-mode m1|m2|rN]
+                                        [--test-type normal|general|gen]
+                                        [--save] [--gray-scale] [--work-dir D]
                                         [--process-num N] [--image-raw-shape H W]
                                         [--patch-split-num h w] [--cfg-option k=v ...]
                                         [--device cpu]
@@ -12,16 +14,29 @@ tool's ``PRNGKey(0)``), merges the checkpoints the config names
 checkpoint, one of the port's ``torch.save`` files (``work_dir/checkpoint_NN``
 of ``patchrefinerv2_torch.train``, or a bare state dict), by key and shape;
 a tensor of it that the model cannot take raises.
-It reads the config's ``test_in_dataloader``, else its ``val_dataloader``
-(UnrealStereo4K, Cityscapes or synthetic frames), loads it with the
-config's ``num_workers`` threads, takes the tile geometry from the model's
-``tile_cfg`` unless given, runs ``Tester.run`` and prints the dataset's
-aggregate of the per-image metrics. ``--cfg-option
-model.config.infer_dtype=bfloat16`` infers in bfloat16. The other test
-types (``general``, ``consistency``, ``gen``, ``benchmark``) and ``--save``
-are not ported (ROADMAP.md, Queue 1 item 6) and raise. It runs on the card
-unless ``--device cpu`` is given, and raises when there is none. Float32
-matmuls and convolutions run without TF32.
+
+- ``normal`` reads the config's ``test_in_dataloader``, else its
+  ``val_dataloader``; ``general`` and ``gen`` its ``general_dataloader``
+  (an ``ImageDataset`` over a folder of images:
+  ``--cfg-option general_dataloader.dataset.rgb_image_dir=D``), else its
+  ``val_dataloader``. Any of the port's readers may stand there
+  (UnrealStereo4K, Cityscapes, KITTI, ScanNet++, ETH3D, a folder of
+  images, synthetic frames), loaded on the config's ``num_workers``
+  threads.
+- ``normal`` and ``general`` run ``Tester.run`` at the model's
+  ``tile_cfg`` unless ``--image-raw-shape`` / ``--patch-split-num`` are
+  given, and print the dataset's aggregate of the per-image metrics
+  (``{}`` without ground truth). ``--save`` writes each image's colored
+  depth ``{name}.png`` and ``{name}_uint16.png`` (depth x 256) into
+  ``--work-dir`` (``--gray-scale``: the ``gray_r`` colormap).
+- ``gen`` runs ``Tester.generate_pl`` at the model's own tile geometry:
+  the pseudo labels ``{name}_uint16.png`` in ``--work-dir``.
+
+``--cfg-option model.config.infer_dtype=bfloat16`` infers in bfloat16. The
+types ``consistency`` and ``benchmark`` are not ported (ROADMAP.md, Queue 1
+item 6) and raise. It runs on the card unless ``--device cpu`` is given,
+and raises when there is none. Float32 matmuls and convolutions run without
+TF32.
 """
 
 from __future__ import annotations
@@ -44,6 +59,7 @@ from patchrefinerv2_torch.utils.checkpoint import (
 from patchrefinerv2_torch.utils.logging import print_log
 
 TEST_TYPES = ("normal", "general", "consistency", "gen", "benchmark")
+LOADERS = {"normal": "test_in_dataloader", "general": "general_dataloader", "gen": "general_dataloader"}
 
 
 def load_weights(model, path: str) -> int:
@@ -63,6 +79,8 @@ def load_weights(model, path: str) -> int:
 
 
 def main(argv=None) -> dict:
+    """Runs the test type; returns what it prints: ``{"metrics": ...}``'s
+    metrics, or for ``gen`` ``{"pseudo_labels": [paths written]}``."""
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("config")
     parser.add_argument("--ckp-path", default=None)
@@ -70,14 +88,16 @@ def main(argv=None) -> dict:
     parser.add_argument("--process-num", type=int, default=4)
     parser.add_argument("--test-type", default="normal", choices=TEST_TYPES)
     parser.add_argument("--save", action="store_true")
+    parser.add_argument("--gray-scale", action="store_true")
+    parser.add_argument("--work-dir", default="./work_dir/test")
     parser.add_argument("--image-raw-shape", nargs=2, type=int, default=None)
     parser.add_argument("--patch-split-num", nargs=2, type=int, default=None)
     parser.add_argument("--cfg-option", nargs="+", default=None, help="dotted key=value overrides")
     parser.add_argument("--device", default=None, help="cpu runs the plain versions of the kernels")
     args = parser.parse_args(argv)
-    if args.test_type != "normal" or args.save:
-        what = "--save" if args.save else f"--test-type {args.test_type}"
-        raise NotImplementedError(f"{what} is not ported (ROADMAP.md, Queue 1 item 6)")
+    if args.test_type not in LOADERS:
+        raise NotImplementedError(f"--test-type {args.test_type} is not ported "
+                                  "(ROADMAP.md, Queue 1 item 6)")
 
     cfg = Config.fromfile(args.config)
     cfg.merge_from_options(args.cfg_option)
@@ -96,15 +116,24 @@ def main(argv=None) -> dict:
     raw = tuple(args.image_raw_shape or tc.image_raw_shape)
     split = tuple(args.patch_split_num or tc.patch_split_num)
 
-    ds_cfg = cfg.get("test_in_dataloader") or cfg.get("val_dataloader")
+    ds_cfg = cfg.get(LOADERS[args.test_type]) or cfg.get("val_dataloader")
     if not ds_cfg:
-        raise ValueError("the config has neither test_in_dataloader nor val_dataloader")
+        raise ValueError(f"the config has neither {LOADERS[args.test_type]} nor val_dataloader")
     loader = DataLoader(build_dataset(ds_cfg.dataset), batch_size=1, shuffle=False,
                         num_workers=ds_cfg.get("num_workers", 1))
+    tester = Tester(cfg, model, loader, work_dir=args.work_dir, save=args.save,
+                    gray_scale=args.gray_scale)
+    if args.test_type == "gen":
+        print_log(f"generating pseudo labels of {len(loader.dataset)} images on {model.device}: "
+                  f"{args.cai_mode}, process_num {args.process_num}")
+        out = {"pseudo_labels": tester.generate_pl(cai_mode=args.cai_mode,
+                                                   process_num=args.process_num)}
+        print(json.dumps(out), flush=True)
+        return out
     print_log(f"testing {len(loader.dataset)} images on {model.device}: {args.cai_mode}, "
               f"process_num {args.process_num}, raw {list(raw)}, split {list(split)}")
-    metrics = Tester(cfg, model, loader).run(cai_mode=args.cai_mode, process_num=args.process_num,
-                                              image_raw_shape=raw, patch_split_num=split)
+    metrics = tester.run(cai_mode=args.cai_mode, process_num=args.process_num,
+                         image_raw_shape=raw, patch_split_num=split)
     print(json.dumps({"metrics": metrics}), flush=True)
     return metrics
 

@@ -13,9 +13,12 @@ ZoeDepth fine branch (``configs/patchrefiner_zoedepth/pr_u4k.py``) and the
 Semi transfer with an online teacher
 (``configs/patchrefinerv2_zoedepth_cs/plus_eff_cs_semi_online_ranking_ft.py``;
 the offline transfer, ``plus_eff_cs_semi_offline_ssigm_ft.py``, takes the
-Cityscapes reader's ``pseudo_label``). Then the config's train dataset
-(``UnrealStereo4kDataset`` and ``CityScapesDataset`` read their files
-under ``data_root`` by their ``split``; ``SyntheticDataset`` makes frames:
+Cityscapes reader's ``pseudo_label``; the KITTI and ScanNet++ ones,
+``configs/patchrefinerv2_zoedepth_kitti/semi_eff.py`` and its ScanNet
+twin, those readers'). Then the config's train dataset
+(``UnrealStereo4kDataset``, ``CityScapesDataset``, ``KittiDataset``,
+``ScanNetDataset`` and ``ETHDataset`` read their files under
+``data_root`` by their ``split``; ``SyntheticDataset`` makes frames:
 ``--cfg-option train_dataloader.dataset.type=SyntheticDataset``, whose
 frames must have the model's ``image_raw_shape``: the Cityscapes configs
 keep theirs under ``transform_cfg``, so add
@@ -40,6 +43,10 @@ import torch
 from patchrefinerv2_torch.config import Config
 from patchrefinerv2_torch.datasets.base import DataLoader
 from patchrefinerv2_torch.datasets.cityscapes import CityScapesDataset
+from patchrefinerv2_torch.datasets.eth3d import ETHDataset
+from patchrefinerv2_torch.datasets.general import ImageDataset
+from patchrefinerv2_torch.datasets.kitti import KittiDataset
+from patchrefinerv2_torch.datasets.scannet import ScanNetDataset
 from patchrefinerv2_torch.datasets.synthetic import SyntheticDataset
 from patchrefinerv2_torch.datasets.u4k import UnrealStereo4kDataset
 from patchrefinerv2_torch.models.patchrefiner import build_model
@@ -47,7 +54,8 @@ from patchrefinerv2_torch.training.trainer import Trainer
 from patchrefinerv2_torch.utils.logging import print_log
 
 DATASETS = {"SyntheticDataset": SyntheticDataset, "UnrealStereo4kDataset": UnrealStereo4kDataset,
-            "CityScapesDataset": CityScapesDataset}
+            "CityScapesDataset": CityScapesDataset, "KittiDataset": KittiDataset,
+            "ScanNetDataset": ScanNetDataset, "ETHDataset": ETHDataset, "ImageDataset": ImageDataset}
 
 
 def build_dataset(cfg: dict):

@@ -1,11 +1,15 @@
-"""Depth colorization for image panels, the port of
+"""Depth colorization and the depth image files, the port of
 ``patchrefinerv2_tpu/utils/color.py`` (``colorize``, the reference's
-``color.py:95-158``): a matplotlib colormap over percentile-normalised
-values. matplotlib is imported only when a panel is drawn."""
+``color.py:95-158``; ``save_raw_16bit`` and ``save_colored`` :55-72): a
+colormap (``utils/colormaps.py``'s tables of matplotlib's) over
+percentile-normalised values, and PNGs written by cv2, which is imported
+only when a file is written."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from patchrefinerv2_torch.utils import colormaps
 
 
 def colorize(value, vmin=None, vmax=None, cmap="magma_r", invalid_val=-99, invalid_mask=None,
@@ -14,8 +18,6 @@ def colorize(value, vmin=None, vmax=None, cmap="magma_r", invalid_val=-99, inval
     """(H, W, 4) uint8 colors of ``value``, normalised between its
     ``vminp`` and ``vmaxp`` percentiles over the valid pixels unless
     ``vmin``/``vmax`` are given; invalid pixels get ``background_color``."""
-    import matplotlib
-
     value = np.asarray(value, np.float32).squeeze()
     if invalid_mask is None:
         invalid_mask = value == invalid_val
@@ -26,8 +28,25 @@ def colorize(value, vmin=None, vmax=None, cmap="magma_r", invalid_val=-99, inval
     value[invalid_mask] = np.nan
     if value_transform:
         value = value_transform(value)
-    img = matplotlib.colormaps[cmap](value, bytes=True)
+    img = colormaps.apply(cmap, value)
     img[invalid_mask] = background_color
     if gamma_corrected:
         img = (np.power(img / 255.0, 2.2) * 255).astype(np.uint8)
     return img
+
+
+def save_raw_16bit(depth, path: str) -> None:
+    """``depth`` times 256 (float64, truncated to uint16) as a 16-bit PNG, the
+    offline pseudo labels' format."""
+    import cv2
+
+    cv2.imwrite(path, (np.asarray(depth, np.float64).squeeze() * 256.0).astype(np.uint16))
+
+
+def save_colored(depth, path: str, cmap: str, vminp: float, vmaxp: float) -> None:
+    """``colorize`` of ``depth`` between its ``vminp`` and ``vmaxp``
+    percentiles as an 8-bit RGB PNG."""
+    import cv2
+
+    img = colorize(depth, cmap=cmap, vminp=vminp, vmaxp=vmaxp)
+    cv2.imwrite(path, cv2.cvtColor(img[..., :3], cv2.COLOR_RGB2BGR))

@@ -12,8 +12,8 @@ tests/test_torch_slice.py put into the repository's Cityscapes configs.
   skipped.
 - ``test.main`` with that checkpoint gives ``Tester.run``'s aggregate on
   the same model and frames, bit for bit; a checkpoint tensor the model
-  cannot take raises; the test types that are not ported raise, and
-  without ``--device cpu`` it needs a card.
+  cannot take raises; the test types that are not ported (``consistency``,
+  ``benchmark``) raise, and without ``--device cpu`` it needs a card.
 - UnrealStereo4K: one stage-3 step of ``v2_eff_u4k.py`` on a 2160x3840
   frame the fixture writes, and ``test.main``'s m1 evaluation of its
   checkpoint on the config's test loader (the same frame): finite metrics,
@@ -206,8 +206,10 @@ def test_test_cli_raises_for_a_checkpoint_that_does_not_fit(trained, tmp_path):
 
 
 def test_test_cli_raises_for_what_is_not_ported(trained):
+    """The test types the port lacks (``consistency``, ``benchmark``) raise;
+    ``general``, ``gen`` and ``--save`` are ported (tests/test_torch_general_cli.py)."""
     config, _ = trained
-    for extra in (["--test-type", "general"], ["--test-type", "consistency"], ["--save"]):
+    for extra in (["--test-type", "consistency"], ["--test-type", "benchmark"]):
         with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
             evaluate.main([config, "--device", "cpu", *extra])
     if torch.cuda.is_available():

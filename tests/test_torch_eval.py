@@ -109,6 +109,14 @@ def test_tester_run_matches_jax(both, mode, tmp_path):
         assert abs(got[k] - v) <= 1e-4 * abs(v), (k, got[k], v)
 
 
-def test_tester_save_is_not_ported(both):
-    with pytest.raises(NotImplementedError):
-        TorchTester({}, both[2], None, save=True)
+def test_tester_save_is_not_ported(both, tmp_path):
+    """``save=True`` is ported now (the name is kept from when it raised):
+    ``Tester.run`` writes each frame's colored and uint16 depth PNGs, the
+    metrics unchanged."""
+    kw = dict(length=2, image_raw_shape=(120, 160), network_process_size=(48, 64))
+    tile = dict(cai_mode="m1", process_num=4, image_raw_shape=(120, 160), patch_split_num=(2, 2))
+    loader = DataLoader(SyntheticDataset(**kw))
+    saved = TorchTester({}, both[2], loader, work_dir=str(tmp_path), save=True).run(**tile)
+    assert saved == TorchTester({}, both[2], loader).run(**tile)
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
+        f"synthetic_{i:04d}{s}" for i in range(2) for s in (".png", "_uint16.png"))
