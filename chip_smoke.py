@@ -189,7 +189,23 @@ Phases (each prints one or more lines; any failure exits non-zero):
    ETH3D frame at 4032x6048 with a ``.raw`` depth on the flagship split 2x2
    (peak memory printed); ``--test-type general --save`` over a raw 4K blob
    and a 1000x1500 PNG (both PNGs written per image, the bicubic read's
-   host ms printed); each frame's loading, inference and metric host ms.
+   host ms printed); each frame's loading, inference and metric host ms;
+13. stage 1, BaselinePretrain (``baseline_run``), through
+   ``patchrefinerv2_torch.train.main`` on SyntheticDataset frames, batch 4,
+   float32: 3 steps of ``patchrefinerv2_zoedepth/coarse_pretrain_u4k.py``
+   (BEiT-L ZoeDepth), 2 of ``patchrefinerv2_dav2/coarse_pretrain_u4k.py``
+   (DINOv2-L DA2 at 448x448: K4 and the bicubic K2 under grad) and 2 of
+   ``patchfusion_zoedepth/zoedepth_fine_pretrain_u4k.py`` (the fine
+   target), each step's launches held to the network's ``kernel_calls``,
+   with ms a step and peak memory; the ZoeDepth checkpoint loaded into
+   ``v2_eff_u4k.py`` through ``pretrain_coarse_model`` on the card, every
+   tensor equal; the fine network's m1 and r8 frames at 2160x3840 with
+   process_num 16 (launches a chunk held, first and warm ms, finite
+   depth); then a tiny DA2 step and the tiny fine target's m2 and r2 on
+   the card against the CPU (``tiny_baseline_gpu_vs_cpu``). Phase 8 (A)
+   also records the DA2 step's sites (path ``train_da2_backward``: K4's
+   backward at (4, 16, 1025, 64), the bicubic K2's at (1, 37, 37, 1024) ->
+   32x32, beside SDPA's and ``upsample_bicubic2d_backward``).
 
 The line before the last is one JSON object with a record per kernel: its
 launches in each main-path run and their sum, and its times, bound and
@@ -198,8 +214,10 @@ runs (``PATH_DTYPES``), with each path's own under ``<path>_<dtype>``
 (``flagship_bf16``, ``da2_bf16``, ``r32_bf16``, ``r32_f32``,
 ``cityscapes_eval_bf16``, ``_f32``, ``_f64``; the training Functions also
 ``train_backward_f32`` (the pretraining step's sites: K2, K5, K6, K9),
-``train_e2e_backward_f32`` (stage 3's: those four and K1, K3, K8) and
-``train_v1_backward_f32`` (V1's: K2, K3, K6, K8, K9): their
+``train_e2e_backward_f32`` (stage 3's: those four and K1, K3, K8),
+``train_v1_backward_f32`` (V1's: K2, K3, K6, K8, K9) and
+``train_da2_backward_f32`` (the DA2 stage-1 step's: K2 with the bicubic
+one, K4, K6): their
 backwards over a step's sites, kept out of the sums, the error there
 relative to each gradient's magnitude); ``launches_by_run`` has
 ``train_f32``, ``train_e2e_f32``, ``v1_train_f32`` and the three
@@ -207,7 +225,8 @@ relative to each gradient's magnitude); ``launches_by_run`` has
 (``data_u4k_train_f32`` and ``data_cs_semi_offline_f32`` a step,
 ``data_u4k_eval_bf16`` and ``data_cs_eval_bf16`` over 2 frames; the
 ``datasets_*`` runs: KITTI m1, m2 and gen over 4 frames and a Semi step,
-ScanNet++ over 2, ETH3D over 1, ``general`` over 2); K1, the K2
+ScanNet++ over 2, ETH3D over 1, ``general`` over 2; the ``baseline_*``
+runs: a step of each stage-1 run, the fine m1 and r8 frames); K1, the K2
 crop-resize and K7 also record ``kitti_bf16``, ``scannet_bf16`` and
 ``eth3d_bf16``; K11 and K12 also record
 ``semi_f32``, the Semi loss's shape (K11 its mask mode's time with the NMS
@@ -315,7 +334,8 @@ PATH_DTYPES = {"flagship": ("bfloat16",), "da2": ("bfloat16",), "r32": ("bfloat1
                "cityscapes_eval": ("bfloat16", "float32", "float64"),
                "v1": ("bfloat16",), "v1_da2": ("bfloat16",),
                "train_backward": ("float32",), "train_e2e_backward": ("float32",),
-               "train_v1_backward": ("float32",), "semi": ("float32",),
+               "train_v1_backward": ("float32",), "train_da2_backward": ("float32",),
+               "semi": ("float32",),
                "kitti": ("bfloat16", "float32"), "scannet": ("bfloat16", "float32"),
                "eth3d": ("bfloat16", "float32")}
 SHORT = {"bfloat16": "bf16", "float32": "f32", "float64": "f64"}
@@ -2794,8 +2814,8 @@ class SiteRecorder:
         """A hashable description of one call: shapes and flags."""
         shape = lambda t: None if t is None else tuple(t.shape)  # noqa: E731
         if kind == "resize":
-            x, size, ac, _ = args
-            return (shape(x), tuple(size), ac)
+            x, size, mode, ac, scale = args
+            return (shape(x), tuple(size), mode, ac, None if scale is None else tuple(scale))
         if kind == "layer_norm":
             return (shape(args[0]),)
         if kind == "gate_tail":
@@ -2836,12 +2856,15 @@ def _train_case(kind, key, dev, g):
         return torch.randn(s, generator=g, device=dev) * scale
 
     if kind == "resize":
-        shp, size, ac = key
+        shp, size, mode, ac, scale = key
         x = randn(*shp)
-        lib = lambda gy: torch.ops.aten.upsample_bilinear2d_backward(  # noqa: E731
-            gy.permute(0, 3, 1, 2), list(size), [shp[0], shp[3], shp[1], shp[2]], ac, None, None)
-        return (lambda t: resize(t, size, "bilinear", ac),
-                lambda t: resize_plain(t, size, "bilinear", ac), [x], [], lib)
+        aten = {"bilinear": torch.ops.aten.upsample_bilinear2d_backward,
+                "bicubic": torch.ops.aten.upsample_bicubic2d_backward}[mode]
+        scales = (None, None) if scale is None else scale
+        lib = lambda gy: aten(  # noqa: E731
+            gy.permute(0, 3, 1, 2), list(size), [shp[0], shp[3], shp[1], shp[2]], ac, *scales)
+        return (lambda t: resize(t, size, mode, ac, scale),
+                lambda t: resize_plain(t, size, mode, ac, scale), [x], [], lib)
     if kind == "layer_norm":
         (shp,) = key
         c = shp[-1]
@@ -2961,12 +2984,14 @@ def _backward_work(kind, key, ts) -> tuple[float, float]:
     """(bytes, operations) of a backward: its inputs (the saved tensors and
     the output gradient) read once, each gradient written once; operations
     of the gradients' products (the conv's data and weight gradients, the
-    1x1's two products and its recomputed output, 10 a tap of a resize)."""
+    1x1's two products and its recomputed output, 4 a tap of a resize: a
+    product and a sum along each axis)."""
     in_bytes = 4 * sum(t.numel() for t in ts)
     if kind == "resize":
-        shp, size, _ = key
+        shp, size, mode = key[:3]
         out = shp[0] * size[0] * size[1] * shp[3]
-        return 4 * (out + shp[0] * shp[1] * shp[2] * shp[3]), 8.0 * out
+        taps = 4 if mode == "bicubic" else 2  # a product and a sum a tap, along each axis
+        return 4 * (out + shp[0] * shp[1] * shp[2] * shp[3]), 4.0 * taps * out
     if kind == "layer_norm":
         return 3 * 4 * ts[0].numel(), 12.0 * ts[0].numel()
     if kind == "gate_tail":
@@ -3006,17 +3031,21 @@ def check_training_sites(chk: Checks, dev) -> dict:
     full-width training stage (recorded from a step on the card): the
     pretraining stage (K2, K5, K6, K9; path ``train_backward``), stage 3
     (the same four at the coarse branch's widths and in BEiT and its DPT
-    neck, and K1, K3 and K8; path ``train_e2e_backward``) and V1 (K2, K3,
+    neck, and K1, K3 and K8; path ``train_e2e_backward``), V1 (K2, K3,
     K6, K8 in the fine ZoeDepth network, K2, K6 and K9 in FusionUnet; path
-    ``train_v1_backward``), each at its
+    ``train_v1_backward``) and BaselinePretrain's DA2 coarse step (K4 at
+    (4, 16, 1025, 64), K6 in DINOv2-L, K2 in the DPT neck and the loss, and
+    the bicubic K2 of the position embedding, (1, 37, 37, 1024) -> 32x32;
+    path ``train_da2_backward``), each at its
     shapes in float32 (TF32 off): the Function's output and gradients
     against autograd through the plain version, and the times of the
     Function's backward, the plain version's autograd backward and, where
     one library call computes the gradient, that call
-    (``upsample_bilinear2d_backward`` for K2, ``native_layer_norm_backward``
+    (``upsample_bilinear2d_backward`` for K2, ``upsample_bicubic2d_backward``
+    with the same scales for the bicubic K2, ``native_layer_norm_backward``
     for K6, ``convolution_backward`` of the concatenated input for K9,
     ``F.grid_sample``'s backward for K1, ``scaled_dot_product_attention``'s
-    with a float mask for K3; K5 and K8 have none). Tolerances: the output
+    with a float mask for K3 and without for K4; K5 and K8 have none). Tolerances: the output
     and the input gradients 1e-5 of the plain version's magnitude, the
     parameter gradients (and K3's table) 1e-4 of it (sums over up to 786,432
     pixels in another order). Each site's times count once for each of its
@@ -3025,7 +3054,8 @@ def check_training_sites(chk: Checks, dev) -> dict:
 
     stages = (("train_backward", lambda: pretrain_config(steps=1)),
               ("train_e2e_backward", lambda: stage3_config(steps=1)),
-              ("train_v1_backward", lambda: stage3_config(steps=1, config=V1_CONFIG)))
+              ("train_v1_backward", lambda: stage3_config(steps=1, config=V1_CONFIG)),
+              ("train_da2_backward", lambda: baseline_config(BASELINE_DA2_CONFIG, steps=1)))
     out = {}
     for path, config in stages:
         with SiteRecorder() as rec:
@@ -4097,20 +4127,28 @@ def sample_parts(config: str, options: list, samples: int = 4) -> dict:
 
 
 def cli_train(label: str, config: str, options: list, kernels, exact_of=None,
-              pseudo_label: bool = False, save: bool = True) -> dict:
+              pseudo_label: bool = False, save: bool = True, keep: list | None = None) -> dict:
     """``patchrefinerv2_torch.train.main`` on ``config`` (its files by
     ``options``) on the card, each step counted (``count_step``: every
     kernel of ``kernels`` in every step, ``exact_of(model)`` exactly, no
     other kernel, no plain version, finite losses and gradients), the batch
     the step got holding the reader's ``pseudo_label`` when asked; the loop's
     wait on the loader and the step's ms recorded. ``save`` off skips the
-    checkpoint write (a Semi student's is ~5 GB with its optimizer state).
-    Returns the steps' counts, ms, start times (host seconds), waits and
-    losses."""
+    checkpoint write (a Semi student's is ~5 GB with its optimizer state);
+    ``keep`` gets the model the run built. Returns the steps' counts, ms,
+    start times (host seconds), waits and losses."""
     from unittest import mock
 
-    from patchrefinerv2_torch.train import main as train_main
+    from patchrefinerv2_torch import train as train_cli
     from patchrefinerv2_torch.training.trainer import Trainer
+
+    build = train_cli.build_model
+
+    def built(*a, **k):
+        model = build(*a, **k)
+        if keep is not None:
+            keep.append(model)
+        return model
 
     steps, times, starts, losses, waits, keys = [], [], [], [], [], []
     step = Trainer.train_step
@@ -4129,9 +4167,10 @@ def cli_train(label: str, config: str, options: list, kernels, exact_of=None,
     here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.time()
     with mock.patch.object(Trainer, "train_step", counted), waits_on(waits, keys), \
-            mock.patch.object(Trainer, "save", Trainer.save if save else skip_save):
-        train_main([os.path.join(here, config), "--work-dir", os.path.join(WORK_DIR, label),
-                    "--seed", "0", "--cfg-option", *options])
+            mock.patch.object(Trainer, "save", Trainer.save if save else skip_save), \
+            mock.patch.object(train_cli, "build_model", built):
+        train_cli.main([os.path.join(here, config), "--work-dir", os.path.join(WORK_DIR, label),
+                        "--seed", "0", "--cfg-option", *options])
     out = {"counts": steps, "step_ms": times, "starts": starts, "loader_wait_ms": waits,
            "losses": losses, "seconds": time.time() - t0}
     log({"phase": label, **{k: v for k, v in out.items() if k not in ("counts", "starts")}})
@@ -4539,6 +4578,204 @@ def datasets_run(dev, flagship_m1: dict) -> dict:
     return runs
 
 
+BASELINE_ZOE_CONFIG = "configs/patchrefinerv2_zoedepth/coarse_pretrain_u4k.py"
+BASELINE_DA2_CONFIG = "configs/patchrefinerv2_dav2/coarse_pretrain_u4k.py"
+BASELINE_FINE_CONFIG = "configs/patchfusion_zoedepth/zoedepth_fine_pretrain_u4k.py"
+BASELINE_KERNELS = ("resize", "layer_norm", "attention", "attractor_update", "log_binomial_depth")
+BASELINE_DA2_KERNELS = ("resize", "layer_norm", "attention")  # no bins head
+
+
+def baseline_train_options(config: str, batch: int = 4, steps: int = 3) -> list:
+    """``--cfg-option``s of a stage-1 run of ``config`` on the card: batch 4
+    of SyntheticDataset frames (2160x3840, ``image_lr`` at the network's
+    384x512 or DA2's 448x448, 540x960 crops resized likewise), ``steps``
+    steps in one epoch, no validation."""
+    process = [448, 448] if "dav2" in config else [384, 512]
+    ds = dict(type="SyntheticDataset", mode="train", length=batch * steps,
+              network_process_size=process)
+    return [f"train_dataloader.dataset={ds!r}", f"train_dataloader.batch_size={batch}",
+            "train_dataloader.num_workers=2", "val_dataloader=None", "train_cfg.max_epochs=1",
+            "train_cfg.log_interval=1", "train_cfg.save_checkpoint_interval=1"]
+
+
+def baseline_config(config: str, batch: int = 4, steps: int = 3):
+    """The stage-1 config with ``baseline_train_options`` applied, for
+    ``make_trainer``."""
+    from patchrefinerv2_torch.config import Config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = Config.fromfile(os.path.join(here, config))
+    cfg.merge_from_options(baseline_train_options(config, batch, steps))
+    cfg["seed"] = 0
+    return cfg
+
+
+def baseline_exact(model) -> dict:
+    """A stage-1 step's launches of the counted kernels but K2, from the
+    network's modules: K3 or K4 at each block, K6 at its LayerNorms, K8 at
+    each attractor layer and once for the log-binomial depth."""
+    return model.net.branch.kernel_calls()
+
+
+def check_baseline_frame(label: str, counts: dict, model, chunks: int, finalizes: int) -> None:
+    """A fine-target frame's launches: the network's ``kernel_calls`` once a
+    chunk, one crop-resize and one add_pass a chunk, ``finalizes`` finalize,
+    the DPT neck's K2, and no other kernel."""
+    want = {k: chunks * n for k, n in baseline_exact(model).items()}
+    want.update(crop_resize=chunks, blend_add_pass=chunks, blend_finalize=finalizes)
+    got = {k: counts[k] for k in want}
+    other = {k: v for k, v in counts.items() if k not in want and k != "resize" and v}
+    log({"phase": f"{label}_launches", "chunks": chunks, "launches": counts})
+    if got != want or other or not counts["resize"]:
+        raise AssertionError(f"{label}: launches {got} (other {other}, resize {counts['resize']}) "
+                             f"for {chunks} chunks, not {want}")
+
+
+def baseline_run(dev) -> dict:
+    """Stage 1 (BaselinePretrain) at full width on the card, through
+    ``python -m patchrefinerv2_torch.train`` (random weights, seed 0):
+
+    (a) 3 steps of ``coarse_pretrain_u4k.py`` (BEiT-L/16 ZoeDepth, batch 4
+        of 384x512 images against 2160x3840 depth), then 2 of the DA2
+        ``patchrefinerv2_dav2/coarse_pretrain_u4k.py`` (DINOv2-L + DPT at
+        448x448, the position embedding resized bicubically under grad) and
+        2 of ``zoedepth_fine_pretrain_u4k.py`` (the fine target: 540x960
+        crops resized to 384x512), float32, TF32 off; each step counted
+        (``count_step``: the network's K3 or K4, K6 and K8 launches exactly,
+        K2, no other kernel, no plain version, finite losses and
+        gradients), with ms a step and peak memory; the ZoeDepth run writes
+        its checkpoint;
+    (b) the hand-off: ``v2_eff_u4k.py`` built on the card with that
+        checkpoint as its ``pretrain_coarse_model``: every tensor of the
+        checkpoint taken, the coarse branch equal to it;
+    (c) the fine network just trained on a 2160x3840 frame split 4x4 with
+        process_num 16: an m1 frame (one chunk) and an r8 frame (the four
+        regular passes, then 8 random chunks of 16), each a
+        first frame with its launches held to the network's (a chunk) and
+        a warm frame timed; finite depth on the reensemble (m1) or raw (r8)
+        canvas.
+
+    Returns the launch counts of each run for the kernels line."""
+    import numpy as np
+    import torch
+
+    from patchrefinerv2_torch import ops
+    from patchrefinerv2_torch.config import Config
+    from patchrefinerv2_torch.models.patchrefiner import build_model
+    from patchrefinerv2_torch.models.tiling import regular_pass
+    from patchrefinerv2_torch.utils.checkpoint import apply_config_pretrained, load_checkpoint
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out, fine = {}, []
+    for label, config, steps, kernels, save in (
+            ("baseline_zoe", BASELINE_ZOE_CONFIG, 3, BASELINE_KERNELS, True),
+            ("baseline_da2", BASELINE_DA2_CONFIG, 2, BASELINE_DA2_KERNELS, False),
+            ("baseline_fine", BASELINE_FINE_CONFIG, 2, BASELINE_KERNELS, False)):
+        torch.cuda.reset_peak_memory_stats()
+        keep = fine if label == "baseline_fine" else []
+        run = cli_train(label, config, baseline_train_options(config, 4, steps), kernels,
+                        baseline_exact, save=save, keep=keep)
+        if len(run["counts"]) != steps:
+            raise AssertionError(f"{label} ran {len(run['counts'])} steps, not {steps}")
+        log({"phase": f"{label}_train", "steps": steps, "step_ms": run["step_ms"],
+             "warm_step_ms": statistics.median(run["step_ms"][1:]),
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             "params": sum(p.numel() for p in keep[-1].net.parameters()) if keep else None})
+        out[f"{label}_train_f32"] = run["counts"][0]
+        del run, keep
+        torch.cuda.empty_cache()
+
+    ckpt = os.path.join(WORK_DIR, "baseline_zoe", "checkpoint_01")
+    cfg = Config.fromfile(os.path.join(here, STAGE3_CONFIG))
+    cfg.merge_from_options([f"model.config.pretrain_coarse_model={ckpt!r}"])
+    t0 = time.time()
+    model = build_model(cfg.model, device=dev, seed=0)
+    report = apply_config_pretrained(model)
+    sd = load_checkpoint(ckpt)["state_dict"]
+    own = model.net.state_dict()
+    off = [k for k, v in sd.items() if not k.startswith("coarse_branch.")
+           or not torch.equal(own[k], v.to(dev))]
+    log({"phase": "baseline_handoff", "checkpoint_tensors": len(sd),
+         "report": report.get("pretrain_coarse_model"), "unequal": off[:8], "seconds": time.time() - t0})
+    if off or report.get("pretrain_coarse_model", {}).get("taken") != len(sd):
+        raise AssertionError(f"pretrain_coarse_model took {report} of {len(sd)} tensors; unequal {off[:8]}")
+    del model, own, sd
+    torch.cuda.empty_cache()
+
+    model = fine[0].eval()
+    g = torch.Generator(device=dev).manual_seed(0)
+    hr = torch.rand((1, 2160, 3840, 3), generator=g, device=dev)
+    tc = model.tile_cfg
+    regular = sum(-(-len(regular_pass(tc, off, 16).starts_raw) // 16)
+                  for off in ((0, 0), (0, 1), (1, 0), (1, 1)))
+    for mode, chunks, finalizes, canvas in (("m1", 1, 1, tc.patch_reensemble_shape),
+                                            ("r8", regular + 8, 2, tc.image_raw_shape)):
+        label = f"baseline_fine_{mode}_f32"
+        infer = lambda: model.infer(None, hr, mode, process_num=16,  # noqa: E731
+                                    generator=torch.Generator().manual_seed(0))[0]
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        depth = infer()
+        torch.cuda.synchronize()
+        first = (time.time() - t0) * 1e3
+        counts = ops.launch_counts()
+        check_baseline_frame(label, counts, model, chunks, finalizes)
+        t0 = time.time()
+        infer()
+        torch.cuda.synchronize()
+        warm = (time.time() - t0) * 1e3
+        d = depth.float().cpu().numpy()
+        log({"phase": label, "shape": list(d.shape), "first_ms": first, "warm_ms": warm,
+             "peak_bytes": torch.cuda.max_memory_allocated(), "depth_min_max": [float(d.min()), float(d.max())]})
+        if tuple(d.shape) != tuple(canvas) or not np.isfinite(d).all():
+            raise AssertionError(f"{label}: depth {d.shape}, finite {np.isfinite(d).all()}")
+        out[label] = counts
+    del model, fine, depth
+    torch.cuda.empty_cache()
+    return out
+
+
+def tiny_baseline_gpu_vs_cpu(dev) -> None:
+    """BaselinePretrain's graphs at a small size on the card against the
+    CPU, float32, from the same weights: a DA2 (``vitt``) coarse step of
+    batch 2 at 56x84 (the position embedding's bicubic K2 and its backward,
+    K4 with its backward) within ``compare_train_steps``' bars, and the tiny
+    BEiT ZoeDepth fine target's m2 and r2 depth (process_num 4, the same
+    random starts) within 1e-4 of the CPU's magnitude."""
+    import numpy as np
+    import torch
+
+    from patchrefinerv2_torch.models.baseline_pretrain import BaselinePretrain
+
+    def cfg(target, branch, patch):
+        return dict(target=target, image_raw_shape=[96, 128], patch_process_shape=patch,
+                    patch_split_num=[2, 2], **{f"{target}_branch": branch})
+
+    da2 = cfg("coarse", dict(type="DA2", model_cfg=dict(encoder="vitt", features=64)), [56, 84])
+    rng = np.random.RandomState(5)
+    batch = dict(image_lr=rng.rand(2, 56, 84, 3).astype(np.float32),
+                 depth_gt=(1.0 + 20.0 * rng.rand(2, 96, 128, 1)).astype(np.float32))
+    out = []
+    for d in (dev, "cpu"):
+        m = BaselinePretrain(da2, device=d, seed=3).train()
+        out.append(_step_result(m, m.loss(batch, update_stats=True)[0]))
+    compare_train_steps("tiny_baseline_da2_gpu_vs_cpu", *out)
+    fine = cfg("fine", TINY_ZOE["coarse_branch"], [48, 64])
+    hr = rng.rand(1, 96, 128, 3).astype(np.float32)
+    starts = np.stack([np.stack([rng.randint(0, 48, 4), np.full(4, rng.randint(0, 64))], -1)
+                       for _ in range(2)]).astype(np.int32)
+    for mode in ("m2", "r2"):
+        depths = [BaselinePretrain(fine, device=d, seed=3).infer(
+            hr[:, ::2, ::2], hr, mode, process_num=4,
+            random_starts=starts if mode == "r2" else None)[0].cpu() for d in (dev, "cpu")]
+        err = float((depths[0] - depths[1]).abs().max()) / float(depths[1].abs().max())
+        log({"phase": f"tiny_baseline_fine_{mode}_gpu_vs_cpu", "max_rel_of_magnitude": err, "bar": 1e-4})
+        if not err <= 1e-4:
+            raise AssertionError(f"tiny BaselinePretrain {mode}: the card disagrees with the CPU ({err})")
+
+
 def record_resize_plans() -> dict:
     """Wrap ``ops/resize._launch_plan`` so that every later K2 launch counts
     its (channels, element bytes, vec, vstore) in the returned dict."""
@@ -4629,6 +4866,8 @@ def main() -> int:
         timed(tiny_semi_gpu_vs_cpu, dev)
         counts.update(timed(data_run, dev, counts["m1"], counts["eval_m1"]))
         counts.update(timed(datasets_run, dev, counts["m1"]))
+        counts.update(timed(baseline_run, dev))
+        timed(tiny_baseline_gpu_vs_cpu, dev)
     finally:
         import shutil
 

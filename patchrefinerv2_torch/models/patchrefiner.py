@@ -17,9 +17,10 @@ batch: K3 (BEiT) or K4 (DINOv2) attention, K6, K2 in the DPT neck, K8
 
 Training is SILog (``sigweight`` 1) with the GradMatch term still computed,
 the coarse branch under no gradient and frozen. What raises: the loss of a
-DA2 fine branch (the DINOv2 position embedding's bicubic K2 has no
-backward), the int8 serving mode (the JAX package's would also quantize the
-fine network's convolutions, sites the port does not have).
+DA2 fine branch (its step is not held to the JAX package's yet; the
+bicubic K2 backward that its DINOv2 needs exists), the int8 serving mode
+(the JAX package's would also quantize the fine network's convolutions,
+sites the port does not have).
 """
 
 from __future__ import annotations
@@ -43,8 +44,9 @@ class PatchRefiner(PatchRefinerPlus):
         sigweight) * gm``. A DA2 fine branch raises."""
         if not isinstance(self.net.refiner_fine_branch, ZoeDepthBEiT):
             raise NotImplementedError(
-                "training PatchRefiner V1 with a DA2 fine branch needs the backward of the DINOv2 "
-                "position embedding's bicubic K2 resize, which is not ported")
+                "training PatchRefiner V1 with a DA2 fine branch is not ported: its step is not "
+                "held to the JAX package's yet (the bicubic K2 backward of its DINOv2 position "
+                "embedding exists and trains BaselinePretrain's DA2 form)")
         return super().loss(batch, generator, update_stats, coarse_features)
 
     def calibrate_int8(self, *args, **kwargs):
@@ -63,15 +65,19 @@ MODELS = {"PatchRefinerPlus": PatchRefinerPlus, "PatchRefiner": PatchRefiner}
 
 def build_model(model_cfg, device=None, seed: int = 0):
     """The model a config's ``model`` names (``type``, default
-    ``PatchRefinerPlus``, and ``config``; ``PatchRefinerSemi`` takes the
-    whole dict), random weights from ``seed``, on ``device`` (``None``: the
-    card). Other types raise."""
+    ``PatchRefinerPlus``, and ``config``; ``PatchRefinerSemi`` and
+    ``BaselinePretrain`` take the whole dict), random weights from ``seed``,
+    on ``device`` (``None``: the card). Other types raise."""
     kind = model_cfg.get("type", "PatchRefinerPlus")
     if kind == "PatchRefinerSemi":
         from patchrefinerv2_torch.models.patchrefiner_semi import PatchRefinerSemi
 
         return PatchRefinerSemi(model_cfg, device=device, seed=seed)
+    if kind == "BaselinePretrain":
+        from patchrefinerv2_torch.models.baseline_pretrain import BaselinePretrain
+
+        return BaselinePretrain(model_cfg, device=device, seed=seed)
     if kind not in MODELS:
-        raise NotImplementedError(f"model {kind!r} is not ported "
-                                  f"({', '.join(MODELS)} and PatchRefinerSemi are)")
+        raise NotImplementedError(f"model {kind!r} is not ported ({', '.join(MODELS)}, "
+                                  "PatchRefinerSemi and BaselinePretrain are)")
     return MODELS[kind](model_cfg["config"], device=device, seed=seed)

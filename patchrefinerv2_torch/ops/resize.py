@@ -16,11 +16,14 @@ tensor they run the plain PyTorch version, which applies the same taps
 with indexing. ``resize.launches`` and ``crop_resize.launches`` count the
 kernel launches.
 
-Under autograd a bilinear :func:`resize` is a ``torch.autograd.Function``
-(``_Resize``): the forward as above, the backward
-``aten.upsample_bilinear2d_backward``, the transpose of the same taps
-(torch computes them as ``axis_taps`` does). The other modes and
-:func:`crop_resize` raise when asked for a gradient.
+Under autograd a bilinear or bicubic :func:`resize` is a
+``torch.autograd.Function`` (``_Resize``): the forward as above; the
+backward of bilinear is ``aten.upsample_bilinear2d_backward``, the
+transpose of the same taps (torch computes them as ``axis_taps`` does),
+that of bicubic is the transpose of ``axis_taps``' own four taps an axis
+(``resize_transpose``: each tap's weighted gradient added back into its
+source index), the DINOv2 position embedding's ``scale_override`` included.
+Nearest and :func:`crop_resize` raise when asked for a gradient.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ import torch
 from patchrefinerv2_torch.ops import _cuda
 from patchrefinerv2_torch.ops._grad import forbid_grad, require_float, wants_grad, wide
 
-__all__ = ["axis_taps", "resize", "resize_plain", "crop_resize", "crop_resize_plain"]
+__all__ = ["axis_taps", "resize", "resize_plain", "resize_transpose", "crop_resize",
+           "crop_resize_plain"]
 
 # bytes a thread of the kernel loads or stores at once, widest first
 _VECTOR_BYTES = (16, 8, 4)
@@ -157,6 +161,34 @@ def _apply_axis(x, axis, idx, w):
     return out
 
 
+def _scatter_axis(g, axis, size, idx, w):
+    """The transpose of :func:`_apply_axis`: each tap's weighted ``g`` added
+    into its source index along ``axis``, which gets ``size`` entries."""
+    shape = [1] * g.ndim
+    shape[axis] = -1
+    out_shape = list(g.shape)
+    out_shape[axis] = size
+    out = g.new_zeros(out_shape)
+    for t in range(idx.shape[0]):
+        out.index_add_(axis, idx[t].long(), g * w[t].to(g.dtype).view(shape))
+    return out
+
+
+def resize_transpose(gy, in_hw, mode="bicubic", align_corners=False, scale_override=None):
+    """The gradient of :func:`resize` (``mode``, ``align_corners``,
+    ``scale_override``) from an (N, h, w, C) NHWC ``in_hw`` input for the
+    output gradient ``gy`` (N, H, W, C): the transpose of the forward's
+    taps, in ``gy``'s compute dtype (float32, or float64 on the CPU), in
+    PyTorch ops on any device."""
+    h, w = int(in_hw[0]), int(in_hw[1])
+    oh, ow = gy.shape[1:3]
+    sh, sw = _scales(scale_override)
+    iy, wy = _taps_on(h, oh, mode, bool(align_corners), sh, gy.device)
+    ix, wx = _taps_on(w, ow, mode, bool(align_corners), sw, gy.device)
+    g = _scatter_axis(wide(gy), 2, w, ix, wx)
+    return _scatter_axis(g, 1, h, iy, wy).to(gy.dtype)
+
+
 def _scales(scale_override):
     return (None, None) if scale_override is None else (float(scale_override[0]), float(scale_override[1]))
 
@@ -191,10 +223,10 @@ def resize(x: torch.Tensor, size, mode: str = "bilinear", align_corners: bool = 
     if (h, w) == (oh, ow) and mode != "nearest":
         return x
     if wants_grad(x):
-        if mode != "bilinear":
-            raise NotImplementedError(f"resize has a backward for bilinear only, not {mode!r}")
+        if mode == "nearest":
+            raise NotImplementedError("resize has a backward for bilinear and bicubic, not nearest")
         require_float("resize", x)
-        return _Resize.apply(x, (oh, ow), bool(align_corners), scale_override)
+        return _Resize.apply(x, (oh, ow), mode, bool(align_corners), scale_override)
     return _forward(x, (oh, ow), mode, align_corners, scale_override)
 
 
@@ -215,18 +247,21 @@ def _forward(x, size, mode, align_corners, scale_override):
 
 class _Resize(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, size, align_corners, scale_override):
-        ctx.in_shape, ctx.size, ctx.ac = tuple(x.shape), size, align_corners
-        ctx.scales = _scales(scale_override)
-        return _forward(x.contiguous(), size, "bilinear", align_corners, scale_override)
+    def forward(ctx, x, size, mode, align_corners, scale_override):
+        ctx.in_shape, ctx.size, ctx.mode, ctx.ac = tuple(x.shape), size, mode, align_corners
+        ctx.scale_override = scale_override
+        return _forward(x.contiguous(), size, mode, align_corners, scale_override)
 
     @staticmethod
     def backward(ctx, gy):
         n, h, w, c = ctx.in_shape
+        if ctx.mode == "bicubic":
+            gx = resize_transpose(gy.contiguous(), (h, w), "bicubic", ctx.ac, ctx.scale_override)
+            return gx, None, None, None, None
         g = gy.contiguous().permute(0, 3, 1, 2)  # NCHW view of the NHWC gradient
         gx = torch.ops.aten.upsample_bilinear2d_backward(
-            g, list(ctx.size), [n, c, h, w], ctx.ac, *ctx.scales)
-        return gx.permute(0, 2, 3, 1), None, None, None
+            g, list(ctx.size), [n, c, h, w], ctx.ac, *_scales(ctx.scale_override))
+        return gx.permute(0, 2, 3, 1), None, None, None, None
 
 
 resize.launches = 0

@@ -10,10 +10,13 @@
 
 It builds the config's ``model`` (random weights from seed 0, as the JAX
 tool's ``PRNGKey(0)``), merges the checkpoints the config names
-(``pretrained``, ``whole_pretrained``, ...) and then the ``--ckp-path``
-checkpoint, one of the port's ``torch.save`` files (``work_dir/checkpoint_NN``
-of ``patchrefinerv2_torch.train``, or a bare state dict), by key and shape;
-a tensor of it that the model cannot take raises.
+(``pretrain_coarse_model``, ``pretrained``, ``whole_pretrained``, ...) and
+then the ``--ckp-path`` checkpoint, one of the port's ``torch.save`` files
+(``work_dir/checkpoint_NN`` of ``patchrefinerv2_torch.train``, or a bare
+state dict), by key and shape; a tensor of it that the model cannot take
+raises. A ``BaselinePretrain`` config (stage 1) evaluates its network: the
+coarse target's low-resolution depth (resized to the ground truth by the
+metrics), or the fine target's tiled depth in ``--cai-mode``.
 
 - ``normal`` reads the config's ``test_in_dataloader``, else its
   ``val_dataloader``; ``general`` and ``gen`` its ``general_dataloader``

@@ -4,10 +4,14 @@
                                          [--device cpu] [--seed S] [--resume-from P]
 
 It builds the config's ``model`` by its ``type``, ``PatchRefinerPlus``,
-``PatchRefiner`` (V1) or ``PatchRefinerSemi``, with random weights from the
-seed, then the checkpoints the config names in ``pretrained``,
-``whole_pretrained`` or ``teacher_pretrain``; the port trains the refiner's
-pretraining stage (``configs/patchrefinerv2_zoedepth/pretrain_eff_m0s1.py``),
+``PatchRefiner`` (V1), ``PatchRefinerSemi`` or ``BaselinePretrain``, with
+random weights from the seed, then the checkpoints the config names in
+``pretrain_coarse_model``, ``pretrain_fine_model``, ``pretrained``,
+``whole_pretrained`` or ``teacher_pretrain``; the port trains stage 1
+(``BaselinePretrain``: a ZoeDepth or DA2 network alone, e.g.
+``configs/patchrefinerv2_zoedepth/coarse_pretrain_u4k.py``; its
+``checkpoint_NN`` is what later stages name in ``pretrain_coarse_model``),
+the refiner's pretraining stage (``configs/patchrefinerv2_zoedepth/pretrain_eff_m0s1.py``),
 stage 3 (``configs/patchrefinerv2_zoedepth/v2_eff_u4k.py``), V1 with a
 ZoeDepth fine branch (``configs/patchrefiner_zoedepth/pr_u4k.py``) and the
 Semi transfer with an online teacher
@@ -91,7 +95,8 @@ def main(argv=None) -> None:
         "./work_dir", os.path.splitext(os.path.basename(args.config))[0], args.tag)
 
     dataset = build_dataset(cfg.train_dataloader.dataset)
-    raw = tuple((cfg.model.get("model_cfg_student") or cfg.model).config.image_raw_shape)
+    model_cfg = cfg.model.get("model_cfg_student") or cfg.model
+    raw = tuple((model_cfg.get("config") or model_cfg).get("image_raw_shape", (2160, 3840)))
     if isinstance(dataset, SyntheticDataset) and tuple(dataset.image_raw_shape) != raw:
         raise ValueError(f"the synthetic frames are {list(dataset.image_raw_shape)} but the model's "
                          f"image_raw_shape is {list(raw)}: add --cfg-option "

@@ -11,10 +11,13 @@ generator on the model's device seeded ``seed + 1``; like the JAX package's
 ``_rng`` it is not checkpointed, so a resumed run draws other features than
 an uninterrupted one. Checkpoints hold the network's state (BatchNorm
 statistics included), the optimizer's state, the epoch and the step. The
-model's config may name checkpoints of earlier stages (``pretrained``,
+model's config may name checkpoints of earlier stages
+(``pretrain_coarse_model``, ``pretrain_fine_model``, ``pretrained``,
 ``whole_pretrained``), merged into the network before the optimizer is
 built (``utils/checkpoint.apply_config_pretrained``); a resume then
-restores over them.
+restores over them. The coarse branch is frozen unless the model trains
+it (``e2e_training``, the pretraining stage) or says what it freezes
+(``frozen_prefixes``: ``BaselinePretrain`` freezes nothing).
 """
 
 from __future__ import annotations
@@ -62,8 +65,10 @@ class Trainer:
         # the config's checkpoints of earlier stages (patchrefinerplus.py:105-205)
         self.pretrained_report = apply_config_pretrained(model)
         mcfg = model.config
-        frozen = ("coarse_branch",) if not (mcfg.get("e2e_training", False)
-                                            or model.pretrain_stage) else ()
+        frozen = getattr(model, "frozen_prefixes", None)
+        if frozen is None:
+            frozen = ("coarse_branch",) if not (mcfg.get("e2e_training", False)
+                                                or model.pretrain_stage) else ()
         self.optimizer, self.lr_schedule = build_optimizer(
             config.get("optim_wrapper", {}), config.get("param_scheduler", {}), total_steps,
             model.net.named_parameters(), frozen_prefixes=frozen)
@@ -138,7 +143,10 @@ class Trainer:
         """m1 tiled inference of each validation image and the dataset's
         metrics (reference val_epoch, trainer.py:152-178); returns (metrics,
         depth). The pretraining stage has no coarse branch: its ``infer``
-        raises, as the JAX package's fails there."""
+        raises, as the JAX package's fails there. A coarse BaselinePretrain
+        returns its low-resolution depth, which the metrics resize to the
+        ground truth (the JAX package's validation of BaselinePretrain
+        fails instead: it passes ``mesh=`` to an ``infer`` that takes none)."""
         tc = self.config.get("train_cfg", {})
         cai_mode = tc.get("val_cai_mode", "m1")
         process_num = int(tc.get("val_process_num", 4))

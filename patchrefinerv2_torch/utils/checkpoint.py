@@ -7,8 +7,10 @@ ported.
 
 The config's staged-training keys (``apply_config_pretrained``, the port of
 ``utils/checkpoint.py:58-81, 96-230``) read the port's own checkpoints:
-``pretrained`` and ``whole_pretrained`` merge a checkpoint into the network
-by key and shape, strict=False, running statistics included."""
+``pretrain_coarse_model`` and ``pretrain_fine_model`` take the depth
+network of a ``BaselinePretrain`` checkpoint, ``pretrained`` and
+``whole_pretrained`` merge a checkpoint into the network; all by key and
+shape, strict=False, running statistics included."""
 
 from __future__ import annotations
 
@@ -53,11 +55,37 @@ def merge_pretrained(state: dict, pretrained: dict) -> tuple[dict, list, list]:
     return merged, taken, skipped
 
 
+# where each stage-1 key puts the depth network of a BaselinePretrain
+# checkpoint: the coarse branch, or PatchRefiner V1's fine depth network
+STAGE1_KEYS = {"pretrain_coarse_model": "coarse_branch.", "pretrain_fine_model": "refiner_fine_branch."}
+# the prefixes a BaselinePretrain checkpoint holds its network under, by target
+STAGE1_PREFIXES = ("coarse_branch.", "fine_branch.")
+
+
+def _stage1_network(sd: dict, key: str, path: str) -> dict:
+    """The depth network's tensors of a BaselinePretrain state dict, the
+    target's prefix (``coarse_branch.`` or ``fine_branch.``) taken off;
+    raises when it holds neither."""
+    for prefix in STAGE1_PREFIXES:
+        net = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+        if net:
+            return net
+    raise ValueError(f"{key}={path} is not a BaselinePretrain checkpoint: it holds no "
+                     f"{' or '.join(p + '*' for p in STAGE1_PREFIXES)} tensors")
+
+
 def apply_config_pretrained(model) -> dict:
     """Honour the config's checkpoint keys on ``model`` (a
-    ``PatchRefinerPlus``), strict=False, as the JAX package's
-    ``apply_config_pretrained`` does (patchrefinerplus.py:105-205):
+    ``PatchRefinerPlus`` or V1), strict=False, in the JAX package's order
+    (patchrefinerplus.py:105-205, patchrefiner.py:129-147):
 
+    - ``pretrain_coarse_model``: a ``BaselinePretrain`` checkpoint, its
+      depth network (either target's) merged into ``coarse_branch.``;
+    - ``pretrain_fine_model``: the same into PatchRefiner V1's fine depth
+      network, ``refiner_fine_branch.`` (the configs point it at coarse
+      stage-1 checkpoints too). This follows the reference: the JAX package
+      merges the checkpoint into ``params["fine"]``, whose V1 network sits
+      under ``inner``, so it takes no tensor;
     - ``pretrained``: a checkpoint of an earlier stage (the refiner's
       pretraining), merged by key and shape; with ``load_whole`` false its
       ``coarse_branch.`` tensors are dropped first;
@@ -65,25 +93,35 @@ def apply_config_pretrained(model) -> dict:
 
     A checkpoint is one of the port's (``state_dict`` of a training state,
     or a state dict). A missing or ``None`` path logs and keeps the random
-    init. ``pretrain_coarse_model`` and PatchRefiner V1's
-    ``pretrain_fine_model`` (``BaselinePretrain`` checkpoints of a depth
-    network) raise when their path exists: that model is not ported.
-    Returns, per key applied, the counts of tensors taken and kept.
+    init. Returns, per key applied, the counts of tensors taken and kept.
 
     A ``PatchRefinerSemi`` recurses into its student and teacher (their
     reports under ``student.``/``teacher.``), then merges its
     ``teacher_pretrain`` checkpoint into the teacher alike
-    (``patchrefinerv2_tpu/utils/checkpoint.py:118-145``)."""
+    (``patchrefinerv2_tpu/utils/checkpoint.py:118-145``). A
+    ``BaselinePretrain`` reads no key, as in the JAX package (its
+    ``apply_config_pretrained`` returns a model without ``config``
+    unchanged): the branch's own ``pretrained`` is logged as not read."""
     if hasattr(model, "student"):
         return _apply_semi(model)
+    if hasattr(model, "branch_name"):  # BaselinePretrain
+        path = (model.config.get(model.branch_name) or {}).get("pretrained")
+        if path:
+            print_log(f"{model.branch_name}.pretrained={path} is not read: BaselinePretrain "
+                      "applies no checkpoint key of its config; keeping random init")
+        return {}
     cfg = model.config
     report = {}
-    for key in ("pretrain_coarse_model", "pretrain_fine_model"):
+    for key, prefix in STAGE1_KEYS.items():
         path = cfg.get(key)
-        if path and os.path.exists(path):
-            raise NotImplementedError(f"{key} needs BaselinePretrain, which is not ported")
-        if path:
+        if not path:
+            continue
+        if not os.path.exists(path):
             print_log(f"{key}={path} not found; keeping random init")
+            continue
+        sd = load_checkpoint(path)
+        net = _stage1_network(sd.get("state_dict", sd), key, path)
+        report[key] = _merge_into(model.net, {prefix + k: v for k, v in net.items()}, key, path)
     for key in ("pretrained", "whole_pretrained"):
         path = cfg.get(key)
         if not path:

@@ -389,6 +389,8 @@ PARTS = {
     "BiDirectionalFusion": lambda sd, P, S: _fusion(sd, "", P),
     "FusionUnet": lambda sd, P, S: _fusion_unet(sd, "", P),
     "ZoeFineBranch": lambda sd, P, S: _depth_net(sd, "", P["inner"]),
+    # BaselinePretrain's tree is its one depth network (ZoeDepth or DA2)
+    "DepthNet": lambda sd, P, S: _depth_net(sd, "", P),
     "C2FModule": lambda sd, P, S: _fusion_c2f(sd, "", P),
     "GatedConvUnit": lambda sd, P, S: _gated_unit(sd, "", P),
     "GatedFusionBlock": lambda sd, P, S: _gated_block(sd, "", P),

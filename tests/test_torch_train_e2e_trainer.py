@@ -11,7 +11,8 @@ the port wrote, at the tiny flagship topology of tests/test_torch_slice.py
   match, everything else kept; checked on the nested trees of both state
   dicts), running statistics included; ``load_whole=False`` drops the
   checkpoint's coarse branch first; a missing path keeps the random init;
-  ``pretrain_coarse_model`` raises on an existing path.
+  ``pretrain_coarse_model`` takes a checkpoint's ``coarse_branch.`` tensors
+  alone (tests/test_torch_baseline_pretrain.py holds it to JAX).
 - One ``Trainer`` epoch (a step of batch 2) from that checkpoint, with the
   default m1 validation on the trained model: finite losses, the coarse
   branch (trained end to end), the refiner, the fusion head and the
@@ -171,9 +172,15 @@ def test_pretrained_load_whole_missing_and_coarse(tmp_path):
     mcfg.update(pretrained=str(tmp_path / "missing"), whole_pretrained=None)
     assert apply_config_pretrained(model) == {}
     assert all(torch.equal(v, init[k]) for k, v in model.net.state_dict().items())
+    # ``pretrain_coarse_model`` takes the checkpoint's depth network alone:
+    # its ``coarse_branch.`` tensors, into the coarse branch
+    model.net.load_state_dict(init)
     mcfg.update(pretrained=None, pretrain_coarse_model=path)
-    with pytest.raises(NotImplementedError, match="BaselinePretrain"):
-        apply_config_pretrained(model)
+    report = apply_config_pretrained(model)
+    coarse = [k for k in init if k.startswith("coarse_branch.")]
+    assert report["pretrain_coarse_model"]["taken"] == len(coarse) > 0
+    for k, v in model.net.state_dict().items():
+        assert torch.equal(v, (other if k in coarse else init)[k]), k
 
 
 def test_trainer_epoch_save_resume(tmp_path, stage2_checkpoint):

@@ -18,8 +18,9 @@
   eps 1e-3): output, gradients and running statistics (1e-5 relative), and
   the statistics updated once per armed step.
 - The wrappers of the kernels without a backward (K10, the crop-resize,
-  nearest and bicubic K2) raise under grad; K1, K3/K4 and K8 have theirs
-  (tests/test_torch_train_e2e.py).
+  nearest K2) raise under grad; K1, K3/K4 and K8 have theirs
+  (tests/test_torch_train_e2e.py), bicubic K2 its transpose
+  (tests/test_torch_baseline_pretrain.py).
 """
 
 import numpy as np
@@ -427,7 +428,6 @@ def _no_backward_calls():
         "crop_resize": lambda: crop_resize(r(8, 8, 3), torch.zeros(1, 2, dtype=torch.int32),
                                            (4, 4), (6, 6)),
         "resize_nearest": lambda: resize(r(1, 4, 4, 2), (8, 8), "nearest"),
-        "resize_bicubic": lambda: resize(r(1, 4, 4, 2), (8, 8), "bicubic"),
     }
 
 

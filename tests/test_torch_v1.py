@@ -1,7 +1,8 @@
 """The port's PatchRefiner V1 against the JAX package: FusionUnet alone, V1
 with a ZoeDepth fine branch in m1, m2 and rN, a DA2 V1 in m1, the weights'
-round trip, every V1 config building, and what raises (int8, a present
-``pretrain_fine_model``). Its training: tests/test_torch_v1_train.py.
+round trip, every V1 config building, and what raises (int8, a
+``pretrain_fine_model`` checkpoint that holds no depth network). Its
+training: tests/test_torch_v1_train.py.
 
 The ZoeDepth slice is tests/test_torch_slice.py's tiny BEiT ZoeDepth (4
 blocks of width 64) as both the coarse and the fine branch, with FusionUnet
@@ -43,7 +44,7 @@ from patchrefinerv2_torch.models import patchrefinerplus as prp
 from patchrefinerv2_torch.models.blocks import convs, fusion
 from patchrefinerv2_torch.models.blocks.fusion import FusionUnet
 from patchrefinerv2_torch.models.patchrefiner import PatchRefiner, build_model
-from patchrefinerv2_torch.utils.checkpoint import apply_config_pretrained
+from patchrefinerv2_torch.utils.checkpoint import apply_config_pretrained, save_checkpoint
 from patchrefinerv2_torch.utils.jax_weights import jax_to_state_dict, load_jax_params
 from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
 from tests.test_torch_da2 import da2_slice_config
@@ -253,19 +254,25 @@ def test_v1_int8_and_other_heads_raise(both):
 
 def test_pretrain_fine_model_keeps_random_init_or_raises(both, tmp_path):
     """A missing ``pretrain_fine_model`` logs and keeps the random init, as
-    the JAX package's ``apply_config_pretrained``; an existing one raises
-    (a BaselinePretrain checkpoint)."""
+    the JAX package's ``apply_config_pretrained``; an existing checkpoint
+    that holds no depth network (neither ``coarse_branch.`` nor
+    ``fine_branch.`` tensors) raises; a BaselinePretrain one loads into the
+    fine depth network (tests/test_torch_baseline_pretrain.py)."""
     port = both[2]
     before = {k: v.clone() for k, v in port.net.state_dict().items()}
     port.config.update(pretrain_fine_model=str(tmp_path / "missing"))
     assert apply_config_pretrained(port) == {}
     assert all(torch.equal(v, before[k]) for k, v in port.net.state_dict().items())
-    port.config.update(pretrain_fine_model=str(tmp_path))
+    path = str(tmp_path / "head_only")
+    save_checkpoint(path, {"state_dict": {k: v for k, v in before.items()
+                                          if k.startswith("refiner_fusion_model.")}})
+    port.config.update(pretrain_fine_model=path)
     try:
-        with pytest.raises(NotImplementedError, match="pretrain_fine_model.*BaselinePretrain"):
+        with pytest.raises(ValueError, match="pretrain_fine_model.*not a BaselinePretrain"):
             apply_config_pretrained(port)
     finally:
         port.config.update(pretrain_fine_model=None)
+    assert all(torch.equal(v, before[k]) for k, v in port.net.state_dict().items())
 
 
 CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "configs")
