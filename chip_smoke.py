@@ -114,17 +114,21 @@ Phases (each prints one or more lines; any failure exits non-zero):
    before each step and read after it (K2, K5, K6 and K9 in every step, no
    other kernel, no call of a plain version), finite losses and gradients,
    the parameters and BatchNorm statistics moved and a checkpoint written;
-   then ms a step over 5 steps with the batch on the card, images/s, peak
-   memory with remat on and off, and one profiled step (device ms by
+   then ms a step over 3 steps (1 with remat off) with the batch on the
+   card, images/s, peak memory with remat on and off, and one profiled
+   step (device ms by
    group, each Function's backward, the optimizer); (C) a tiny pretraining
    step (48x64, batch 2) on the card against the CPU within the CPU tests'
    float32 bars; (D) stage 3 from (B)'s checkpoint (``pretrained``: its
    merged and kept tensor counts printed), three steps through
    ``Trainer.run`` counted as in (B) with K1 7 and K8 4 + 1 times a step
-   exactly, K3 in every step and the coarse branch moved, then the m1
+   exactly, K3 in every step and the coarse branch moved (no checkpoint
+   written: no later phase reads it), then the m1
    validation of one 2160x3840 frame in float32, the step times, peak
    memory and a profiled step as in (B); (E) a tiny stage-3 step on the
-   card against the CPU within the same bars;
+   card against the CPU within the same bars; then (B), (D) and (C) for
+   PatchRefinerV2-Mobile (``pretrain_mobile_m0s1``, ``v2_mobile_u4k``),
+   its steps counted without the timings and the profiled step;
 9. PatchRefiner V1 (``configs/patchrefiner_zoedepth/pr_u4k.py``: two BEiT-L
    ZoeDepth networks, the fine one on every chunk, and FusionUnet), after
    the mobile frames: m1 in float32, m1 and r32 in bfloat16 on the
@@ -136,8 +140,9 @@ Phases (each prints one or more lines; any failure exits non-zero):
    Cityscapes evaluation (``pr_cs.py``, ``Tester.run`` m1 over two frames);
    a tiny V1 m1 in the small GPU-vs-CPU check; V1's training sites in (A);
    after (E) three V1 training steps of batch 4 in float32 through
-   ``Trainer.run`` (the coarse branch frozen: it must not move), timed and
-   profiled as in (B), and a tiny V1 step on the card against the CPU;
+   ``Trainer.run`` (the coarse branch frozen: it must not move; no
+   checkpoint written), timed and profiled as in (B), and a tiny V1 step
+   on the card against the CPU;
 10. PatchRefinerSemi: K11 in float32 in both modes (the mask mode over the
    interior, as the loss runs it) and K12 (the bounded hysteresis) at
    the ranking loss's (4, 384, 512) (``check_semi_kernels``): K12 bit for
@@ -205,7 +210,24 @@ Phases (each prints one or more lines; any failure exits non-zero):
    the card against the CPU (``tiny_baseline_gpu_vs_cpu``). Phase 8 (A)
    also records the DA2 step's sites (path ``train_da2_backward``: K4's
    backward at (4, 16, 1025, 64), the bicubic K2's at (1, 37, 37, 1024) ->
-   32x32, beside SDPA's and ``upsample_bicubic2d_backward``).
+   32x32, beside SDPA's and ``upsample_bicubic2d_backward``);
+14. the Depth-Anything-V2 recipe's training (``da2_train_run``), batch 4,
+   float32, each step's launches held: the DA2 refiner pretraining
+   (``patchrefinerv2_dav2/pretrain_eff_m0s1.py``, 3 steps), stage 3 from
+   its checkpoint (``plus_eff_u4k_base_coarse_e2e_c2f_pretrain.py``, 3
+   steps: K1 7 and K4 24 a step exactly, no K3 or K8; then an m1
+   validation frame), V1 (``patchrefiner_dav2/pr_u4k.py``, 3 steps, from
+   ``baseline_run``'s DA2 network as both ``pretrain_*_model``: the tensors
+   taken printed, the coarse branch still that network after the steps)
+   and ``semi_kitti.py``'s DA2 student (2 steps on 8 written KITTI frames
+   with pseudo labels, then one frame's validation with its image at
+   ``KITTI_DA2_LR``, rounded by the Depth-Anything resizer through K2);
+   ms a step and peak memory; then a tiny DA2 stage-3 step and a tiny DA2
+   V1 step on the card against the CPU (``tiny_da2_train_gpu_vs_cpu``).
+   Phase 8 (A) also records the DA2 stage-3 step's sites (path
+   ``train_da2_e2e_backward``: K1 up to (448, 448, 128), K5 and K9 at
+   448x448) and the DA2 V1 step's (``train_v1_da2_backward``: K4 on the
+   fine crops, FusionUnet's 128-wide K9 sites).
 
 The line before the last is one JSON object with a record per kernel: its
 launches in each main-path run and their sum, and its times, bound and
@@ -215,9 +237,10 @@ runs (``PATH_DTYPES``), with each path's own under ``<path>_<dtype>``
 ``cityscapes_eval_bf16``, ``_f32``, ``_f64``; the training Functions also
 ``train_backward_f32`` (the pretraining step's sites: K2, K5, K6, K9),
 ``train_e2e_backward_f32`` (stage 3's: those four and K1, K3, K8),
-``train_v1_backward_f32`` (V1's: K2, K3, K6, K8, K9) and
+``train_v1_backward_f32`` (V1's: K2, K3, K6, K8, K9),
 ``train_da2_backward_f32`` (the DA2 stage-1 step's: K2 with the bicubic
-one, K4, K6): their
+one, K4, K6), ``train_da2_e2e_backward_f32`` and
+``train_v1_da2_backward_f32`` (the DA2 stage-3 and V1 steps'): their
 backwards over a step's sites, kept out of the sums, the error there
 relative to each gradient's magnitude); ``launches_by_run`` has
 ``train_f32``, ``train_e2e_f32``, ``v1_train_f32`` and the three
@@ -226,9 +249,12 @@ relative to each gradient's magnitude); ``launches_by_run`` has
 ``data_u4k_eval_bf16`` and ``data_cs_eval_bf16`` over 2 frames; the
 ``datasets_*`` runs: KITTI m1, m2 and gen over 4 frames and a Semi step,
 ScanNet++ over 2, ETH3D over 1, ``general`` over 2; the ``baseline_*``
-runs: a step of each stage-1 run, the fine m1 and r8 frames); K1, the K2
-crop-resize and K7 also record ``kitti_bf16``, ``scannet_bf16`` and
-``eth3d_bf16``; K11 and K12 also record
+runs: a step of each stage-1 run, the fine m1 and r8 frames; the DA2
+runs: a step of ``da2_pretrain``, ``da2_stage3``, ``v1_da2_train`` and
+``da2_semi_kitti``, and that run's validation frame); K1, the K2
+crop-resize and K7 also record ``kitti_bf16``, ``scannet_bf16``,
+``eth3d_bf16`` and ``da2_kitti_f32`` (with K2's resizer image resize);
+K11 and K12 also record
 ``semi_f32``, the Semi loss's shape (K11 its mask mode's time with the NMS
 mode's, the unfused path's and each row count's as extras; K12 also its exit step, the tiled
 kernel's time, the latency floor and its time and exit step on the snake
@@ -300,20 +326,30 @@ def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS) -> tuple[floa
 # by the flagship network (``datasets_run``): KITTI's 352x1216 split 2x4 (its
 # 176x304 patches upsampled to 384x512, one chunk of 8), ScanNet++'s
 # 1440x1920 and ETH3D's 4032x6048 split 2x2 (one chunk of 4; ETH3D's
-# 2016x3024 patches downsampled ~5.9x), where only the kernels whose shapes
-# the split sets are checked (``tiles_only``: K1, the K2 crop-resize, K7;
-# and ``check_metric_resizes``, the K2 resize of the canvas to the gt).
+# 2016x3024 patches downsampled ~5.9x), and the DA2 student's KITTI
+# validation frame (``da2_train_run``: 448x448 patches, float32), where only
+# the kernels whose shapes the split sets are checked (``tiles_only``: K1,
+# the K2 crop-resize, K7; and ``check_metric_resizes``, the K2 resize of the
+# canvas to the gt; ``resizer``: the K2 image resize of the Depth-Anything
+# resizer; ``tail_batches``: the chunks K9 is checked at, 16 and 8 patches
+# unless the path says, as the validation's chunks of 4 do).
 # Levels: the six coarse levels and the coarse depth that roi_align crops,
 # (h, w, C). ``dtypes``: those the frame's kernels are checked in (the
 # evaluations run bfloat16 only).
 FLAGSHIP_LEVELS = [(12, 16, 256), (24, 32, 256), (48, 64, 256), (96, 128, 256), (192, 256, 256),
                    (384, 512, 32), (384, 512, 1)]
+DA2_LEVELS = [(16, 16, 256), (32, 32, 256), (64, 64, 256), (128, 128, 256), (256, 256, 256),
+              (448, 448, 128), (448, 448, 1)]
+# the DA2 KITTI validation's image_lr: sides that the Depth-Anything resizer
+# rounds to the 448x448 patches (the val loader's own 384x512 rounds to
+# 378x518, which the coarse-conditioned refiner cannot take, in the JAX
+# package neither: ``PatchRefinerPlus._check_coarse_map``)
+KITTI_DA2_LR = (444, 452)
 PATHS = {
     "flagship": dict(frame=(2160, 3840), split=(4, 4), process=(384, 512), levels=FLAGSHIP_LEVELS,
                      dtypes=("float32", "bfloat16")),
-    "da2": dict(frame=(2160, 3840), split=(4, 4), process=(448, 448), levels=[
-        (16, 16, 256), (32, 32, 256), (64, 64, 256), (128, 128, 256), (256, 256, 256),
-        (448, 448, 128), (448, 448, 1)], dtypes=("float32", "bfloat16")),
+    "da2": dict(frame=(2160, 3840), split=(4, 4), process=(448, 448), levels=DA2_LEVELS,
+                dtypes=("float32", "bfloat16")),
     "cityscapes_eval": dict(frame=(1024, 2048), split=(4, 4), process=(384, 512),
                             levels=FLAGSHIP_LEVELS, dtypes=("bfloat16",)),
     "kitti": dict(frame=(352, 1216), split=(2, 4), process=(384, 512), levels=FLAGSHIP_LEVELS,
@@ -322,6 +358,8 @@ PATHS = {
                     dtypes=("bfloat16",), tiles_only=True),
     "eth3d": dict(frame=(4032, 6048), split=(2, 2), process=(384, 512), levels=FLAGSHIP_LEVELS,
                   dtypes=("bfloat16",), tiles_only=True),
+    "da2_kitti": dict(frame=(352, 1216), split=(2, 4), process=(448, 448), levels=DA2_LEVELS,
+                      dtypes=("float32",), tiles_only=True, resizer=KITTI_DA2_LR, tail_batches=(4,)),
 }
 
 
@@ -335,6 +373,8 @@ PATH_DTYPES = {"flagship": ("bfloat16",), "da2": ("bfloat16",), "r32": ("bfloat1
                "v1": ("bfloat16",), "v1_da2": ("bfloat16",),
                "train_backward": ("float32",), "train_e2e_backward": ("float32",),
                "train_v1_backward": ("float32",), "train_da2_backward": ("float32",),
+               "train_da2_e2e_backward": ("float32",), "train_v1_da2_backward": ("float32",),
+               "da2_kitti": ("float32",),
                "semi": ("float32",),
                "kitti": ("bfloat16", "float32"), "scannet": ("bfloat16", "float32"),
                "eth3d": ("bfloat16", "float32")}
@@ -467,6 +507,7 @@ def check_kernels(chk: Checks, dev) -> None:
     import torch
     import torch.nn.functional as F
 
+    from patchrefinerv2_torch.models.backbones.dpt import da_round
     from patchrefinerv2_torch.models.tiling import TileCfg, regular_pass
     from patchrefinerv2_torch.ops.resize import crop_resize, crop_resize_plain
     from patchrefinerv2_torch.ops.roi_align import launch_plan as roi_plan
@@ -524,6 +565,8 @@ def check_kernels(chk: Checks, dev) -> None:
                     crop_read_bytes(tc, m1.starts_raw, es) + n * 2 * 4 + ref.numel() * es,
                     6 * ref.numel())
             del img, ref
+            if geo.get("resizer"):  # the Depth-Anything resizer's image resize
+                check_bilinear(chk, path, dt, g, dev, (1, *geo["resizer"], 3), da_round(geo["resizer"]))
             if geo.get("tiles_only"):
                 continue
             # K2 bilinear: C2F refinenet1's x2 upsample of 16 patches at 256
@@ -542,7 +585,7 @@ def check_kernels(chk: Checks, dev) -> None:
     check_rn(chk, dev, g, "r32", flagship_tc)
     check_rn(chk, dev, g, "cityscapes_eval", cs_tc)
     check_metric_resizes(chk, dev, g, "cityscapes_eval", cs_tc)
-    for path in ("kitti", "scannet", "eth3d"):
+    for path in ("kitti", "scannet", "eth3d", "da2_kitti"):
         geo = PATHS[path]
         check_metric_resizes(chk, dev, g, path, TileCfg(geo["frame"], geo["split"], geo["process"]))
 
@@ -1012,9 +1055,10 @@ def tail_case(g, dev, dt, shape, widths, k, cout, ep):
 def check_tail_conv(chk: Checks, dev) -> None:
     """K9 at every site of the fusion head's full-resolution tail, at the
     shapes of each path's chunks: 16 patches (m1, and r32's random chunks)
-    and 8 (m2's chunks) at the process shape, in float32 (TF32 off) and
-    bfloat16 as ``PATHS`` lists them. The 16-patch chunk is recorded; the
-    8-patch one is checked and logged. Tolerance: float32 1e-5 of the
+    and 8 (m2's chunks) at the process shape, or the path's
+    ``tail_batches``, in float32 (TF32 off) and bfloat16 as ``PATHS`` lists
+    them. The first chunk size is recorded; the others are checked and
+    logged. Tolerance: float32 1e-5 of the
     output's magnitude (the same float32 sums in another order); bfloat16
     1e-2 of it (both sides round the same float32 result once, and a sum in
     another order can cross a rounding boundary). Bound: each input read
@@ -1029,7 +1073,7 @@ def check_tail_conv(chk: Checks, dev) -> None:
     for path, geo in PATHS.items():
         h2 = geo["levels"][-2][2]
         for dt in (getattr(torch, d) for d in geo["dtypes"]):
-            for batch in (16, 8):
+            for batch in geo.get("tail_batches", (16, 8)):
                 for site in tail_sites(h2):
                     check_tail_site(chk, path, dt, g, dev, (batch, *geo["process"]), site)
     tail_edge_cases(dev, g)
@@ -1037,7 +1081,8 @@ def check_tail_conv(chk: Checks, dev) -> None:
 
 def check_tail_site(chk: Checks, path, dt, g, dev, shape, site) -> None:
     """K9 at one site (``tail_sites``' form) of a chunk of ``shape`` (N, H,
-    W), recorded for the 16-patch chunk and logged with its launch plan."""
+    W), recorded for the path's first chunk size (16 patches unless its
+    ``tail_batches`` say) and logged with its launch plan."""
     import torch
     import torch.nn.functional as F
 
@@ -1060,7 +1105,8 @@ def check_tail_site(chk: Checks, path, dt, g, dev, shape, site) -> None:
               + wt.numel() + 3 * cout) * es
     chk.add("tail_conv", path, dt, err, tol_of(ref, dt), time_ms(lambda: tail_conv(parts, **kw)),
             time_ms(lambda: tail_conv_plain(parts, **kw)), lib, nbytes,
-            2 * npx * k * k * cin * cout, peak, main=shape[0] == 16)
+            2 * npx * k * k * cin * cout, peak,
+            main=shape[0] == PATHS.get(path, {}).get("tail_batches", (16,))[0])
     log({"tail_conv_site": name, "path": path, "dtype": str(dt)[6:], "batch": shape[0],
          "in": list(widths), "k": k, "out": cout, "cat_ms": cat_ms,
          "plan": tail_plan(widths, k, cout, dt)})
@@ -2704,16 +2750,24 @@ TRAIN_KERNELS = ("resize", "layer_norm", "gate_tail", "tail_conv")  # the pretra
 WORK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_work")
 
 
+def process_size(cfg) -> list:
+    """The network process size of the config's train loader: 384x512, or
+    DA2's 448x448."""
+    return list(cfg.train_dataloader.dataset.get("transform_cfg", {}).get("network_process_size",
+                                                                          [384, 512]))
+
+
 def pretrain_config(batch: int = 4, steps: int = 3, patch=None, config: str = PRETRAIN_CONFIG):
     """The pretraining stage (``pretrain_eff_m0s1``, or ``config``: batch 4,
-    384x512 images, 2160x3840 depth, remat on) over ``steps`` batches of
-    SyntheticDataset in one epoch; ``patch`` shrinks the image and depth
-    sizes."""
+    384x512 images (DA2's 448x448), 2160x3840 depth, remat on) over
+    ``steps`` batches of SyntheticDataset in one epoch; ``patch`` shrinks
+    the image and depth sizes."""
     from patchrefinerv2_torch.config import Config
 
     here = os.path.dirname(os.path.abspath(__file__))
     cfg = Config.fromfile(os.path.join(here, config))
-    ds = dict(type="SyntheticDataset", mode="train", length=batch * steps)
+    ds = dict(type="SyntheticDataset", mode="train", length=batch * steps,
+              network_process_size=process_size(cfg))
     if patch is not None:
         h, w = patch
         cfg.model.config.update(patch_process_shape=[h, w], image_raw_shape=[2 * h, 2 * w])
@@ -2726,31 +2780,34 @@ def pretrain_config(batch: int = 4, steps: int = 3, patch=None, config: str = PR
 
 
 STAGE3_CONFIG = "configs/patchrefinerv2_zoedepth/v2_eff_u4k.py"
-STAGE3_KERNELS = TRAIN_KERNELS + ("roi_align", "attention", "attractor_update", "log_binomial_depth")
-# the launches a stage-3 step makes, exactly: K1 at the six coarse levels and
-# the coarse depth, K8 at the four attractor layers and the log-binomial
-STAGE3_EXACT = {"roi_align": 7, "attractor_update": 4, "log_binomial_depth": 1}
+# the coarse branch's kernels, which a stage-3 step launches as its
+# ``kernel_calls`` says (K3 or K4 at each block; K8 at each attractor layer
+# and once for the log-binomial, none in DA2)
+COARSE_KERNELS = ("attention", "attractor_update", "log_binomial_depth")
 
 
 def stage3_config(batch: int = 4, steps: int = 3, pretrained=None, val: bool = False,
-                  config: str = STAGE3_CONFIG):
+                  config: str = STAGE3_CONFIG, options: dict | None = None):
     """Stage 3 (``v2_eff_u4k``, or ``config``: BEiT-L + ZoeDepth trained end
-    to end, batch 4 of a 384x512 image and a 540x960 crop resized to
-    384x512 against its depth, remat on) over ``steps`` batches of
+    to end, batch 4 of a 384x512 image (DA2's 448x448) and a 540x960 crop
+    resized likewise against its depth, remat on) over ``steps`` batches of
     SyntheticDataset in one epoch, from the ``pretrained`` checkpoint;
-    ``val``: one 2160x3840 m1 validation frame after the epoch."""
+    ``val``: one 2160x3840 m1 validation frame after the epoch, its image
+    at the same size; ``options``: more overrides."""
     from patchrefinerv2_torch.config import Config
 
     here = os.path.dirname(os.path.abspath(__file__))
     cfg = Config.fromfile(os.path.join(here, config))
+    process = process_size(cfg)
     cfg.merge_from_options({
-        "train_dataloader.dataset": dict(type="SyntheticDataset", mode="train", length=batch * steps),
+        "train_dataloader.dataset": dict(type="SyntheticDataset", mode="train", length=batch * steps,
+                                         network_process_size=process),
         "train_dataloader.batch_size": batch,
-        "val_dataloader": dict(batch_size=1, dataset=dict(type="SyntheticDataset", mode="infer",
-                                                          length=1)) if val else None,
+        "val_dataloader": dict(batch_size=1, dataset=dict(
+            type="SyntheticDataset", mode="infer", length=1, network_process_size=process)) if val else None,
         "train_cfg.max_epochs": 1, "train_cfg.log_interval": 1,
         "train_cfg.save_checkpoint_interval": 1, "train_cfg.val_interval": 1,
-        "model.config.pretrained": pretrained})
+        "model.config.pretrained": pretrained, **(options or {})})
     cfg["seed"] = 0
     return cfg
 
@@ -2934,7 +2991,11 @@ def _coarse_train_case(kind, key, dev, g):
 
     if kind == "roi_align":
         shp, n, size, scale = key
-        ph, pw = 384, 512  # the process frame; crops of 540x960 in 2160x3840
+        # the process frame (the flagship's 384x512, DA2's 448x448): its
+        # height is the level's over the scale, its width at the level's
+        # aspect; crops of 540x960 in 2160x3840
+        ph = round(shp[1] / scale)
+        pw = round(ph * shp[2] / shp[1])
         bh, bw = ph * 540 / 2160, pw * 960 / 3840
         xy = rand(n, 2) * torch.tensor([pw - bw, ph - bh], device=dev)
         boxes = torch.cat([xy, xy + torch.tensor([bw, bh], device=dev)], 1)
@@ -3045,9 +3106,15 @@ def check_training_sites(chk: Checks, dev) -> dict:
     with the same scales for the bicubic K2, ``native_layer_norm_backward``
     for K6, ``convolution_backward`` of the concatenated input for K9,
     ``F.grid_sample``'s backward for K1, ``scaled_dot_product_attention``'s
-    with a float mask for K3 and without for K4; K5 and K8 have none). Tolerances: the output
+    with a float mask for K3 and without for K4; K5 and K8 have none). The
+    DA2 stage-3 and DA2 V1 steps' sites (paths ``train_da2_e2e_backward``:
+    K1 at the DA2 levels up to (448, 448, 128), K5 and K9 at its 448x448
+    sites, K2, K4 and K6 in DINOv2-L and its DPT head; and
+    ``train_v1_da2_backward``: K4 on the fine crops, FusionUnet's 128-wide K9
+    sites) are recorded in ``da2_train_run``'s runs of those models and
+    checked by ``check_sites`` alike. Tolerances: the output
     and the input gradients 1e-5 of the plain version's magnitude, the
-    parameter gradients (and K3's table) 1e-4 of it (sums over up to 786,432
+    parameter gradients (and K3's table) 1e-4 of it (sums over up to 802,816
     pixels in another order). Each site's times count once for each of its
     backwards in a step. Returns each stage's sites with those counts."""
     import torch
@@ -3199,28 +3266,34 @@ MOBILE_PRETRAINED = os.path.join(WORK_DIR, "mobile_pretrain", "checkpoint_01")
 
 
 def pretrain_run(dev, config: str = PRETRAIN_CONFIG, label: str = "pretrain",
-                 checkpoint: str = PRETRAINED) -> dict:
+                 checkpoint: str = PRETRAINED, timing: bool = True) -> dict:
     """Phase B: the pretraining stage (``config``) at full width through
     ``Trainer.run`` (3 steps of batch 4: 384x512 images, 2160x3840 depth,
     float32, TF32 off, remat on), the launch counters set to 0 just before
     each step and read just after: K2, K5, K6 and K9 launch in every step,
     no other kernel and no plain version runs; losses and gradients finite,
     the parameters and the BatchNorm statistics move. Then, with one batch
-    on the card: ms a step over 5 steps, images/s, peak memory with remat on
-    and off (2 steps), and one profiled step. Returns the first step's
-    launch counts. Its checkpoint stays for stage 3 (``checkpoint``)."""
+    on the card: ms a step over 3 steps, images/s, peak memory with remat on
+    and off (1 step), and one profiled step (without ``timing``: the peak
+    memory of the run). Returns the first step's launch counts. Its
+    checkpoint stays for stage 3 (``checkpoint``)."""
     import torch
 
     tr = make_trainer(dev, pretrain_config(config=config), os.path.dirname(checkpoint))
     log({"phase": f"{label}_build", "params": sum(p.numel() for p in tr.model.net.parameters()),
          "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
          "tf32_cudnn": torch.backends.cudnn.allow_tf32, "remat": tr.model.net.remat})
+    torch.cuda.reset_peak_memory_stats()
     steps = run_counted(tr, label, TRAIN_KERNELS)
-    batch = tr.device_batch(next(iter(tr.train_loader)))
-    times = step_times(tr, batch, label)
-    tr.model.net.remat = True
-    profile_train_step(tr, batch, times[True][0]["ms_per_step"], label)
-    del tr, batch
+    if timing:
+        batch = tr.device_batch(next(iter(tr.train_loader)))
+        times = step_times(tr, batch, label)
+        tr.model.net.remat = True
+        profile_train_step(tr, batch, times[True][0]["ms_per_step"], label)
+        del batch
+    else:
+        log({"phase": f"{label}_peak_memory", "peak_bytes": torch.cuda.max_memory_allocated()})
+    del tr
     torch.cuda.empty_cache()
     return steps[0]
 
@@ -3266,26 +3339,58 @@ def count_step(step, model, batch, label: str, kernels, exact, steps: list, time
     return out
 
 
+def record_first_step(tr) -> list:
+    """Make ``tr``'s first step record the training sites it runs
+    (``SiteRecorder``), with remat off for that step only, so that a site's
+    calls are its backwards in the step, and the peak memory counted from
+    the step after it. Returns the list that receives the sites."""
+    import torch
+
+    step, recorded = tr.train_step, []
+
+    def recording(batch):
+        if recorded:
+            return step(batch)
+        remat, tr.model.net.remat = tr.model.net.remat, False
+        try:
+            with SiteRecorder() as rec:
+                out = step(batch)
+        finally:
+            tr.model.net.remat = remat
+        recorded.append(rec.sites)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    tr.train_step = recording
+    return recorded
+
+
 def run_counted(tr, label: str, kernels, exact=None, moves=("bn_buffers", "params"), still=(),
-                epoch_only: bool = False, times=None) -> list:
+                epoch_only: bool = False, times=None, save: bool = True) -> list:
     """``tr.run()`` (``epoch_only``: ``tr.train_epoch``, no checkpoint) with
     the launch counters set to 0 just before each step and read just after
     it: each kernel of ``kernels`` launches in every step (``exact``: that
     many times), no other kernel and no plain version runs; losses and
     gradients finite; then what ``moves`` names (the parameters, the
     BatchNorm statistics, the coarse branch's parameters) must have moved,
-    what ``still`` names must not have, and (unless ``epoch_only``) a
-    checkpoint be written. Returns each step's counts; each step's ms is
-    appended to ``times``."""
+    what ``still`` names must not have, and (unless ``epoch_only``, or
+    ``save`` is off: a checkpoint no later phase reads, 5-8 GB with the
+    optimizer's state, is not written) a checkpoint be written. Returns
+    each step's counts; each step's ms is appended to ``times``."""
     import torch
 
     before = {k: v.detach().clone() for k, v in tr.model.net.state_dict().items()}
     steps, step = [], tr.train_step
     tr.train_step = lambda batch: count_step(step, tr.model, batch, label, kernels, exact, steps, times)
+    if not save:
+        tr.save = lambda epoch: log({"phase": f"{label}_checkpoint", "written": False, "epoch": epoch})
     t0 = time.time()
     tr.train_epoch(tr.start_epoch) if epoch_only else tr.run()
     log({"phase": f"{label}_trainer_run", "seconds": time.time() - t0, "steps": tr.step})
     del tr.train_step
+    if not save:
+        del tr.save
     after = tr.model.net.state_dict()
     changed = [k for k in before if not torch.equal(before[k], after[k])]
     moved = dict(bn_buffers=sum("running_" in k for k in changed),
@@ -3293,20 +3398,20 @@ def run_counted(tr, label: str, kernels, exact=None, moves=("bn_buffers", "param
                  coarse_params=sum(k.startswith("coarse_branch.") for k in changed))
     log({"phase": f"{label}_moved", **moved, "of": len(before)})
     if not all(moved[k] for k in moves) or any(moved[k] for k in still) or \
-            not (epoch_only or os.path.exists(os.path.join(tr.work_dir, "checkpoint_01"))):
+            not (epoch_only or not save or os.path.exists(os.path.join(tr.work_dir, "checkpoint_01"))):
         raise AssertionError(f"{label} moved {moved} or wrote no checkpoint")
     return steps
 
 
 def step_times(tr, batch, label: str, batch_size: int = 4) -> dict:
     """ms a step (host clock, the batch on the card, ended by a
-    synchronise), images/s and peak memory, with remat on (5 steps) and
-    off (2 steps), each after a warm step."""
+    synchronise), images/s and peak memory, with remat on (3 steps) and
+    off (1 step), each after a warm step."""
     import torch
 
     tr.model.train()  # the validation after the epoch leaves eval mode
     times = {}
-    for remat, n in ((True, 5), (False, 2)):
+    for remat, n in ((True, 3), (False, 1)):
         tr.model.net.remat = remat
         tr.train_step(batch)
         torch.cuda.synchronize()
@@ -3324,20 +3429,26 @@ def step_times(tr, batch, label: str, batch_size: int = 4) -> dict:
 
 
 def stage3_run(dev, config: str = STAGE3_CONFIG, label: str = "stage3",
-               pretrained: str = PRETRAINED, val: bool = True) -> dict:
+               pretrained: str = PRETRAINED, val: bool = True, timing: bool = True,
+               sites=None) -> dict:
     """Phase D: stage 3 (``v2_eff_u4k``, or ``config``) at full width
     through ``Trainer.run``, from the pretraining run's checkpoint
     (``pretrained``; the merged and kept tensor counts are printed): 3
     steps of batch 4 (384x512 images and crops, 540x960 crop depths,
-    float32, TF32 off, remat on), the launch counters set to 0 before each
-    step and read after it: K1 7 and K8 4 + 1 times exactly, K2, K3, K5, K6
-    and K9 in every step, no other kernel and no plain version; losses and
+    float32, TF32 off, remat on; no checkpoint written), the launch counters
+    set to 0 before each step and read after it: K1 7 times and the coarse branch's K3 or K4 and
+    K8 as its ``kernel_calls`` says (24, 4 + 1 for BEiT-L ZoeDepth; 24, none
+    for DA2) exactly, K2, K5, K6 and K9 in every step, no other kernel and
+    no plain version; losses and
     gradients finite, the coarse branch, the other parameters and the
     BatchNorm statistics move; then (``val``) the default m1 validation of
     one 2160x3840 frame in float32 on the trained model (timed, its metrics
     finite). Then, with one batch on the card: ms a step, images/s and peak
-    memory with remat on and off, and one profiled step. Returns the first
-    step's counts."""
+    memory with remat on and off, and one profiled step (without
+    ``timing``: the peak memory of the steps after the first). ``sites``
+    ((Checks, path)): the first step's training sites are recorded
+    (``record_first_step``: that step without remat) and checked there
+    (``check_sites``). Returns the first step's counts."""
     import torch
 
     tr = make_trainer(dev, stage3_config(pretrained=pretrained, val=val, config=config),
@@ -3360,18 +3471,29 @@ def stage3_run(dev, config: str = STAGE3_CONFIG, label: str = "stage3",
         return val
 
     tr.val_epoch = timed_val
-    steps = run_counted(tr, label, STAGE3_KERNELS, STAGE3_EXACT,
-                        ("bn_buffers", "params", "coarse_params"))
+    torch.cuda.reset_peak_memory_stats()
+    calls = tr.model.net.coarse_branch.kernel_calls()
+    exact = {"roi_align": 7, **{k: calls[k] for k in COARSE_KERNELS}}
+    kernels = TRAIN_KERNELS + ("roi_align",) + tuple(k for k in COARSE_KERNELS if calls[k])
+    recorded = record_first_step(tr) if sites is not None else None
+    steps = run_counted(tr, label, kernels, exact, ("bn_buffers", "params", "coarse_params"), save=False)
+    peak = torch.cuda.max_memory_allocated()
+    if sites is not None:  # run_counted has put the class's train_step back
+        check_sites(sites[0], dev, sites[1], recorded[0])
     del tr.val_epoch
     if tr.val_loader is not None:
         log({"phase": f"{label}_val_m1_float32", **val})
         if not val or not all(math.isfinite(v) for v in val.values()):
             raise AssertionError(f"{label}'s m1 validation frame gave {val}")
-    batch = tr.device_batch(next(iter(tr.train_loader)))
-    times = step_times(tr, batch, label)
-    tr.model.net.remat = True
-    profile_train_step(tr, batch, times[True][0]["ms_per_step"], label)
-    del tr, batch
+    if timing:
+        batch = tr.device_batch(next(iter(tr.train_loader)))
+        times = step_times(tr, batch, label)
+        tr.model.net.remat = True
+        profile_train_step(tr, batch, times[True][0]["ms_per_step"], label)
+        del batch
+    else:
+        log({"phase": f"{label}_peak_memory", "peak_bytes": peak})
+    del tr
     torch.cuda.empty_cache()
     return steps[0]
 
@@ -3492,34 +3614,71 @@ V1_TRAIN_KERNELS = ("resize", "layer_norm", "tail_conv", "roi_align", "attention
                     "log_binomial_depth")
 
 
-def v1_train_run(dev) -> dict:
-    """V1's training (``configs/patchrefiner_zoedepth/pr_u4k.py``) at full
-    width through ``Trainer.run`` from random weights: 3 steps of batch 4
-    (384x512 images and crops, 540x960 crop depths, float32, TF32 off, remat
-    off as configured), the launch counters set to 0 before each step and
-    read after it: K1 7 times and K3, K6, K8 and K9 as the modules'
-    ``kernel_calls`` give a frame (the coarse branch, forward only) and a
-    chunk (the fine network and FusionUnet), no other kernel and no plain
-    version; losses and gradients finite; the fine network and the head
-    move, the coarse branch does not. Then ms a step, images/s and peak
-    memory with remat on and off, and one profiled step. Returns the first
-    step's counts."""
+def v1_train_run(dev, config: str = V1_CONFIG, label: str = "v1_train", stage1: str | None = None,
+                 timing: bool = True, sites=None) -> dict:
+    """V1's training (``configs/patchrefiner_zoedepth/pr_u4k.py``, or
+    ``config``) at full width through ``Trainer.run``, from random weights
+    or (``stage1``) with a stage-1 checkpoint as both its
+    ``pretrain_coarse_model`` and its ``pretrain_fine_model`` (the tensors
+    each took printed; every tensor of the checkpoint taken by each): 3
+    steps of batch 4 (384x512 images and crops, DA2's 448x448, 540x960 crop
+    depths, float32, TF32 off, remat off as configured), the launch
+    counters set to 0 before each step and read after it: K1 7 times and
+    K3 or K4, K6, K8 and K9 as the modules' ``kernel_calls`` give a frame
+    (the coarse branch, forward only) and a chunk (the fine network and
+    FusionUnet), no other kernel and no plain version; losses and gradients
+    finite; the fine network and the head move, the coarse branch does not
+    (with ``stage1``: it is the checkpoint's network still); no checkpoint
+    written. ``sites`` ((Checks, path)): the first step's training sites
+    are recorded (``record_first_step``) and checked there
+    (``check_sites``). Then ms a
+    step, images/s and peak memory with remat on and off, and one profiled
+    step (without ``timing``: the peak memory of the run). Returns the
+    first step's counts."""
     import torch
 
-    tr = make_trainer(dev, stage3_config(config=V1_CONFIG), os.path.join(WORK_DIR, "v1_train"))
-    log({"phase": "v1_train_build", "params": sum(p.numel() for p in tr.model.net.parameters()),
+    from patchrefinerv2_torch.utils.checkpoint import load_checkpoint
+
+    options = {"model.config.pretrain_coarse_model": stage1, "model.config.pretrain_fine_model": stage1}
+    tr = make_trainer(dev, stage3_config(config=config, options=options if stage1 else None),
+                      os.path.join(WORK_DIR, label))
+    log({"phase": f"{label}_build", "params": sum(p.numel() for p in tr.model.net.parameters()),
          "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
          "tf32_cudnn": torch.backends.cudnn.allow_tf32, "remat": tr.model.net.remat,
-         "e2e_training": tr.model.net.e2e_training})
+         "e2e_training": tr.model.net.e2e_training, "pretrained": tr.pretrained_report})
+    if stage1:
+        n = len(load_checkpoint(stage1)["state_dict"])
+        taken = {k: tr.pretrained_report.get(k, {}).get("taken")
+                 for k in ("pretrain_coarse_model", "pretrain_fine_model")}
+        if any(t != n for t in taken.values()):
+            raise AssertionError(f"{label} took {taken} of the stage-1 checkpoint's {n} tensors")
     per_frame, per_chunk = v1_calls(tr.model)
-    exact = {"roi_align": 7, **{k: per_frame.get(k, 0) + per_chunk.get(k, 0) for k in V1_TRAIN_KERNELS
-                                if k not in ("resize", "roi_align")}}
-    steps = run_counted(tr, "v1_train", V1_TRAIN_KERNELS, exact, ("params",), ("coarse_params",))
-    batch = tr.device_batch(next(iter(tr.train_loader)))
-    times = step_times(tr, batch, "v1_train")
-    tr.model.net.remat = False
-    profile_train_step(tr, batch, times[False][0]["ms_per_step"], "v1_train")
-    del tr, batch
+    calls = {k: per_frame.get(k, 0) + per_chunk.get(k, 0) for k in V1_TRAIN_KERNELS
+             if k not in ("resize", "roi_align")}
+    kernels = ("resize", "roi_align") + tuple(k for k, v in calls.items() if v)
+    torch.cuda.reset_peak_memory_stats()
+    recorded = record_first_step(tr) if sites is not None else None
+    steps = run_counted(tr, label, kernels, {"roi_align": 7, **calls}, ("params",), ("coarse_params",),
+                        save=False)
+    peak = torch.cuda.max_memory_allocated()
+    if sites is not None:  # run_counted has put the class's train_step back
+        check_sites(sites[0], dev, sites[1], recorded[0])
+    if stage1:
+        own = tr.model.net.state_dict()
+        off = [k for k, v in load_checkpoint(stage1)["state_dict"].items()
+               if not torch.equal(own[k], v.to(dev))]
+        log({"phase": f"{label}_coarse_branch_is_stage1", "unequal": off[:8]})
+        if off:
+            raise AssertionError(f"{label}: the frozen coarse branch left the stage-1 network: {off[:8]}")
+    if timing:
+        batch = tr.device_batch(next(iter(tr.train_loader)))
+        times = step_times(tr, batch, label)
+        tr.model.net.remat = False
+        profile_train_step(tr, batch, times[False][0]["ms_per_step"], label)
+        del batch
+    else:
+        log({"phase": f"{label}_peak_memory", "peak_bytes": peak})
+    del tr
     torch.cuda.empty_cache()
     return steps[0]
 
@@ -3818,8 +3977,10 @@ def semi_exact(model, ranking: bool) -> dict:
     """The launches a Semi step makes of the kernels that launch a fixed
     number of times: the student's and (online) the teacher's forward each
     run K1 7 times and the modules' ``kernel_calls`` (a frame and a chunk)
-    of K8 (and, V1, K3, K6 and K9); the ranking loss one K11 and one K12."""
-    per = {"roi_align": 7, "attractor_update": 4, "log_binomial_depth": 1}
+    of K8 (none for a DA2 coarse branch; and, V1, K3, K6 and K9); the
+    ranking loss one K11 and one K12."""
+    coarse = model.student.net.coarse_branch.kernel_calls()
+    per = {"roi_align": 7, **{k: coarse[k] for k in ("attractor_update", "log_binomial_depth")}}
     if model.student.v1:
         per_frame, per_chunk = v1_calls(model.student)
         per.update({k: per_frame.get(k, 0) + per_chunk.get(k, 0) for k in V1_TRAIN_KERNELS
@@ -4644,7 +4805,8 @@ def baseline_run(dev) -> dict:
         (``count_step``: the network's K3 or K4, K6 and K8 launches exactly,
         K2, no other kernel, no plain version, finite losses and
         gradients), with ms a step and peak memory; the ZoeDepth run writes
-        its checkpoint;
+        its checkpoint, and the DA2 network is saved as ``DA2_STAGE1`` for
+        ``da2_train_run``;
     (b) the hand-off: ``v2_eff_u4k.py`` built on the card with that
         checkpoint as its ``pretrain_coarse_model``: every tensor of the
         checkpoint taken, the coarse branch equal to it;
@@ -4663,7 +4825,9 @@ def baseline_run(dev) -> dict:
     from patchrefinerv2_torch.config import Config
     from patchrefinerv2_torch.models.patchrefiner import build_model
     from patchrefinerv2_torch.models.tiling import regular_pass
-    from patchrefinerv2_torch.utils.checkpoint import apply_config_pretrained, load_checkpoint
+    from patchrefinerv2_torch.utils.checkpoint import (
+        apply_config_pretrained, load_checkpoint, save_checkpoint,
+    )
 
     here = os.path.dirname(os.path.abspath(__file__))
     out, fine = {}, []
@@ -4682,6 +4846,9 @@ def baseline_run(dev) -> dict:
              "peak_bytes": torch.cuda.max_memory_allocated(),
              "params": sum(p.numel() for p in keep[-1].net.parameters()) if keep else None})
         out[f"{label}_train_f32"] = run["counts"][0]
+        if label == "baseline_da2":  # the DA2 recipe's stage-1 network (``da2_train_run``)
+            save_checkpoint(DA2_STAGE1, {"state_dict": keep[-1].net.state_dict(), "epoch": 1,
+                                         "step": steps})
         del run, keep
         torch.cuda.empty_cache()
 
@@ -4776,6 +4943,175 @@ def tiny_baseline_gpu_vs_cpu(dev) -> None:
             raise AssertionError(f"tiny BaselinePretrain {mode}: the card disagrees with the CPU ({err})")
 
 
+DA2_PRETRAIN_CONFIG = "configs/patchrefinerv2_dav2/pretrain_eff_m0s1.py"
+DA2_STAGE3_CONFIG = "configs/patchrefinerv2_dav2/plus_eff_u4k_base_coarse_e2e_c2f_pretrain.py"
+DA2_SEMI_CONFIG = "configs/patchrefinerv2_dav2/semi_kitti.py"
+DA2_PRETRAINED = os.path.join(WORK_DIR, "da2_pretrain", "checkpoint_01")  # the DA2 pretraining run's
+DA2_STAGE1 = os.path.join(WORK_DIR, "baseline_da2", "stage1_network")  # baseline_run's DA2 network
+# the DA2 Semi student's kernels (the coarse branch forward only, under no gradient)
+DA2_SEMI_KERNELS = ("resize", "layer_norm", "attention", "tail_conv", "gate_tail", "roi_align")
+
+
+def da2_train_run(dev, chk: Checks) -> dict:
+    """The Depth-Anything-V2 recipe at full width on the card (DINOv2-L with
+    the DPT head at 448x448, EfficientNet-B5 or two DINOv2-L networks,
+    batch 4, float32, TF32 off), each step counted (``count_step``: its
+    kernels in every step, those with a count from the modules exactly, no
+    other kernel and no plain version, finite losses and gradients), its ms
+    and the run's peak memory printed:
+
+    (a) refiner pretraining, ``patchrefinerv2_dav2/pretrain_eff_m0s1.py``
+        (the hacked coarse level 5 128 wide), 3 steps through
+        ``Trainer.run``, writing its checkpoint;
+    (b) stage 3 from that checkpoint,
+        ``plus_eff_u4k_base_coarse_e2e_c2f_pretrain.py`` (``e2e_training``):
+        3 steps, K1 7 times and K4 24 times a step exactly, K2, K5, K6 and K9
+        in every step, no K3 (24 launches are the DINOv2's blocks), no K8;
+        the coarse branch, the refiner, the fusion head and the BatchNorm
+        statistics move; the first step's training sites checked (path
+        ``train_da2_e2e_backward``, that step without remat); then the m1
+        validation of one 2160x3840 frame (448x448 ``image_lr``) in float32;
+    (c) V1, ``patchrefiner_dav2/pr_u4k.py``, with ``baseline_run``'s DA2
+        network as its ``pretrain_coarse_model`` and ``pretrain_fine_model``
+        (``v1_train_run``): 3 steps, the fine DINOv2 and FusionUnet move,
+        the coarse branch stays the stage-1 network; its first step's
+        training sites checked (path ``train_v1_da2_backward``);
+    (d) ``semi_kitti.py``'s DA2 student (``da2_semi_kitti``).
+
+    Returns the first step's launches of each run for the kernels line."""
+    import torch
+
+    out = {}
+    out["da2_pretrain_f32"] = timed(pretrain_run, dev, DA2_PRETRAIN_CONFIG, "da2_pretrain", DA2_PRETRAINED,
+                                    False)
+    out["da2_stage3_f32"] = timed(stage3_run, dev, DA2_STAGE3_CONFIG, "da2_stage3", DA2_PRETRAINED, True,
+                                  False, (chk, "train_da2_e2e_backward"))
+    out["v1_da2_train_f32"] = timed(v1_train_run, dev, V1_DA2_CONFIG, "v1_da2_train", DA2_STAGE1, False,
+                                    (chk, "train_v1_da2_backward"))
+    out.update(timed(da2_semi_kitti, dev))
+    torch.cuda.empty_cache()
+    return out
+
+
+def da2_semi_kitti(dev) -> dict:
+    """``semi_kitti.py``'s DA2 student through ``patchrefinerv2_torch.train.main``
+    on KITTI files under ``DATA_DIR`` (``write_kitti``: 8 frames at
+    375x1242, random weights, seed 0): the offline pseudo labels written as
+    the ``gen`` test type writes them (``save_raw_16bit``, named from the
+    image path as the reader reads them; here smooth random depths at the
+    352x1216 crop), 2 steps of batch 4 (448x448 images and crops, remat on,
+    the coarse branch forward only), each counted as ``semi_run`` counts its
+    steps (K1 7 times, no K8, K11 or K12); then the validation of one frame
+    (``val_interval`` 1) with the val loader's image at ``KITTI_DA2_LR``,
+    which the Depth-Anything resizer rounds to 448x448: the launch counters
+    set to 0 just before it and read just after, K2's image resize
+    recorded, K5 and K9 as the head's ``kernel_calls`` say a chunk, finite
+    metrics. Returns the first step's launches and the validation's."""
+    import shutil
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from patchrefinerv2_torch import ops
+    from patchrefinerv2_torch.datasets.kitti import KittiDataset
+    from patchrefinerv2_torch.models import patchrefinerplus as prp
+    from patchrefinerv2_torch.training.trainer import Trainer
+    from patchrefinerv2_torch.utils.color import save_raw_16bit
+
+    try:
+        t0 = time.time()
+        kitti = write_kitti(os.path.join(DATA_DIR, "kitti_da2"), 8)
+        pl_dir = os.path.join(DATA_DIR, "kitti_da2_pl")
+        os.makedirs(pl_dir)
+        rng = np.random.RandomState(7)
+        names = [line.split()[0] for line in open(kitti["split"]).read().splitlines()]
+        for name in names:
+            depth = np.kron(rng.uniform(2.0, 80.0, (11, 38)), np.ones((32, 32))).astype(np.float32)
+            save_raw_16bit(depth, os.path.join(pl_dir, KittiDataset._pseudo_name(name)))
+        val_split = os.path.join(DATA_DIR, "kitti_da2_val.txt")
+        with open(val_split, "w") as f:
+            f.write(open(kitti["split"]).read().splitlines()[0] + "\n")
+        log({"phase": "da2_semi_kitti_files", "frames": len(names), "seconds": time.time() - t0})
+        orig_val, resize, val = Trainer.val_epoch, prp.resize, {}
+
+        def counted_val(self):
+            calls = []
+
+            def spy(x, size, *a, **k):
+                calls.append([list(x.shape), list(size)])
+                return resize(x, size, *a, **k)
+
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t1 = time.time()
+            with mock.patch.object(prp, "resize", spy):
+                metrics = orig_val(self)
+            torch.cuda.synchronize()
+            val.update(metrics=metrics, ms=(time.time() - t1) * 1e3, counts=ops.launch_counts(),
+                       orchestrator_resizes=calls, model=self.model)
+            return metrics
+
+        with mock.patch.object(Trainer, "val_epoch", counted_val):
+            semi = cli_train("da2_semi_kitti", DA2_SEMI_CONFIG, [
+                f"train_dataloader.dataset.data_root={kitti['root']}",
+                f"train_dataloader.dataset.split={kitti['split']}",
+                f"train_dataloader.dataset.pseudo_label_path={pl_dir}", "train_dataloader.batch_size=4",
+                "train_dataloader.num_workers=2", f"val_dataloader.dataset.data_root={kitti['root']}",
+                f"val_dataloader.dataset.split={val_split}",
+                f"val_dataloader.dataset.transform_cfg.network_process_size={list(KITTI_DA2_LR)}",
+                "train_cfg.max_epochs=1", "train_cfg.val_interval=1", "train_cfg.log_interval=1"],
+                DA2_SEMI_KERNELS, lambda m: semi_exact(m, False), pseudo_label=True, save=False)
+        if len(semi["counts"]) != 2:
+            raise AssertionError(f"da2_semi_kitti ran {len(semi['counts'])} steps, not 2")
+        model, counts, metrics = val.pop("model"), val["counts"], val["metrics"]
+        log({"phase": "da2_semi_kitti_val_float32", **val})
+        image_resize = [[1, *KITTI_DA2_LR, 3], list(model.student.coarse_input_shape(KITTI_DA2_LR))]
+        if image_resize not in val["orchestrator_resizes"] or \
+                image_resize[1] != list(model.student.patch_input_shape):
+            raise AssertionError(f"da2_semi_kitti: no resizer call {image_resize} in "
+                                 f"{val['orchestrator_resizes']}")
+        if not metrics or not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"da2_semi_kitti's validation frame gave {metrics}")
+        check_frame_launches("da2_semi_kitti_val", counts, model.student, 1, bins=(0, 0))
+        return {"da2_semi_kitti_f32": semi["counts"][0], "da2_semi_kitti_val_f32": counts}
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
+
+
+def tiny_da2_train_gpu_vs_cpu(dev) -> None:
+    """A tiny DA2 stage-3 step (a ``vitt`` DINOv2 of 64 features with its
+    DPT head, the EfficientNet-B5 refiner and BiDirectionalFusion, 56x84
+    patches, batch 2, ``e2e_training`` and remat on) and a tiny DA2 V1 step
+    (``vitt`` coarse and fine networks, a narrow FusionUnet) on the card
+    (K1, K4, the bicubic K2 and the rest, their backwards) against the CPU
+    (the plain versions), from the same weights and batch, within
+    ``compare_train_steps``' bars."""
+    import numpy as np
+
+    from patchrefinerv2_torch.models.patchrefiner import PatchRefiner
+    from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
+
+    da2 = dict(type="DA2", model_cfg=dict(encoder="vitt", features=64))
+    plus = dict(TINY_ZOE, image_raw_shape=[112, 168], patch_process_shape=[56, 84], coarse_branch=da2,
+                e2e_training=True, remat=True,
+                refiner=dict(TINY_REFINER, fusion_model=dict(type="BiDirectionalFusion",
+                                                             coarse_chl=[32, 64, 64, 64, 64, 64])))
+    v1 = dict(TINY_V1, image_raw_shape=[112, 168], patch_process_shape=[56, 84], coarse_branch=da2,
+              refiner=dict(TINY_V1["refiner"], fine_branch=da2))
+    rng = np.random.RandomState(5)
+    batch = dict(image_lr=rng.rand(2, 56, 84, 3).astype(np.float32),
+                 crops_image_hr=rng.rand(2, 56, 84, 3).astype(np.float32),
+                 crop_depths=(1.0 + 20.0 * rng.rand(2, 72, 96, 1)).astype(np.float32),
+                 bboxs=np.array([[0.0, 0.0, 42.0, 28.0], [21.0, 14.0, 63.0, 42.0]], np.float32))
+    for label, cls, cfg in (("tiny_da2_stage3", PatchRefinerPlus, plus), ("tiny_da2_v1", PatchRefiner, v1)):
+        out = []
+        for d in (dev, "cpu"):
+            m = cls(cfg, device=d, seed=3).train()
+            out.append(_step_result(m, m.loss(batch, update_stats=True)[0]))
+        compare_train_steps(f"{label}_gpu_vs_cpu", *out)
+
+
 def record_resize_plans() -> dict:
     """Wrap ``ops/resize._launch_plan`` so that every later K2 launch counts
     its (channels, element bytes, vec, vstore) in the returned dict."""
@@ -4854,10 +5190,12 @@ def main() -> int:
         timed(tiny_train_gpu_vs_cpu, dev)
         counts["train_e2e_f32"] = timed(stage3_run, dev)
         timed(tiny_stage3_gpu_vs_cpu, dev)
+        # the mobile steps counted without their remat on/off timings and
+        # profiled step, which keeps the run within its time limit
         counts["mobile_train_f32"] = timed(pretrain_run, dev, MOBILE_PRETRAIN_CONFIG, "mobile_pretrain",
-                                           MOBILE_PRETRAINED)
+                                           MOBILE_PRETRAINED, False)
         counts["mobile_train_e2e_f32"] = timed(stage3_run, dev, MOBILE_CONFIG, "mobile_stage3",
-                                               MOBILE_PRETRAINED, False)
+                                               MOBILE_PRETRAINED, False, False)
         timed(tiny_train_gpu_vs_cpu, dev, MOBILE_PRETRAIN_CONFIG, "tiny_mobile_train")
         counts["v1_train_f32"] = timed(v1_train_run, dev)
         timed(tiny_v1_train_gpu_vs_cpu, dev)
@@ -4868,6 +5206,8 @@ def main() -> int:
         counts.update(timed(datasets_run, dev, counts["m1"]))
         counts.update(timed(baseline_run, dev))
         timed(tiny_baseline_gpu_vs_cpu, dev)
+        counts.update(timed(da2_train_run, dev, chk))
+        timed(tiny_da2_train_gpu_vs_cpu, dev)
     finally:
         import shutil
 

@@ -7,6 +7,10 @@ Key names follow the DA2 torch state dict (depth_anything_v2/dpt.py):
 resize_layers.{0, 1, 3}, scratch.{layer{k}_rn, refinenet{k},
 output_conv1, output_conv2.{0, 2}}}``. ``refinenet4`` is called with one
 input, so it has no first unit, as the JAX converter drops it.
+
+The network takes sides that are multiples of 14. The orchestrators resize
+their inputs to :func:`da_round` of their sides first (the Depth-Anything
+resizer, ``_da_round`` at ``patchrefinerplus.py:59-61``).
 """
 
 from __future__ import annotations
@@ -29,6 +33,12 @@ DA2_OUT_CHANNELS = {
     "vitg": [1536, 1536, 1536, 1536],
     "vitt": [24, 48, 96, 96],  # debug-tiny
 }
+
+
+def da_round(size) -> tuple[int, int]:
+    """The Depth-Anything resizer's sides: each rounded to a multiple of 14
+    (Python's ``round``, as ``_da_round`` at ``patchrefinerplus.py:59-61``)."""
+    return (int(round(size[0] / 14) * 14), int(round(size[1] / 14) * 14))
 
 
 class DPTHead(nn.Module):
@@ -87,9 +97,9 @@ class DepthAnythingV2(nn.Module):
 
     def forward(self, x):
         if x.shape[2] % 14 or x.shape[3] % 14:
-            raise NotImplementedError(
-                "the Depth-Anything resizer (sides rounded to multiples of 14, "
-                f"patchrefinerplus.py:59) is not ported: got sides {tuple(x.shape[2:])}")
+            raise ValueError(
+                f"DINOv2 takes sides that are multiples of 14, got {tuple(x.shape[2:])}: resize to "
+                "da_round of the sides first")
         mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device).view(1, 3, 1, 1)
         std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device).view(1, 3, 1, 1)
         x = (x - mean) / std

@@ -7,7 +7,8 @@ the port of ``patchrefinerv2_tpu/models/baseline_pretrain.py`` (``loss``
 low-resolution image (``image_lr`` against ``depth_gt``); ``"fine"`` trains
 its ``fine_branch`` on high-resolution crops (``crops_image_hr`` against
 ``crop_depths``). A Depth-Anything branch sees its input resized to sides
-that are multiples of 14 (bilinear, align corners; JAX's ``_da_round``).
+that are multiples of 14 (bilinear, align corners; ``backbones/dpt.da_round``,
+JAX's ``_da_round``).
 The loss is SILog.
 
 Inference: the coarse target runs the network once on ``image_lr``. The
@@ -38,6 +39,7 @@ import torch.nn as nn
 
 from patchrefinerv2_torch import resolve_device
 from patchrefinerv2_torch.config import ConfigDict
+from patchrefinerv2_torch.models.backbones.dpt import da_round
 from patchrefinerv2_torch.models.blocks.convs import to_nchw, to_nhwc
 from patchrefinerv2_torch.models.losses import build_loss
 from patchrefinerv2_torch.models.patchrefinerplus import build_coarse_branch, init_random_
@@ -48,12 +50,6 @@ from patchrefinerv2_torch.ops.resize import crop_resize, resize
 
 # the blend mask's border (``baseline_pretrain.py:121-122``; PatchRefinerPlus uses 0.15)
 BORDER = 0.1
-
-
-def da_round(size) -> tuple[int, int]:
-    """The Depth-Anything resizer's sides: each rounded to a multiple of 14
-    (Python's ``round``, as ``_da_round`` at ``patchrefinerplus.py:59-61``)."""
-    return (int(round(size[0] / 14) * 14), int(round(size[1] / 14) * 14))
 
 
 class BaselineNet(nn.Module):

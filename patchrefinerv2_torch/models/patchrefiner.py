@@ -16,16 +16,16 @@ batch: K3 (BEiT) or K4 (DINOv2) attention, K6, K2 in the DPT neck, K8
 (ZoeDepth); FusionUnet adds K2, K6 and K9 (``FusionUnet.kernel_calls``).
 
 Training is SILog (``sigweight`` 1) with the GradMatch term still computed,
-the coarse branch under no gradient and frozen. What raises: the loss of a
-DA2 fine branch (its step is not held to the JAX package's yet; the
-bicubic K2 backward that its DINOv2 needs exists), the int8 serving mode
-(the JAX package's would also quantize the fine network's convolutions,
-sites the port does not have).
+the coarse branch under no gradient and frozen; a ZoeDepth fine network
+trains through K3's, K8's and K2's backwards, a DA2 one through K4's, K6's
+and the bicubic K2's of its position embedding. With DA2 branches the
+Depth-Anything resizer applies as in PatchRefinerPlus. What raises: the
+int8 serving mode (the JAX package's would also quantize the fine
+network's convolutions, sites the port does not have).
 """
 
 from __future__ import annotations
 
-from patchrefinerv2_torch.models.backbones.zoedepth import ZoeDepthBEiT
 from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
 
 
@@ -33,21 +33,12 @@ class PatchRefiner(PatchRefinerPlus):
     """Config-built PatchRefiner V1 on one device (``device=None``: the
     card). PatchRefinerPlus's config defaults are the JAX class's: no
     pretraining stage, ``e2e_training`` off (the coarse branch frozen),
-    ``sigweight`` 1 and a GradMatch ``gmloss``."""
+    ``sigweight`` 1 and a GradMatch ``gmloss``. Its loss is
+    PatchRefinerPlus's stage-3 loss (``patchrefinerplus.py:519-556``): SILog
+    and GradMatch of the fine depth (a ZoeDepth or a DA2 fine network on the
+    crops) against ``crop_depths``, the coarse branch under no gradient."""
 
     v1 = True
-
-    def loss(self, batch: dict, generator=None, update_stats: bool = False, coarse_features=None):
-        """PatchRefinerPlus's stage-3 loss (``patchrefinerplus.py:519-556``)
-        with the coarse branch under no gradient: SILog and GradMatch of the
-        fine depth against ``crop_depths``, ``total = sigweight * sig + (1 -
-        sigweight) * gm``. A DA2 fine branch raises."""
-        if not isinstance(self.net.refiner_fine_branch, ZoeDepthBEiT):
-            raise NotImplementedError(
-                "training PatchRefiner V1 with a DA2 fine branch is not ported: its step is not "
-                "held to the JAX package's yet (the bicubic K2 backward of its DINOv2 position "
-                "embedding exists and trains BaselinePretrain's DA2 form)")
-        return super().loss(batch, generator, update_stats, coarse_features)
 
     def calibrate_int8(self, *args, **kwargs):
         raise NotImplementedError(_NO_INT8)

@@ -22,9 +22,11 @@ gt), ``SILogLoss``, or ``EdgeguidedRankingLoss`` (its samples drawn on the
 step's generator, which nothing else of a stage-3 step draws from: it
 stands for JAX's ``fold_in(rng, 7)``). A non-finite loss becomes ``0 *``
 the prediction's first value (``_nan_guard``). ``mix_loss`` builds the
-ranking and SSI losses and, as in JAX, uses neither. What raises (ROADMAP.md,
-Queue 1): ``distill=True`` and ``ScaleAndShiftInvariantUncertLoss``, which
-no config sets; a DA2 student's loss raises through its own stage-3 loss.
+ranking and SSI losses and, as in JAX, uses neither. A student with a
+DA2 coarse branch (``semi_kitti.py``) trains and infers as its own class
+does, the Depth-Anything resizer included. What raises (ROADMAP.md, Queue
+1): ``distill=True`` and ``ScaleAndShiftInvariantUncertLoss``, which no
+config sets.
 """
 
 from __future__ import annotations

@@ -3,7 +3,12 @@
 ``build_coarse_branch`` :117, ``PRPlusNet.coarse_forward``/``_roi``/
 ``refine``/``infer_chunk`` :200-294, ``PatchRefinerPlus.infer`` :559-768)
 for ``cai_mode`` m1, m2 and rN, with a ZoeDepth (BEiT) or a
-Depth-Anything-V2 (DINOv2) coarse branch.
+Depth-Anything-V2 (DINOv2) coarse branch. With a DA2 coarse branch the
+Depth-Anything resizer applies (``resizer_kind == "da"`` in the JAX
+package): ``image_lr`` goes to the coarse branch resized (K2 bilinear,
+align corners) to ``da_round`` of its sides, and the patches are
+crop-resized to ``da_round`` of the process shape, their depths resized
+back to it.
 
 Per frame: the coarse branch once at the coarse resolution, then for every
 chunk of patches: crop + resize (K2), roi_align of the six coarse levels and
@@ -24,9 +29,10 @@ Training (``PatchRefinerPlus.loss``): in the pretraining stage
 net has no coarse branch, and the loss runs the refiner with its decoder and
 the fusion head on hacked coarse features, then SILog against the
 full-resolution depth. Otherwise (stage 3, ``patchrefinerplus.py:296-314,
-519-556``) it runs ``train_forward``: the coarse branch on ``image_lr``
-(under no gradient when ``e2e_training`` is off, as ``stop_gradient`` cuts
-it there), roi_align of its levels and depth at each crop's box (K1, whose
+519-556``) it runs ``train_forward``: the coarse branch (ZoeDepth or DA2) on
+``image_lr`` as the loader gives it (under no gradient when
+``e2e_training`` is off, as ``stop_gradient`` cuts it there), roi_align of
+its levels and depth at each crop's box (K1, whose
 gradient reaches the coarse branch), the refiner and the fusion head on the
 crops, then SILog and GradMatch against ``crop_depths``. The refiner and
 the fusion head run under ``torch.utils.checkpoint`` when the config sets
@@ -48,7 +54,7 @@ import torch.nn as nn
 
 from patchrefinerv2_torch import resolve_device
 from patchrefinerv2_torch.config import ConfigDict
-from patchrefinerv2_torch.models.backbones.dpt import DepthAnythingV2
+from patchrefinerv2_torch.models.backbones.dpt import DepthAnythingV2, da_round
 from patchrefinerv2_torch.models.backbones.encoders import arm_stat_updates
 from patchrefinerv2_torch.models.backbones.vit import DinoViT
 from patchrefinerv2_torch.models.backbones.zoedepth import ZoeDepthBEiT
@@ -292,8 +298,8 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 class PatchRefinerPlus:
     """Config-built orchestrator for tiled inference and the training loss
-    (the pretraining stage, and stage 3 with a ZoeDepth coarse branch), on
-    one device.
+    (the pretraining stage, and stage 3 with a ZoeDepth or a DA2 coarse
+    branch), on one device.
 
     ``device=None`` means the card, and raises when there is none. The
     network starts in eval mode; :meth:`train` switches it."""
@@ -319,6 +325,9 @@ class PatchRefinerPlus:
         self.sigweight = float(cfg.get("sigweight", 1.0))
         self.pre_norm_bbox = bool(cfg.get("pre_norm_bbox", True))
         self.infer_dtype = _DTYPES[cfg.get("infer_dtype", "float32")]
+        # the Depth-Anything resizer (``resizer_kind == "da"``,
+        # patchrefinerplus.py:117-180): a DA2 coarse branch outside pretraining
+        self.resizer_da = not self.pretrain_stage and cfg.coarse_branch.get("type") == "DA2"
         net = PRPlusNet(cfg, v1=self.v1)
         init_random_(net, torch.Generator().manual_seed(seed))
         self.net = net.to(self.device, memory_format=torch.channels_last).eval()
@@ -326,6 +335,46 @@ class PatchRefinerPlus:
             self.net.to(self.infer_dtype)
         # (calibration or None, scales, force, min_kc, min_hw) while the int8 mode is set
         self._int8 = None
+
+    @property
+    def patch_input_shape(self) -> tuple[int, int]:
+        """The patches' size at the refiner's input (``patchrefinerplus.py:440-445``):
+        the process shape, rounded by the Depth-Anything resizer."""
+        return self.coarse_input_shape(self.patch_process_shape)
+
+    def coarse_input_shape(self, lr_shape) -> tuple[int, int]:
+        """The coarse branch's input size for an ``image_lr`` of ``lr_shape``
+        (``patchrefinerplus.py:447-449``)."""
+        return da_round(lr_shape) if self.resizer_da else tuple(lr_shape)
+
+    def _coarse_input(self, image_lr):
+        """``image_lr`` NHWC resized (bilinear, align corners) to the coarse
+        branch's input size where that differs (``patchrefinerplus.py:628-631``)."""
+        size = self.coarse_input_shape(image_lr.shape[1:3])
+        if tuple(image_lr.shape[1:3]) != size:
+            image_lr = resize(image_lr, size, "bilinear", True)
+        return image_lr
+
+    def _check_coarse_map(self, coarse_pred) -> None:
+        """The coarse depth's roi comes out at the coarse map's size
+        (``_roi``, ``patchrefinerplus.py:209-221``): a coarse-conditioned
+        refiner takes it beside the patch, and the ``offset_coarse`` target
+        adds it to the patch's depth, so there the map must have the
+        patches' size. The JAX package fails at that concatenation; the port
+        says why before the patches run."""
+        needs = getattr(self.net.refiner_fine_branch, "coarse_condition", False) or \
+            self.net.strategy_refiner_target == "offset_coarse"
+        if needs and tuple(coarse_pred.shape[2:]) != self.patch_input_shape:
+            raise ValueError(
+                f"the coarse map is {tuple(coarse_pred.shape[2:])} but the patches "
+                f"{self.patch_input_shape}: the refiner takes the coarse depth's roi at the coarse "
+                "map's size, so image_lr must come to the patches' size (after da_round with a "
+                "Depth-Anything coarse branch), e.g. a loader's network_process_size of "
+                f"{list(self.patch_process_shape)}")
+
+    def _patches(self, image_hr, starts, patch_raw_shape):
+        """The raw patches at ``starts`` crop-resized to the refiner's input size."""
+        return crop_resize(image_hr[0], starts, patch_raw_shape, self.patch_input_shape)
 
     def set_infer_dtype(self, dtype: torch.dtype) -> None:
         """Cast the parameters (in place) and run inference in ``dtype``. A
@@ -362,7 +411,9 @@ class PatchRefinerPlus:
         (B, H, W, 1). aux: ``depth_pred`` (B, h, w, 1).
 
         Otherwise (stage 3): :meth:`PRPlusNet.train_forward` of ``image_lr``
-        (B, h, w, 3), ``crops_image_hr`` (B, h, w, 3) and ``bboxs`` (B, 4),
+        (B, h, w, 3; a DA2 coarse branch takes it as it is, not resized, as
+        in the JAX package, so its sides must be multiples of 14),
+        ``crops_image_hr`` (B, h, w, 3) and ``bboxs`` (B, 4),
         scaled from the raw frame to the process frame unless
         ``pre_norm_bbox``; SILog and GradMatch of the depth against
         ``crop_depths`` (B, H, W, 1), ``total = sigweight * sig + (1 -
@@ -388,8 +439,6 @@ class PatchRefinerPlus:
             depth = to_nhwc(depth)
             sig = self.sigloss(depth, dev("depth_gt"), self.min_depth, self.max_depth)
             return {"sig_fine_loss": sig, "total_loss": sig}, {"depth_pred": depth}
-        if not isinstance(self.net.coarse_branch, ZoeDepthBEiT):
-            raise NotImplementedError("the port trains stage 3 with a ZoeDepth coarse branch only")
         bboxes = torch.as_tensor(batch["bboxs"]).to(self.device, torch.float32)
         if not self.pre_norm_bbox:
             (rh, rw), (ph, pw) = self.tile_cfg.image_raw_shape, self.patch_process_shape
@@ -435,20 +484,18 @@ class PatchRefinerPlus:
         calibrated; ``min_kc`` and ``min_hw`` are the gates serving applies.
         Returns the calibration, on the model's device."""
         tc = self._tile(tile_cfg)
-        pph, ppw = self.patch_process_shape
-        prh, prw = tc.patch_raw_shape
         recs = record(self.net)
         try:
             for image_lr, image_hr in images:
                 lr, hr = self._inputs(image_lr, image_hr)
-                coarse_feats, coarse_pred = self.net.coarse_forward(lr)
+                coarse_feats, coarse_pred = self.net.coarse_forward(self._coarse_input(lr))
                 for off in ((0, 0), (0, 1), (1, 0), (1, 1)):
                     p = regular_pass(tc, off, process_num)
                     s_raw = torch.from_numpy(p.starts_raw).to(self.device)
                     boxes = torch.from_numpy(p.bboxes).to(self.device)
                     for lo in range(0, s_raw.shape[0], process_num):
                         sl = slice(lo, lo + process_num)
-                        imgs = crop_resize(hr[0], s_raw[sl], (prh, prw), (pph, ppw))
+                        imgs = self._patches(hr, s_raw[sl], tc.patch_raw_shape)
                         self.net.infer_chunk(imgs, coarse_pred, coarse_feats, boxes[sl])
         finally:
             self._attach_int8()
@@ -512,8 +559,11 @@ class PatchRefinerPlus:
         "patch_split_num"}) overrides the config's tiling. rN draws its random
         starts from the CPU ``generator`` (default: seed 0), or takes them
         from ``random_starts`` ((N // process_num, process_num, 2) int [h, w]).
+        ``image_lr`` must come to the patches' size at the coarse branch
+        (:meth:`_check_coarse_map`).
         Returns (depth float32 on the reensemble canvas (H', W') for m1 and
-        m2, on the raw (H, W) canvas for rN; coarse depth (1, h, w, 1))."""
+        m2, on the raw (H, W) canvas for rN; coarse depth (1, h, w, 1), at
+        ``da_round`` of (h, w) with a DA2 coarse branch)."""
         if self.pretrain_stage:
             raise NotImplementedError("the pretraining stage builds no coarse branch to infer with")
         cal = self._int8[0] if self._int8 is not None else None
@@ -547,12 +597,15 @@ class PatchRefinerPlus:
         boxes = torch.from_numpy(stream.bboxes).to(dev)
         valid = torch.from_numpy((np.arange(n) < stream.n_valid).astype(np.float32)).to(dev)
         iv = None if initv is None else torch.from_numpy(initv).to(dev)
-        coarse_feats, coarse_pred = self.net.coarse_forward(image_lr)
+        coarse_feats, coarse_pred = self.net.coarse_forward(self._coarse_input(image_lr))
+        self._check_coarse_map(coarse_pred)
         state = TileBlender.init(tc.patch_reensemble_shape, dev)
         for lo in range(0, n, chunk):
             sl = slice(lo, lo + chunk)
-            imgs = crop_resize(image_hr[0], s_raw[sl], (prh, prw), (pph, ppw))
+            imgs = self._patches(image_hr, s_raw[sl], (prh, prw))
             preds = self.net.infer_chunk(imgs, coarse_pred, coarse_feats, boxes[sl])[:, 0]
+            if tuple(preds.shape[1:]) != (pph, ppw):  # patchrefinerplus.py:671-674
+                preds = resize(preds[..., None], (pph, ppw), "bilinear", True)[..., 0]
             TileBlender.add_pass(state, preds, blur, s_place[sl], init_pass=iv is None,
                                  valid=valid[sl], initv=None if iv is None else iv[sl])
         if n_random:
@@ -564,7 +617,7 @@ class PatchRefinerPlus:
             for rs in random_starts:
                 s = torch.from_numpy(rs).to(dev)
                 b = torch.from_numpy(random_pass_boxes(tc, rs)).to(dev)
-                imgs = crop_resize(image_hr[0], s, (prh, prw), (pph, ppw))
+                imgs = self._patches(image_hr, s, (prh, prw))
                 preds = self.net.infer_chunk(imgs, coarse_pred, coarse_feats, b)[:, 0]
                 preds = resize(preds[..., None], (prh, prw), mode="nearest")[..., 0]
                 TileBlender.add_pass(state, preds, blur_raw, s)

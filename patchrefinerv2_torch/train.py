@@ -12,8 +12,11 @@ random weights from the seed, then the checkpoints the config names in
 ``configs/patchrefinerv2_zoedepth/coarse_pretrain_u4k.py``; its
 ``checkpoint_NN`` is what later stages name in ``pretrain_coarse_model``),
 the refiner's pretraining stage (``configs/patchrefinerv2_zoedepth/pretrain_eff_m0s1.py``),
-stage 3 (``configs/patchrefinerv2_zoedepth/v2_eff_u4k.py``), V1 with a
-ZoeDepth fine branch (``configs/patchrefiner_zoedepth/pr_u4k.py``) and the
+stage 3 (``configs/patchrefinerv2_zoedepth/v2_eff_u4k.py``), V1
+(``configs/patchrefiner_zoedepth/pr_u4k.py``), the Depth-Anything-V2
+recipe's stages (``configs/patchrefinerv2_dav2/pretrain_eff_m0s1.py``,
+``plus_eff_u4k*.py``, ``semi_kitti.py``, ``configs/patchrefiner_dav2/pr_u4k.py``)
+and the
 Semi transfer with an online teacher
 (``configs/patchrefinerv2_zoedepth_cs/plus_eff_cs_semi_online_ranking_ft.py``;
 the offline transfer, ``plus_eff_cs_semi_offline_ssigm_ft.py``, takes the

@@ -1,7 +1,8 @@
 """The port's Depth-Anything-V2 coarse path against the JAX package on the
 CPU: the DINOv2 trunk (``vitt``), the DA2 model, and PatchRefinerPlus
 tiled inference (m1, m2) with a ``vitt`` DA2 coarse branch, the
-EfficientNet-B5 refiner and BiDirectionalFusion.
+EfficientNet-B5 refiner and BiDirectionalFusion, on a 56x84 image and on a
+50x84 one that the Depth-Anything resizer rounds to 56x84.
 
 JAX variables are redrawn with numpy from a seed and loaded through
 ``load_jax_params``; inputs are numpy arrays from a seed. The trunk sees a
@@ -21,6 +22,7 @@ import jax.numpy as jnp
 
 from patchrefinerv2_tpu.models.backbones.dpt import DepthAnythingV2 as JDA2
 from patchrefinerv2_tpu.models.backbones.vit import DinoViT as JDino
+from patchrefinerv2_tpu.models.tiling import TileCfg as JTileCfg
 from patchrefinerv2_tpu.registry import MODELS
 from patchrefinerv2_tpu.utils.torch_convert import convert_patchrefinerplus
 
@@ -29,6 +31,7 @@ from patchrefinerv2_torch.models.backbones.vit import DinoViT
 from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
 from patchrefinerv2_torch.utils.jax_weights import load_jax_params
 from tests._torch_threads import one_thread  # noqa: F401 (autouse: one intra-op thread)
+from tests.test_torch_eval import jax_random_starts
 from tests.test_torch_modules import ATOL, RTOL, assert_close_nhwc, assert_same_tree, init_random, nchw
 from tests.test_torch_slice import assert_rel
 
@@ -127,8 +130,39 @@ def test_da2_weights_round_trip(both):
 
 
 def test_da2_sides_not_multiple_of_14_raise(both):
-    """The Depth-Anything resizer (rounding sides to multiples of 14) is not
-    ported: such an input raises instead of running at another size."""
-    _, _, port, lr, hr = both
-    with pytest.raises(NotImplementedError, match="multiples of 14"):
-        port.infer(lr[:, :50], hr, "m1", process_num=4)
+    """The DA2 network takes sides that are multiples of 14 and raises on
+    others; PatchRefinerPlus's inference rounds them first, as the JAX
+    package's does (the Depth-Anything resizer, ``patchrefinerplus.py:628-631``):
+    a 50x84 ``image_lr`` goes to the coarse branch resized (bilinear, align
+    corners) to 56x84. m1, m2 and r8 (process_num 4, JAX's random starts
+    injected) against JAX's ``infer`` at the composed bars."""
+    jm, variables, port, lr, hr = both
+    lr50 = lr[:, :50]
+    with pytest.raises(ValueError, match="multiples of 14"):
+        port.net.coarse_branch(nchw(lr50))
+    assert port.coarse_input_shape((50, 84)) == (56, 84) and port.patch_input_shape == (56, 84)
+    key = jax.random.PRNGKey(5)
+    starts = jax_random_starts(key, JTileCfg((112, 168), (2, 2), (56, 84)), 4, 2)
+    for mode in ("m1", "m2", "r8"):
+        depth_j, coarse_j = jm.infer(variables, lr50, hr, cai_mode=mode, process_num=4, seed=key)
+        depth, coarse = port.infer(lr50, hr, mode, process_num=4,
+                                   random_starts=starts if mode == "r8" else None)
+        assert tuple(depth.shape) == (112, 168) and tuple(coarse.shape) == (1, 56, 84, 1)
+        assert_rel(depth.numpy(), depth_j, f"{mode} depth, 50x84 image_lr")
+        assert_rel(coarse.numpy(), coarse_j, f"{mode} coarse_pred, 50x84 image_lr")
+
+
+def test_da2_coarse_map_must_match_the_patches(both):
+    """The coarse depth's roi comes out at the coarse map's size, which the
+    coarse-conditioned refiner concatenates to the patch: an ``image_lr``
+    that does not come to the patches' size at the coarse branch cannot run,
+    in the JAX package (a concatenation error) nor in the port (a
+    ValueError before the patches run). This is the KITTI val loaders'
+    384x512 (rounded to 378x518) with the DA2 configs' 448x448 patches;
+    here 384x512 with 56x84 patches."""
+    jm, variables, port, _, hr = both
+    lr = np.random.RandomState(3).rand(1, 384, 512, 3).astype(np.float32)
+    with pytest.raises(TypeError, match="concatenate"):
+        jm.infer(variables, lr, hr, cai_mode="m1", process_num=4)
+    with pytest.raises(ValueError, match=r"coarse map is \(378, 518\) but the patches \(56, 84\)"):
+        port.infer(lr, hr, "m1", process_num=4)

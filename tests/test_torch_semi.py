@@ -315,7 +315,9 @@ def test_semi_configs_found():
 def test_semi_configs_build(path, monkeypatch):
     """Each builds on the meta device (no random init there): the student
     and, online, the teacher of the config's types under ``student.`` and
-    ``teacher.``, its edge loss; the DA2 student's loss raises."""
+    ``teacher.``, its edge loss; the DA2 student of ``semi_kitti.py``
+    (built again on the CPU with a ``vitt`` DINOv2) gives a finite loss on
+    a 56x84 batch with its pseudo label."""
     monkeypatch.setattr(prp, "init_random_", lambda net, generator: net)
     m = Config.fromfile(path).model
     with torch.device("meta"):
@@ -329,10 +331,17 @@ def test_semi_configs_build(path, monkeypatch):
     if m.get("mix_loss"):
         assert semi.edgeloss_ranking.point_pairs == 10000
     if os.path.basename(path) == "semi_kitti.py":
-        batch = {k: torch.as_tensor(v) for k, v in make_batch().items()}
-        batch["pseudo_label"] = torch.ones((2, *HW, 1))
-        with pytest.raises(NotImplementedError, match="ZoeDepth coarse branch"):
-            semi.train().loss(batch, update_stats=True)
+        m = Config.fromfile(path).model
+        m.model_cfg_student.config.update(
+            patch_process_shape=[56, 84], coarse_branch=dict(type="DA2", model_cfg=dict(encoder="vitt",
+                                                                                       features=64)))
+        monkeypatch.undo()  # the random init, from the seed
+        cpu = build_model(m, device="cpu")
+        batch = {k: torch.as_tensor(v) for k, v in make_batch(hw=(56, 84)).items()}
+        batch["pseudo_label"] = 1.0 + torch.rand((2, 56, 84, 1), generator=torch.Generator().manual_seed(4))
+        losses, _ = cpu.train().loss(batch, update_stats=True)
+        assert sorted(losses) == ["edge_loss", "gm_loss", "sig_fine_loss", "total_loss"]
+        assert all(bool(torch.isfinite(v)) for v in losses.values()) and float(losses["edge_loss"]) > 0
 
 
 def test_unported_semi_forms_raise():

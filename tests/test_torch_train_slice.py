@@ -253,19 +253,13 @@ def test_panel_forward_raises_like_jax(jax_model):
 
 def test_other_stages_raise(jax_model):
     """What the port does not train raises: a ``train_dtype`` other than
-    float32 (no config sets one), a Depth-Anything-V2 coarse branch in
-    stage 3 (its bicubic position-embedding resize has no backward either);
-    the pretraining net has no coarse branch to infer with. Stage 3 with a
-    ZoeDepth coarse branch trains (tests/test_torch_train_e2e.py)."""
+    float32 (no config sets one); the pretraining net has no coarse branch
+    to infer with. Stage 3 trains with a ZoeDepth coarse branch
+    (tests/test_torch_train_e2e.py) and a Depth-Anything-V2 one
+    (tests/test_torch_da2_train.py)."""
     _, variables, batch = jax_model
     with pytest.raises(NotImplementedError, match="float32"):
         PatchRefinerPlus(dict(slice_config(), train_dtype="bfloat16"), device="cpu")
-    da2 = dict(slice_config(), e2e_training=True, coarse_branch=dict(
-        type="DA2", model_cfg=dict(encoder="vitt", features=16)))
-    stage3 = dict(image_lr=np.zeros((1, 48, 64, 3)), crops_image_hr=np.zeros((1, 48, 64, 3)),
-                  crop_depths=np.ones((1, 48, 64, 1)), bboxs=np.array([[0.0, 0.0, 32.0, 24.0]]))
-    with pytest.raises(NotImplementedError, match="ZoeDepth"):
-        PatchRefinerPlus(da2, device="cpu").train().loss(stage3, update_stats=True)
     port = port_model(variables, True).eval()
     with pytest.raises(NotImplementedError):
         port.infer(batch["image_lr"][:1], np.zeros((1, 64, 96, 3)), "m1")

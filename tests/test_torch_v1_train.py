@@ -73,8 +73,8 @@ def jax_step(jm, variables, batch, dtype):
                 jax_to_state_dict({"params": jax.device_get(grads)}))
 
 
-def port_step(variables, batch, dtype):
-    port = PatchRefiner(v1_config(), device="cpu")
+def port_step(variables, batch, dtype, cfg=None):
+    port = PatchRefiner(cfg or v1_config(), device="cpu")
     load_jax_params(port, variables)
     port.net.to(dtype)
     port.train()
@@ -125,10 +125,41 @@ def test_v1_step_matches_jax_float64(jax_model):
         assert d <= 1e-4 * max(n, 1e-6 * total), (k, d, n)
 
 
-def test_da2_v1_loss_raises():
-    port = PatchRefiner(v1_config(da2_slice_config()), device="cpu")
-    with pytest.raises(NotImplementedError, match="bicubic"):
-        port.loss(make_batch(hw=(56, 84)), update_stats=True)
+@pytest.fixture(scope="module")
+def da2_model():
+    """V1 with ``vitt`` DA2 coarse and fine branches (the form of
+    ``patchrefiner_dav2/pr_u4k.py``) and FusionUnet, at 56x84 crops: a 4x6
+    patch grid, so the fine DINOv2's position embedding goes through the
+    bicubic K2 and its backward."""
+    cfg = v1_config(da2_slice_config())
+    jm = MODELS.build(dict(type="PatchRefiner", config=cfg))
+    return cfg, jm, random_variables(jm.init, 21), make_batch(hw=(56, 84))
+
+
+def test_da2_v1_loss_raises(da2_model):
+    """The DA2 V1 step in float32 against JAX's (the loss through
+    ``ZoeFineBranch(inner=DepthAnythingV2)``, ``patchrefiner.py:22-75``):
+    each loss max rel <= 1e-5, the depth at the parity bar, the coarse
+    branch without gradient, each gradient leaf within 1e-4 of its norm
+    (floored at 1e-6 of the whole gradient's): without BatchNorm this step
+    meets the per-leaf bar in float32, as BaselinePretrain's DA2 step does.
+    The loss takes ``image_lr`` as the batch gives it, as JAX's does: sides
+    that are not multiples of 14 still raise (the DINOv2 patch grid)."""
+    cfg, jm, variables, batch = da2_model
+    ref_losses, ref_depth, ref = jax_step(jm, variables, batch, np.float32)
+    port, losses, aux = port_step(variables, batch, torch.float32, cfg)
+    assert_losses(losses, ref_losses)
+    assert_rel(aux["depth_pred"].detach().numpy(), ref_depth, "DA2 V1 training depth")
+    assert_coarse_frozen(port, ref)
+    errs = grad_errors(port, ref)
+    total = np.sqrt(sum(n ** 2 for _, n in errs.values()))
+    worst = max(errs, key=lambda k: errs[k][0] / max(errs[k][1], 1e-6 * total))
+    print("DA2 V1 float32 worst gradient leaf", worst, errs[worst])  # shown with pytest -s
+    for k, (d, n) in errs.items():
+        assert d <= 1e-4 * max(n, 1e-6 * total), (k, d, n)
+    assert errs["refiner_fine_branch.pretrained.pos_embed"][1] > 1e-6 * total
+    with pytest.raises(ValueError, match="multiples of 14"):
+        port.loss(dict(batch, image_lr=batch["image_lr"][:, :50]), update_stats=True)
 
 
 TINY_ZOE = "dict(n_bins=16, bin_embedding_dim=16, trunk=dict(embed_dim=64, depth=4, num_heads=4, " \
