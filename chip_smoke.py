@@ -114,7 +114,7 @@ Phases (each prints one or more lines; any failure exits non-zero):
    before each step and read after it (K2, K5, K6 and K9 in every step, no
    other kernel, no call of a plain version), finite losses and gradients,
    the parameters and BatchNorm statistics moved and a checkpoint written;
-   then ms a step over 3 steps (1 with remat off) with the batch on the
+   then ms a step over 2 steps (1 with remat off) with the batch on the
    card, images/s, peak memory with remat on and off, and one profiled
    step (device ms by
    group, each Function's backward, the optimizer); (C) a tiny pretraining
@@ -157,7 +157,7 @@ Phases (each prints one or more lines; any failure exits non-zero):
    threshold, (1, 1024, 2048), an empty high mask, a snake longer than 128
    pixels, 1, 45 and 128 steps); the ranking loss at that shape on a pseudo
    label with edges against the CPU with the same samples, K11 and K12 once
-   a call (``ranking_loss_on_edges``); three steps of batch 4 through ``Trainer`` of
+   a call (``ranking_loss_on_edges``); two steps of batch 4 through ``Trainer`` of
    each of ``SEMI_CONFIGS`` (the flagship pair with the ranking loss and
    with SSI + gradient match, and V1's pair with the ranking loss) on
    1024x2048 synthetic frames, each step's launches held to the counts of
@@ -170,20 +170,26 @@ Phases (each prints one or more lines; any failure exits non-zero):
    writes under ``_work/data``: 8 UnrealStereo4K frames at 2160x3840 (raw
    BGR blobs, disparities, extrinsics); the train loader's host ms a batch
    of 4 with 1 and 4 loader threads, and a sample's by transform;
-   ``patchrefinerv2_torch.train.main`` on ``pretrain_eff_m0s1.py`` for 10
+   ``patchrefinerv2_torch.train.main`` on ``pretrain_eff_m0s1.py`` for 6
    steps of batch 4 on 4 loader threads (each step counted as in (B), its
    ms and its wait on the loader; from step 3 the median wait and share of
    the loop outside the step);
    ``patchrefinerv2_torch.test.main`` on ``v2_eff_u4k.py`` in m1, bfloat16,
    process_num 16 over 2 val frames (launches those of the flagship's m1
    frame, finite metrics, the ms of a frame loading, inferring and on the
-   metrics); then 8 Cityscapes frames at 1024x2048 (PNGs, camera json,
+   metrics), with ``--test-type consistency`` over those frames' crop
+   grids (float32, process_num 4: each chunk's launches those of a
+   stage-3 step's forward, the error finite) and ``--test-type
+   benchmark`` on the first (m1 bfloat16: its fps within 2x of the
+   flagship's frame, its FLOPs and parameters printed); then 8 Cityscapes frames at 1024x2048 (PNGs, camera json,
    sky, gtFine colour maps, offline pseudo labels): 2 steps of the offline
    Semi transfer (``plus_eff_cs_semi_offline_ssigm_ft.py``) through
    ``train.main`` on the reader's pseudo labels (the edge loss finite and
    not 0) and ``test.main`` on ``plus_eff_cs_pretrain.py`` in m1 over 2
    val frames, whose infer sample carries no ``seg_image`` (as the JAX
-   reader's);
+   reader's); after it, ``Tester.run_consistency`` and
+   ``model_complexity`` of a tiny flagship on the card against the CPU
+   (``tiny_tester_gpu_vs_cpu``);
 12. the other readers and test types (``datasets_run``), on files it writes
    under ``_work/data``: 4 KITTI frames at 375x1242 with sparse depth
    through ``test.main`` on ``plus_eff_onlyreal.py`` in m1 and m2 (bfloat16,
@@ -246,7 +252,9 @@ relative to each gradient's magnitude); ``launches_by_run`` has
 ``train_f32``, ``train_e2e_f32``, ``v1_train_f32`` and the three
 ``semi_*_f32``, the launches of one step of each, and the data runs'
 (``data_u4k_train_f32`` and ``data_cs_semi_offline_f32`` a step,
-``data_u4k_eval_bf16`` and ``data_cs_eval_bf16`` over 2 frames; the
+``data_u4k_eval_bf16`` and ``data_cs_eval_bf16`` over 2 frames,
+``data_u4k_consistency_f32`` over a frame's 4 chunks,
+``data_u4k_benchmark_bf16`` over the benchmark's 9 frames; the
 ``datasets_*`` runs: KITTI m1, m2 and gen over 4 frames and a Semi step,
 ScanNet++ over 2, ETH3D over 1, ``general`` over 2; the ``baseline_*``
 runs: a step of each stage-1 run, the fine m1 and r8 frames; the DA2
@@ -2202,6 +2210,9 @@ def build(dev, config: str, label: str):
 
 
 def flagship(dev) -> dict:
+    """The flagship's frames: each run's launch counts, and the warm m1
+    bfloat16 frame's host ms (``m1_bfloat16_ms``), which ``data_run`` holds
+    the benchmark's fps to."""
     import torch
 
     fr = Frames(build(dev, "configs/patchrefinerv2_zoedepth/v2_eff_u4k.py", "flagship"),
@@ -2218,16 +2229,17 @@ def flagship(dev) -> dict:
     profile_frame(lambda: fr.infer("m1"), m1_ms, "m1_bfloat16")
     torch.cuda.reset_peak_memory_stats()
     _, counts_m2 = fr.first("m2", "m2_bfloat16_first")
-    m2_ms = fr.timed("m2", "m2_bfloat16_timed", 3)
+    m2_ms = fr.timed("m2", "m2_bfloat16_timed", 2)
     profile_frame(lambda: fr.infer("m2"), m2_ms, "m2_bfloat16")
     # r32: the m2 stream, then 2 random chunks of 16 on the raw canvas
     torch.cuda.reset_peak_memory_stats()
     _, counts_r32 = fr.first("r32", "r32_bfloat16_first")
-    r32_ms = fr.timed("r32", "r32_bfloat16_timed", 3)
+    r32_ms = fr.timed("r32", "r32_bfloat16_timed", 2)
     profile_frame(lambda: fr.infer("r32"), r32_ms, "r32_bfloat16")
     rel = float(((d16.float() - d32).abs() / d32.abs().clamp(min=1e-6)).mean())
     log({"phase": "m1_bf16_vs_f32", "mean_rel_diff": rel, "note": "information only"})
-    return dict(m1=counts_m1, m2=counts_m2, r32=counts_r32, **int8_frames(fr, "", d16, True))
+    return dict(m1=counts_m1, m2=counts_m2, r32=counts_r32, **int8_frames(fr, "", d16, True),
+                m1_bfloat16_ms=m1_ms)
 
 
 def int8_frames(fr, label, d16, flagship: bool, idle_ok=INT8_IDLE_OK, ranges=None) -> dict:
@@ -2277,7 +2289,7 @@ def int8_frames(fr, label, d16, flagship: bool, idle_ok=INT8_IDLE_OK, ranges=Non
     if flagship:
         torch.cuda.reset_peak_memory_stats()
         _, runs["r32_int8"] = fr.first("r32", "r32_int8_perchan_first", idle_ok, len(sel), head)
-        ms = fr.timed("r32", "r32_int8_perchan_timed", 3)
+        ms = fr.timed("r32", "r32_int8_perchan_timed", 2)
         profile_frame(lambda: fr.infer("r32"), ms, "r32_int8_perchan")
         model.set_int8(cal, "tensor")
         _, runs["m1_int8_tensor"] = fr.first("m1", "m1_int8_tensor_first", idle_ok, len(sel), head)
@@ -2356,7 +2368,7 @@ def mobile(dev) -> dict:
     fr.timed("m1", "mobile_m1_float32_timed", 2)
     model.set_infer_dtype(torch.bfloat16)
     runs = {}
-    for mode, n in (("m1", 5), ("m2", 3), ("r32", 3)):
+    for mode, n in (("m1", 3), ("m2", 2), ("r32", 2)):
         torch.cuda.reset_peak_memory_stats()
         d, runs[f"mobile_{mode}"] = fr.first(mode, f"mobile_{mode}_bfloat16_first")
         if mode == "m1":
@@ -2427,7 +2439,7 @@ def patchrefiner_v1(dev) -> dict:
     fr.timed("m1", "v1_m1_float32_timed", 2)
     model.set_infer_dtype(torch.bfloat16)
     runs = {}
-    for mode, n in (("m1", 5), ("r32", 3)):
+    for mode, n in (("m1", 3), ("r32", 2)):
         torch.cuda.reset_peak_memory_stats()
         d, runs[f"v1_{mode}"] = fr.first(mode, f"v1_{mode}_bfloat16_first", idle)
         if mode == "m1":
@@ -3273,7 +3285,7 @@ def pretrain_run(dev, config: str = PRETRAIN_CONFIG, label: str = "pretrain",
     each step and read just after: K2, K5, K6 and K9 launch in every step,
     no other kernel and no plain version runs; losses and gradients finite,
     the parameters and the BatchNorm statistics move. Then, with one batch
-    on the card: ms a step over 3 steps, images/s, peak memory with remat on
+    on the card: ms a step over 2 steps, images/s, peak memory with remat on
     and off (1 step), and one profiled step (without ``timing``: the peak
     memory of the run). Returns the first step's launch counts. Its
     checkpoint stays for stage 3 (``checkpoint``)."""
@@ -3405,13 +3417,13 @@ def run_counted(tr, label: str, kernels, exact=None, moves=("bn_buffers", "param
 
 def step_times(tr, batch, label: str, batch_size: int = 4) -> dict:
     """ms a step (host clock, the batch on the card, ended by a
-    synchronise), images/s and peak memory, with remat on (3 steps) and
+    synchronise), images/s and peak memory, with remat on (2 steps) and
     off (1 step), each after a warm step."""
     import torch
 
     tr.model.train()  # the validation after the epoch leaves eval mode
     times = {}
-    for remat, n in ((True, 3), (False, 1)):
+    for remat, n in ((True, 2), (False, 1)):
         tr.model.net.remat = remat
         tr.train_step(batch)
         torch.cuda.synchronize()
@@ -3993,7 +4005,7 @@ def semi_exact(model, ranking: bool) -> dict:
 
 def semi_run(dev, label: str, config: str) -> dict:
     """The Semi transfer stage (``config``: an online teacher of the
-    student's kind) at full width through ``Trainer``: 3 steps of batch 4
+    student's kind) at full width through ``Trainer``: 2 steps of batch 4
     (384x512 images and crops, 256x512 crop depths, float32, TF32 off), the
     launch counters set to 0 before each step and read after it: the
     student's and the teacher's kernels in every step, those of
@@ -4002,11 +4014,11 @@ def semi_run(dev, label: str, config: str) -> dict:
     statistics) move. Then the JAX optimizer's behaviour under Semi: every
     teacher parameter decayed by AdamW's ``lr * wd`` alone, step by step
     (replayed from its value before the run with the optimizer's own
-    operations: equal within an ulp); ms a step (the last two steps), peak
+    operations: equal within an ulp); ms a step (the second step), peak
     memory, K11 and K12 launches a step. Returns the first step's counts."""
     import torch
 
-    tr = make_trainer(dev, semi_config(config), os.path.join(WORK_DIR, label))
+    tr = make_trainer(dev, semi_config(config, steps=2), os.path.join(WORK_DIR, label))
     model = tr.model
     ranking = model.edgeloss_type == "EdgeguidedRankingLoss"
     teacher0 = {k: p.detach().clone() for k, p in model.net.teacher.named_parameters()}
@@ -4117,9 +4129,9 @@ def write_u4k(root: str, frames: int) -> dict:
     each frame a raw 2160x3840x3 uint8 BGR blob, a float32 disparity in
     (1, 64) (constant 240x240 blocks plus a ramp and noise, so that the
     boundary has edges) and the Extrinsics0/1 files (focal 1000, base 0.2);
-    a train split of every frame, a val split of the first two and a split
-    that lists every frame five times (ten batches of 4). Returns their
-    paths."""
+    a train split of every frame, a val split of the first two, splits of
+    the first one and the first four, and a split that lists every frame
+    three times (six batches of 4). Returns their paths."""
     import numpy as np
 
     rng = np.random.RandomState(0)
@@ -4138,7 +4150,8 @@ def write_u4k(root: str, frames: int) -> dict:
             with open(os.path.join(scene, name, "00000.txt"), "w") as f:
                 f.write(f"1000.0 0.0 1920.0\n0.0 1.0 0.0 {tx}\n")
         lines.append(f"/{i:05d}/Image0/00000.raw")
-    splits = {"train": lines, "val": lines[:2], "five": lines * 5}
+    splits = {"train": lines, "val": lines[:2], "one": lines[:1], "four": lines[:4],
+              "three": lines * 3}
     out = {"root": root}
     for name, ls in splits.items():
         out[name] = os.path.join(root, f"{name}.txt")
@@ -4350,9 +4363,21 @@ def cli_test(label: str, config: str, options: list, frames: int, ref_counts: di
     (the metrics' own) as often; ``expect``: finite metrics (``"metrics"``),
     none (``"none"``: no ground truth) or one pseudo label written a frame
     (``"pseudo_labels"``: ``--test-type gen``). The host ms of each frame spent loading (on a loader
-    thread), waited on, inferring and on the metrics are printed. Returns
-    the counts, the batches' keys, the metrics (or the pseudo labels'
-    paths), each frame's depth on the host and the peak device bytes."""
+    thread), waited on, inferring and on the metrics are printed.
+
+    ``expect="consistency"`` (``--test-type consistency``): ``frames``
+    images of 16 crops run ``16 / process_num`` chunks each through the
+    model's loss, each chunk's launches counted (their differences around
+    the call): every chunk launches alike, K5 and K9 as the head's
+    ``kernel_calls`` say, K1, K3 and K8 as ``ref_counts`` (a stage-3
+    training step, whose coarse branch is not rematerialised) says; the
+    error finite and above 0. ``expect="benchmark"``: ``frames`` is the
+    count of inferred frames (the timed ones and ``model_complexity``'s);
+    the fps and FLOPs above 0, the parameters the built net's.
+
+    Returns the counts, the batches' keys, the metrics (or the pseudo
+    labels' paths, or what the benchmark prints), each frame's depth on the
+    host, each chunk's counts and the peak device bytes."""
     from unittest import mock
 
     import torch
@@ -4364,6 +4389,7 @@ def cli_test(label: str, config: str, options: list, frames: int, ref_counts: di
     from patchrefinerv2_torch.datasets.scannet import ScanNetDataset
 
     models, infer_ms, metric_ms, load_ms, waits, keys, depths = [], [], [], [], [], [], []
+    chunks = []
     build, load = evaluate.build_model, DataLoader._load
 
     def synced_ms(fn, into, keep=None):
@@ -4378,9 +4404,21 @@ def cli_test(label: str, config: str, options: list, frames: int, ref_counts: di
             return out
         return run
 
+    def chunk_counted(loss):
+        def run(*a, **k):
+            before = ops.launch_counts()
+            out = loss(*a, **k)
+            torch.cuda.synchronize()
+            after = ops.launch_counts()
+            chunks.append({n: after[n] - before[n] for n in after})
+            return out
+        return run
+
     def built(*a, **k):
         model = build(*a, **k)
-        model.infer = synced_ms(model.infer, infer_ms, depths)
+        model.infer = synced_ms(model.infer, infer_ms, None if expect == "benchmark" else depths)
+        if expect == "consistency":
+            model.loss = chunk_counted(model.loss)
         models.append(model)
         return model
 
@@ -4409,42 +4447,90 @@ def cli_test(label: str, config: str, options: list, frames: int, ref_counts: di
          "load_ms_per_frame": load_ms, "loader_wait_ms_per_frame": waits,
          "infer_ms_per_frame": infer_ms, "metrics_ms_per_frame": metric_ms,
          "infer_dtype": str(model.infer_dtype), "max_memory_allocated": peak, "launches": counts})
+    inferred = len(infer_ms)
     if expect == "pseudo_labels":
         ok = len(out["pseudo_labels"]) == frames and all(os.path.exists(p) for p in out["pseudo_labels"])
+    elif expect == "consistency":
+        inferred = len(chunks) * process_num // 16
+        ok = sorted(out) == ["consistency", "consistency_error"] and 0 < out["consistency"] < math.inf
+    elif expect == "benchmark":
+        params = sum(p.numel() for p in model.net.parameters())
+        ok = (out["benchmark"]["fps"] > 0 and out["complexity"]["flops"] > 0
+              and out["complexity"]["params"] == params)
     else:
         ok = out == {} if expect == "none" else bool(out) and all(math.isfinite(v) for v in out.values())
-    if len(infer_ms) != frames or not ok:
-        raise AssertionError(f"{label}: {len(infer_ms)} frames, result {out}")
+    if inferred != frames or not ok:
+        raise AssertionError(f"{label}: {inferred} frames, result {out}")
     idle = [k for k, v in counts.items() if v == 0 and k not in idle_ok]
     if idle:
         raise AssertionError(f"{label}: kernels never launched: {idle}")
-    check_frame_launches(label, counts, model, frames)
-    off = {k: (counts[k], ref_counts[k]) for k in counts
-           if ref_counts is not None and k not in ("resize", "canny_nms") and counts[k] != ref_counts[k]}
-    if off:
-        raise AssertionError(f"{label}: launches differ from the reference run's: {off}")
+    if expect == "consistency":
+        check_chunk_launches(label, chunks, model, ref_counts)
+        check_frame_launches(label, counts, model, len(chunks))
+    else:
+        check_frame_launches(label, counts, model, frames)
+        off = {k: (counts[k], ref_counts[k]) for k in counts if ref_counts is not None
+               and k not in ("resize", "canny_nms") and counts[k] != ref_counts[k]}
+        if off:
+            raise AssertionError(f"{label}: launches differ from the reference run's: {off}")
     del models, model
     torch.cuda.empty_cache()
-    return {"counts": counts, "keys": keys, "result": out, "depths": depths, "peak_bytes": peak}
+    return {"counts": counts, "keys": keys, "result": out, "depths": depths, "chunks": chunks,
+            "peak_bytes": peak}
 
 
-def data_run(dev, flagship_m1: dict, cs_eval_m1: dict) -> dict:
+# the kernels a stage-3 forward launches the same number of times in a
+# training step (the coarse branch and K1 are not rematerialised)
+STAGE3_EXACT = ("roi_align", "attention", "attractor_update", "log_binomial_depth")
+
+
+def check_chunk_launches(label, chunks, model, stage3_step) -> None:
+    """Every chunk of a consistency run launches alike: K1, K3 and K8 as a
+    stage-3 training step of the same network and batch (``stage3_step``),
+    K5 and K9 as the fusion head's ``kernel_calls`` say (a training step
+    launches those twice: remat), K2 and K6; no other kernel."""
+    head = model.net.refiner_fusion_model.kernel_calls()
+    want = {**{k: stage3_step[k] for k in STAGE3_EXACT}, **head}
+    log({"phase": f"{label}_chunk_launches", "chunks": len(chunks), "first": chunks[0], "want": want})
+    other = {k: v for k, v in chunks[0].items() if v and k not in (*want, "resize", "layer_norm")}
+    if (any(c != chunks[0] for c in chunks) or other or not chunks[0]["resize"]
+            or not chunks[0]["layer_norm"] or any(chunks[0][k] != n for k, n in want.items())):
+        raise AssertionError(f"{label}: chunk launches {chunks[0]} (all alike: "
+                             f"{all(c == chunks[0] for c in chunks)}), want {want}, no other kernel")
+
+
+# --test-type benchmark's frames in data_run: repeats x (warmup + timed)
+BENCH_ITERS, BENCH_WARMUP, BENCH_REPEATS = 3, 1, 2
+# the kernels a consistency run does not launch: no tiled inference, no metric
+CONSISTENCY_IDLE_OK = ("crop_resize", "blend_add_pass", "blend_finalize", "quant_conv", "canny_nms",
+                       "hysteresis_bounded")
+
+
+def data_run(dev, flagship_m1: dict, cs_eval_m1: dict, stage3_step: dict, flagship_m1_ms: float) -> dict:
     """The data path at full width, through the entry points, on files it
     writes under ``DATA_DIR`` (random weights, seed 0):
 
     (a) UnrealStereo4K training: 8 frames at 2160x3840 (``write_u4k``); the
         host ms a batch of 4 of the train loader alone with 1 loader thread
-        (2 batches) and 4 (10 batches), and of a sample by part
+        (1 batch) and 4 (6 batches), and of a sample by part
         (``sample_parts``); then ``train.main`` on ``pretrain_eff_m0s1.py``
-        for 10 steps of batch 4 with 4 loader threads (the split that lists
-        the frames five times), K2, K5, K6 and K9 in each step (as
+        for 6 steps of batch 4 with 4 loader threads (the split that lists
+        the frames three times), K2, K5, K6 and K9 in each step (as
         ``pretrain_run``), finite losses, the ms of each step and what it
         waited on the loader, and from step 3 on (the pipeline filled) the
         median wait and the median share of a step's period (from one
         step's start to the next) spent outside ``train_step``;
     (b) UnrealStereo4K evaluation: ``test.main`` on ``v2_eff_u4k.py``, m1,
         bfloat16, process_num 16, over the 2 val frames, its launches a
-        chunk and a frame those of the ``flagship`` phase's m1 frame;
+        chunk and a frame those of the ``flagship`` phase's m1 frame; then
+        ``--test-type consistency`` (float32, process_num 4) over the first
+        val frame through the config's consistency loader (the 16 crops of
+        the 4x4 grid, augmented), each chunk's launches those of a stage-3
+        step's forward (``stage3_step``; ``check_chunk_launches``), the error
+        finite; and ``--test-type benchmark`` on that frame (m1,
+        bfloat16, process_num 16, ``BENCH_*`` frames), its fps within 2x of
+        the ``flagship`` phase's m1 bfloat16 frame (``flagship_m1_ms``), its FLOPs and parameters
+        printed, the parameters the built net's;
     (c) Cityscapes: 8 frames at 1024x2048 (``write_cityscapes``); 2 steps
         of the offline Semi transfer (``plus_eff_cs_semi_offline_ssigm_ft``)
         through ``train.main``, the reader's pseudo label in each batch, the
@@ -4465,16 +4551,17 @@ def data_run(dev, flagship_m1: dict, cs_eval_m1: dict) -> dict:
         log({"phase": "data_u4k_files", "frames": 8, "seconds": time.time() - t0})
         data = [f"train_dataloader.dataset.data_root={u4k['root']}"]
         host = [loader_ms(PRETRAIN_CONFIG, data + [f"train_dataloader.dataset.split={u4k[split]}"],
-                          workers) for workers, split in ((1, "train"), (4, "five"))]
+                          workers) for workers, split in ((1, "four"), (4, "three"))]
         log({"phase": "data_u4k_loader_host_ms", "batch": 4, "runs": host})
         log({"phase": "data_u4k_sample_host_ms",
-             **sample_parts(PRETRAIN_CONFIG, data + [f"train_dataloader.dataset.split={u4k['train']}"])})
+             **sample_parts(PRETRAIN_CONFIG, data + [f"train_dataloader.dataset.split={u4k['train']}"],
+                            2)})
         train = cli_train("data_u4k_train", PRETRAIN_CONFIG, data + [
-            f"train_dataloader.dataset.split={u4k['five']}", "train_dataloader.batch_size=4",
+            f"train_dataloader.dataset.split={u4k['three']}", "train_dataloader.batch_size=4",
             "train_dataloader.num_workers=4", "val_dataloader=None", "train_cfg.max_epochs=1",
             "train_cfg.log_interval=1", "train_cfg.save_checkpoint_interval=1"], TRAIN_KERNELS)
-        if len(train["counts"]) != 10:
-            raise AssertionError(f"data_u4k_train ran {len(train['counts'])} steps, not 10")
+        if len(train["counts"]) != 6:
+            raise AssertionError(f"data_u4k_train ran {len(train['counts'])} steps, not 6")
         periods = [(b - a) * 1e3 for a, b in zip(train["starts"], train["starts"][1:])]
         outside = [1.0 - ms / p for ms, p in zip(train["step_ms"], periods)]
         log({"phase": "data_u4k_train_vs_loader", "step_ms": train["step_ms"],
@@ -4489,6 +4576,27 @@ def data_run(dev, flagship_m1: dict, cs_eval_m1: dict) -> dict:
             f"test_in_dataloader.dataset.data_root={u4k['root']}",
             f"test_in_dataloader.dataset.split={u4k['val']}", "model.config.infer_dtype=bfloat16"],
             2, {k: 2 * v for k, v in flagship_m1.items()}, idle_ok=FRAME_IDLE_OK)["counts"]
+        consistency = cli_test("data_u4k_consistency_float32", STAGE3_CONFIG, [
+            f"val_consistency_dataloader.dataset.data_root={u4k['root']}",
+            f"val_consistency_dataloader.dataset.split={u4k['one']}",
+            "val_consistency_dataloader.num_workers=1"], 1, stage3_step, idle_ok=CONSISTENCY_IDLE_OK,
+            args=("--test-type", "consistency"), process_num=4, expect="consistency")
+        bench = cli_test("data_u4k_benchmark_bfloat16", STAGE3_CONFIG, [
+            f"test_in_dataloader.dataset.data_root={u4k['root']}",
+            f"test_in_dataloader.dataset.split={u4k['one']}", "model.config.infer_dtype=bfloat16"],
+            BENCH_REPEATS * (BENCH_WARMUP + BENCH_ITERS) + 1, idle_ok=FRAME_IDLE_OK, args=(
+                "--test-type", "benchmark", "--bench-iters", str(BENCH_ITERS), "--bench-warmup",
+                str(BENCH_WARMUP), "--bench-repeats", str(BENCH_REPEATS), "--work-dir",
+                os.path.join(WORK_DIR, "benchmark")), expect="benchmark")
+        fps, frame_ms = bench["result"]["benchmark"]["fps"], flagship_m1_ms
+        with open(os.path.join(WORK_DIR, "benchmark", "benchmark.txt")) as f:
+            written = f.read().splitlines()
+        log({"phase": "data_u4k_benchmark_vs_flagship", **bench["result"],
+             "flagship_m1_bfloat16_ms": frame_ms, "fps_times_frame_s": fps * frame_ms / 1e3,
+             "benchmark_txt": written})
+        if not 0.5 <= fps * frame_ms / 1e3 <= 2.0 or written[:2] != ["cai_mode: m1", "process_num: 16"]:
+            raise AssertionError(f"the benchmark's {fps} fps against the flagship's {frame_ms} ms frame, "
+                                 f"benchmark.txt {written}")
 
         t0 = time.time()
         cs = write_cityscapes(os.path.join(DATA_DIR, "cityscapes"), 8)
@@ -4515,6 +4623,8 @@ def data_run(dev, flagship_m1: dict, cs_eval_m1: dict) -> dict:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
     log({"phase": "seconds", "of": "data_run_total", "s": time.time() - t_phase})
     return {"data_u4k_train_f32": train["counts"][0], "data_u4k_eval_bf16": u4k_eval,
+            "data_u4k_consistency_f32": consistency["counts"],
+            "data_u4k_benchmark_bf16": bench["counts"],
             "data_cs_semi_offline_f32": semi["counts"][0], "data_cs_eval_bf16": cs_eval}
 
 
@@ -5112,6 +5222,46 @@ def tiny_da2_train_gpu_vs_cpu(dev) -> None:
         compare_train_steps(f"{label}_gpu_vs_cpu", *out)
 
 
+def tiny_tester_gpu_vs_cpu(dev) -> None:
+    """``Tester.run_consistency`` and ``model_complexity`` of the tiny flagship
+    topology (``TINY_ZOE``, seed 3) on the card against the CPU: the error
+    over one consistency-mode synthetic 96x128 frame (16 crops of 24x32
+    overlapping by 8, at 48x64; process_num 4) within rel 1e-4 / abs 1e-5
+    (the bar the CPU tests hold the port to JAX), each chunk's depth within
+    1e-4 of its largest value (``small_gpu_vs_cpu``'s bar; the largest
+    difference printed), and the FLOPs of an m1 frame and the parameters
+    equal."""
+    import math
+
+    import torch
+
+    from patchrefinerv2_torch.datasets.base import DataLoader
+    from patchrefinerv2_torch.datasets.synthetic import SyntheticDataset
+    from patchrefinerv2_torch.evaluation.tester import Tester
+    from patchrefinerv2_torch.models.patchrefinerplus import PatchRefinerPlus
+
+    ds = SyntheticDataset(mode="train", consistency=True, length=1, image_raw_shape=(96, 128),
+                          network_process_size=(48, 64), patch_raw_shape=(24, 32), overlap=8)
+    out, depths = {}, {}
+    for d in (dev, "cpu"):
+        model = PatchRefinerPlus(TINY_ZOE, device=d, seed=3)
+        loss, depths[str(d)] = model.loss, []
+        model.loss = lambda *a, _l=loss, _d=depths[str(d)], **k: (
+            lambda r: _d.append(r[1]["depth_pred"].float().cpu()) or r)(_l(*a, **k))
+        tester = Tester({}, model, DataLoader(ds))
+        out[str(d)] = dict(consistency=tester.run_consistency(process_num=4)["consistency"],
+                           m1=tester.model_complexity((1, 48, 64, 3), (1, 96, 128, 3), "m1", 4))
+    got, ref = out[str(dev)], out["cpu"]
+    depth_err = max(float((g - c).abs().max()) / float(c.abs().max())
+                    for g, c in zip(depths[str(dev)], depths["cpu"]))
+    log({"phase": "tiny_tester_gpu_vs_cpu", **out, "depth_max_err_over_max": depth_err,
+         "depth_bitwise_equal": all(torch.equal(g, c) for g, c in zip(depths[str(dev)], depths["cpu"])),
+         "consistency_rel": abs(got["consistency"] - ref["consistency"]) / ref["consistency"]})
+    if not (math.isclose(got["consistency"], ref["consistency"], rel_tol=1e-4, abs_tol=1e-5)
+            and depth_err <= 1e-4 and len(depths["cpu"]) == 4 and got["m1"] == ref["m1"]):
+        raise AssertionError(f"tiny Tester on the card {got} against the CPU {ref} (depth {depth_err})")
+
+
 def record_resize_plans() -> dict:
     """Wrap ``ops/resize._launch_plan`` so that every later K2 launch counts
     its (channels, element bytes, vec, vstore) in the returned dict."""
@@ -5175,7 +5325,9 @@ def main() -> int:
     timed(ranking_loss_on_edges, dev)
     timed(check_edge_cases, dev)
     plans = record_resize_plans()
-    counts = {**timed(flagship, dev), **timed(depth_anything_v2, dev), **timed(cityscapes_eval, dev),
+    flagship_runs = timed(flagship, dev)
+    m1_ms = flagship_runs.pop("m1_bfloat16_ms")
+    counts = {**flagship_runs, **timed(depth_anything_v2, dev), **timed(cityscapes_eval, dev),
               **timed(mobile, dev), **timed(mobile_variants, dev), **timed(patchrefiner_v1, dev),
               **timed(cityscapes_eval, dev, "configs/patchrefiner_zoedepth/pr_cs.py", ("m1",), "v1_")}
     log({"phase": "resize_plans_of_the_main_paths",
@@ -5202,7 +5354,8 @@ def main() -> int:
         for label, config in SEMI_CONFIGS.items():
             counts[f"{label}_f32"] = timed(semi_run, dev, label, config)
         timed(tiny_semi_gpu_vs_cpu, dev)
-        counts.update(timed(data_run, dev, counts["m1"], counts["eval_m1"]))
+        counts.update(timed(data_run, dev, counts["m1"], counts["eval_m1"], counts["train_e2e_f32"], m1_ms))
+        timed(tiny_tester_gpu_vs_cpu, dev)
         counts.update(timed(datasets_run, dev, counts["m1"]))
         counts.update(timed(baseline_run, dev))
         timed(tiny_baseline_gpu_vs_cpu, dev)

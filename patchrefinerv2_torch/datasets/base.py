@@ -16,7 +16,8 @@ from patchrefinerv2_torch.evaluation.metrics import compute_metrics
 
 
 class DepthDataset:
-    """The common metric / evaluate surface."""
+    """The common metric / evaluate surface (and ``evaluate_consistency``,
+    ``Tester.run_consistency``'s aggregate)."""
 
     min_depth: float = 1e-3
     max_depth: float = 80.0
@@ -38,6 +39,12 @@ class DepthDataset:
         values = " | ".join(f"{v:8.4f}" for v in agg.values())
         print("Evaluation Summary:\n" + header + "\n" + values, flush=True)
         return agg
+
+    def evaluate_consistency(self, results: list[dict]) -> dict:
+        """nanmean of the images' ``consistency_error``; prints the summary."""
+        err = float(np.nanmean([r["consistency_error"] for r in results]))
+        print(f"Consistency Summary:\nconsistency_error\n{err:.6f}", flush=True)
+        return {"consistency_error": err}
 
 
 def default_collate(samples: list[dict]) -> dict:

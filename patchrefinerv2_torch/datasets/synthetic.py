@@ -35,7 +35,8 @@ class SyntheticDataset(DepthDataset):
         self.consistency = consistency
         if consistency:
             h, w = self.image_raw_shape
-            ov = int(overlap if overlap is not None else self.patch_raw_shape[0] // 2)
+            self.overlap = int(overlap if overlap is not None else self.patch_raw_shape[0] // 2)
+            ov = self.overlap
             self.h_start_list = [int(3 * ov / 2), int(h // 4 + ov / 2), int(2 * h // 4 - ov / 2),
                                  int(3 * h // 4 - 3 * ov / 2)]
             self.w_start_list = [int(3 * ov / 2), int(w // 4 + ov / 2), int(2 * w // 4 - ov / 2),

@@ -53,6 +53,7 @@ class UnrealStereo4kDataset(DepthDataset):
         self.patch_raw_shape = tuple(patch_raw_shape)
         self.pre_norm_bbox = pre_norm_bbox
         self.consistency = consistency
+        self.overlap = overlap
         if consistency:  # the 4x4 overlapping grid (u4k_dataset.py:62-65)
             ov = overlap
             self.h_start_list = [int(3 * ov / 2), int(540 + ov / 2), int(1080 - ov / 2),

@@ -1,7 +1,8 @@
 """Ops of the port: each hand-written Hopper kernel beside its plain PyTorch
 version. ``KERNELS`` lists every kernel wrapper with its source and the
 TPU-side function it replaces; ``reset_launches``/``launch_counts`` read the
-wrappers' launch counters."""
+wrappers' launch counters; ``_flops`` gives ``Tester.model_complexity`` the
+kernels' own operation counts."""
 
 from __future__ import annotations
 

@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import torch
 
-from patchrefinerv2_torch.ops import _cuda
+from patchrefinerv2_torch.ops import _cuda, _flops
 from patchrefinerv2_torch.ops._grad import require_float, wants_grad, wide
 
 __all__ = ["attention", "attention_backward", "attention_plain", "relative_position_bias",
@@ -153,8 +153,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
 
 
 def _forward(q, k, v, scale, rel_table, grid):
+    (b, h, s, d), sk, dv = q.shape, k.shape[2], v.shape[3]
+    _flops.add("attention", 2 * b * h * s * sk * (d + dv))  # q k^T and p v
     if _cuda.on_cpu(q):
-        return attention_plain(q, k, v, scale, rel_table, grid)
+        return _flops.plain(attention_plain, q, k, v, scale, rel_table, grid)
     _check(q, k, v, rel_table, grid)
     dt = _cuda.dtype_code(q.dtype)
     if q.dtype == torch.bfloat16:  # the kernel loads bf16 Q / K / V rows 16 bytes at a time

@@ -58,7 +58,7 @@ import functools
 import numpy as np
 import torch
 
-from patchrefinerv2_torch.ops import _cuda
+from patchrefinerv2_torch.ops import _cuda, _flops
 from patchrefinerv2_torch.ops._grad import require_float, wants_grad, wide
 from patchrefinerv2_torch.ops.resize import (
     _alignment, _packed_taps_on, _taps_on, axis_taps, resize, resize_plain,
@@ -356,7 +356,8 @@ def attractor_update(a: torch.Tensor, b_prev: torch.Tensor, kind: str = "mean",
 
 def _attractor_forward(a, b_prev, kind, attractor_type, normed, min_depth, max_depth):
     if _cuda.on_cpu(a):
-        return attractor_update_plain(a, b_prev, kind, attractor_type, normed, min_depth, max_depth)
+        return _flops.plain(attractor_update_plain, a, b_prev, kind, attractor_type, normed,
+                            min_depth, max_depth)
     _check_nhwc(a, b_prev, "a and b_prev")
     (bsz, oh, ow, na), (_, h, w, nb) = a.shape, b_prev.shape
     if nb > MAX_BINS or na < 1:
@@ -418,7 +419,7 @@ def log_binomial_depth(pt: torch.Tensor, centers: torch.Tensor, n_bins: int, min
 
 def _log_binomial_forward(pt, centers, n_bins, min_temp, max_temp):
     if _cuda.on_cpu(pt):
-        return log_binomial_depth_plain(pt, centers, n_bins, min_temp, max_temp)
+        return _flops.plain(log_binomial_depth_plain, pt, centers, n_bins, min_temp, max_temp)
     _check_nhwc(pt, centers, "pt and centers")
     (bsz, oh, ow, four), (_, h, w, k) = pt.shape, centers.shape
     if four != 4 or k != n_bins:

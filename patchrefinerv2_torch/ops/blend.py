@@ -23,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from patchrefinerv2_torch.ops import _cuda
+from patchrefinerv2_torch.ops import _cuda, _flops
 from patchrefinerv2_torch.ops.resize import resize
 
 __all__ = ["BlendState", "TileBlender", "add_pass_plain", "finalize_plain"]
@@ -86,7 +86,8 @@ class TileBlender:
             raise ValueError(f"expected ({n},) valid and init flags, got {tuple(valid.shape)}, "
                              f"{tuple(initv.shape)}")
         if _cuda.on_cpu(state.sum_w):
-            return add_pass_plain(state, preds, mask, starts, valid.float(), initv.float())
+            return _flops.plain(add_pass_plain, state, preds, mask, starts, valid.float(),
+                                initv.float())
         preds = preds.contiguous()
         mask = mask.to(device=dev, dtype=torch.float32).contiguous()
         starts = starts.to(device=dev, dtype=torch.int32).contiguous()
@@ -109,7 +110,7 @@ class TileBlender:
     @staticmethod
     def finalize(state: BlendState) -> torch.Tensor:
         if _cuda.on_cpu(state.sum_w):
-            return finalize_plain(state)
+            return _flops.plain(finalize_plain, state)
         _cuda.require_cuda(state.mosaic, state.sum_wp, state.sum_w)
         out = torch.empty_like(state.sum_w)
         fn = _cuda.bind("blend", "prv2_blend_finalize", 4, 1)

@@ -39,7 +39,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from patchrefinerv2_torch.ops import _cuda
+from patchrefinerv2_torch.ops import _cuda, _flops
 
 __all__ = ["canny_nms", "canny_nms_plain", "canny_nms_masks", "canny_nms_masks_plain",
            "canny_nms_plan", "nms_vector_path", "nms_launch", "hysteresis_bounded",
@@ -180,7 +180,7 @@ def canny_nms(isobel: torch.Tensor, jsobel: torch.Tensor, magnitude: torch.Tenso
     ``magnitude``, all float32 or all float64."""
     _check_maps("canny_nms", isobel, jsobel, magnitude)
     if _cuda.on_cpu(magnitude):
-        return canny_nms_plain(isobel, jsobel, magnitude)
+        return _flops.plain(canny_nms_plain, isobel, jsobel, magnitude)
     _check_cuda("canny_nms", isobel, jsobel, magnitude)
     return nms_launch(isobel, jsobel, magnitude)
 
@@ -199,7 +199,8 @@ def canny_nms_masks(isobel: torch.Tensor, jsobel: torch.Tensor, magnitude: torch
     float does against a tensor. Counted on ``canny_nms.launches``."""
     _check_maps("canny_nms_masks", isobel, jsobel, magnitude, mask)
     if _cuda.on_cpu(magnitude):
-        return canny_nms_masks_plain(isobel, jsobel, magnitude, low_threshold, high_threshold, mask)
+        return _flops.plain(canny_nms_masks_plain, isobel, jsobel, magnitude, low_threshold,
+                            high_threshold, mask)
     _check_cuda("canny_nms_masks", isobel, jsobel, magnitude, mask)
     return nms_launch(isobel, jsobel, magnitude, True, low_threshold, high_threshold, mask)
 
@@ -340,7 +341,7 @@ def hysteresis_bounded(low: torch.Tensor, high: torch.Tensor, steps: int = 128) 
     if steps < 0:
         raise ValueError(f"steps must be >= 0, got {steps}")
     if _cuda.on_cpu(low):
-        return hysteresis_bounded_plain(low, high, steps)
+        return _flops.plain(hysteresis_bounded_plain, low, high, steps)
     _cuda.require_cuda(low, high)
     if steps == 0 or low.numel() == 0:
         return high.clone()

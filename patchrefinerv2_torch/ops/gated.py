@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from patchrefinerv2_torch.ops import _cuda
+from patchrefinerv2_torch.ops import _cuda, _flops
 from patchrefinerv2_torch.ops._grad import ln_backward, ln_stats, require_float, wants_grad, wide
 from patchrefinerv2_torch.ops.layer_norm import layer_norm_plain
 
@@ -79,8 +79,9 @@ def gate_tail(f: torch.Tensor, out: torch.Tensor | None, weight: torch.Tensor,
 
 
 def _forward(f, out, weight, ln_weight, ln_bias, eps):
+    _flops.add("gate_tail", 2 * f.numel() * weight.shape[0])  # the 1x1
     if _cuda.on_cpu(f):
-        return gate_tail_plain(f, out, weight, ln_weight, ln_bias, eps)
+        return _flops.plain(gate_tail_plain, f, out, weight, ln_weight, ln_bias, eps)
     c = f.shape[-1]
     if c not in CHANNELS:
         raise ValueError(f"gate_tail kernel takes {CHANNELS} channels, got {c}")

@@ -28,7 +28,7 @@ import functools
 
 import torch
 
-from patchrefinerv2_torch.ops import _cuda
+from patchrefinerv2_torch.ops import _cuda, _flops
 from patchrefinerv2_torch.ops._grad import ln_backward, require_float, wants_grad, wide
 
 __all__ = ["layer_norm", "layer_norm_plain"]
@@ -76,7 +76,7 @@ def _blocks(c: int):
 
 def _forward(x, weight, bias, eps):
     if _cuda.on_cpu(x):
-        return layer_norm_plain(x, weight, bias, eps)
+        return _flops.plain(layer_norm_plain, x, weight, bias, eps)
     c = x.shape[-1]
     if tuple(weight.shape) != (c,) or tuple(bias.shape) != (c,):
         raise ValueError(f"expected ({c},) weight and bias, got {tuple(weight.shape)}, {tuple(bias.shape)}")

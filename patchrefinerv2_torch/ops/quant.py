@@ -68,7 +68,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from patchrefinerv2_torch.ops import _cuda
+from patchrefinerv2_torch.ops import _cuda, _flops
 from patchrefinerv2_torch.ops._grad import forbid_grad
 
 __all__ = [
@@ -304,11 +304,14 @@ def quant_conv(parts, kq: torch.Tensor, sx: torch.Tensor | None, scale: torch.Te
     Returns (N, H, W, Cout) in the input dtype."""
     parts = list(parts)
     forbid_grad("quant_conv", *parts, residual)
+    n, h, w = parts[0].shape[:3]
+    _flops.add("quant_conv", _flops.conv(n, h, w, kq.shape[-4], sum(p.shape[3] for p in parts),
+                                         kq.shape[-1]))
     if _cuda.on_cpu(parts[0]):
-        return quant_conv_plain(parts, kq, sx, scale, bias, relu_in, residual, relu_out, dynamic)
+        return _flops.plain(quant_conv_plain, parts, kq, sx, scale, bias, relu_in, residual,
+                            relu_out, dynamic)
     if not 1 <= len(parts) <= MAX_PARTS:
         raise ValueError(f"quant_conv takes 1 to {MAX_PARTS} input parts, got {len(parts)}")
-    n, h, w = parts[0].shape[:3]
     if any(p.ndim != 4 or tuple(p.shape[:3]) != (n, h, w) for p in parts):
         raise ValueError(f"quant_conv parts must be NHWC maps of one size, got "
                          f"{[tuple(p.shape) for p in parts]}")

@@ -33,7 +33,7 @@ import functools
 import numpy as np
 import torch
 
-from patchrefinerv2_torch.ops import _cuda
+from patchrefinerv2_torch.ops import _cuda, _flops
 from patchrefinerv2_torch.ops._grad import forbid_grad, require_float, wants_grad, wide
 
 __all__ = ["axis_taps", "resize", "resize_plain", "resize_transpose", "crop_resize",
@@ -235,7 +235,7 @@ def _forward(x, size, mode, align_corners, scale_override):
     oh, ow = size
     sh, sw = _scales(scale_override)
     if _cuda.on_cpu(x):
-        return resize_plain(x, size, mode, align_corners, scale_override)
+        return _flops.plain(resize_plain, x, size, mode, align_corners, scale_override)
     _cuda.require_cuda(x)
     th = _packed_taps_on(h, oh, mode, bool(align_corners), sh, x.device)
     tw = _packed_taps_on(w, ow, mode, bool(align_corners), sw, x.device)
@@ -289,7 +289,7 @@ def crop_resize(image: torch.Tensor, starts: torch.Tensor, patch_raw_shape, out_
     prh, prw = int(patch_raw_shape[0]), int(patch_raw_shape[1])
     oh, ow = int(out_shape[0]), int(out_shape[1])
     if _cuda.on_cpu(image):
-        return crop_resize_plain(image, starts, (prh, prw), (oh, ow))
+        return _flops.plain(crop_resize_plain, image, starts, (prh, prw), (oh, ow))
     starts = starts.to(device=image.device, dtype=torch.int32).contiguous()
     _cuda.require_cuda(image, starts)
     h, w, c = image.shape

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from patchrefinerv2_torch.ops import _cuda
+from patchrefinerv2_torch.ops import _cuda, _flops
 from patchrefinerv2_torch.ops._grad import require_float, wants_grad, wide
 
 __all__ = ["roi_align", "roi_align_plain", "roi_align_backward", "launch_plan"]
@@ -136,7 +136,7 @@ def roi_align(features, boxes, box_idx, output_size, spatial_scale: float = 1.0,
 
 def _forward(features, boxes, box_idx, output_size, spatial_scale):
     if _cuda.on_cpu(features):
-        return roi_align_plain(features, boxes, box_idx, output_size, spatial_scale)
+        return _flops.plain(roi_align_plain, features, boxes, box_idx, output_size, spatial_scale)
     boxes = boxes.to(device=features.device, dtype=torch.float32).contiguous()
     box_idx = box_idx.to(device=features.device, dtype=torch.int32).contiguous()
     _cuda.require_cuda(features, boxes, box_idx)

@@ -47,7 +47,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from patchrefinerv2_torch.ops import _cuda
+from patchrefinerv2_torch.ops import _cuda, _flops
 from patchrefinerv2_torch.ops._grad import ln_backward, ln_stats, require_float, wants_grad, wide
 
 __all__ = ["tail_conv", "tail_conv_plain", "launch_plan", "format_weight", "formatted_weight"]
@@ -208,11 +208,12 @@ def tail_conv(parts, weight: torch.Tensor, bias: torch.Tensor | None = None,
 
 
 def _forward(parts, weight, bias, residual, ln, act, relu_in, eps):
+    n, h, w = parts[0].shape[:3]
+    _flops.add("tail_conv", _flops.conv(n, h, w, weight.shape[0], weight.shape[1], weight.shape[-1]))
     if _cuda.on_cpu(parts[0]):
-        return tail_conv_plain(parts, weight, bias, residual, ln, act, relu_in, eps)
+        return _flops.plain(tail_conv_plain, parts, weight, bias, residual, ln, act, relu_in, eps)
     if not 1 <= len(parts) <= MAX_PARTS:
         raise ValueError(f"tail_conv takes 1 to {MAX_PARTS} input parts, got {len(parts)}")
-    n, h, w = parts[0].shape[:3]
     if any(p.ndim != 4 or tuple(p.shape[:3]) != (n, h, w) for p in parts):
         raise ValueError(f"tail_conv parts must be NHWC maps of one size, got "
                          f"{[tuple(p.shape) for p in parts]}")

@@ -1,12 +1,12 @@
-"""Evaluation entry point, the port's counterpart of ``tools/test.py`` in its
-``normal``, ``general`` and ``gen`` test types:
+"""Evaluation entry point, the port's counterpart of ``tools/test.py``:
 
     python -m patchrefinerv2_torch.test CONFIG [--ckp-path P] [--cai-mode m1|m2|rN]
-                                        [--test-type normal|general|gen]
+                                        [--test-type normal|general|consistency|gen|benchmark]
                                         [--save] [--gray-scale] [--work-dir D]
                                         [--process-num N] [--image-raw-shape H W]
-                                        [--patch-split-num h w] [--cfg-option k=v ...]
-                                        [--device cpu]
+                                        [--patch-split-num h w] [--bench-iters N]
+                                        [--bench-warmup N] [--bench-repeats N]
+                                        [--cfg-option k=v ...] [--device cpu]
 
 It builds the config's ``model`` (random weights from seed 0, as the JAX
 tool's ``PRNGKey(0)``), merges the checkpoints the config names
@@ -18,11 +18,11 @@ raises. A ``BaselinePretrain`` config (stage 1) evaluates its network: the
 coarse target's low-resolution depth (resized to the ground truth by the
 metrics), or the fine target's tiled depth in ``--cai-mode``.
 
-- ``normal`` reads the config's ``test_in_dataloader``, else its
-  ``val_dataloader``; ``general`` and ``gen`` its ``general_dataloader``
-  (an ``ImageDataset`` over a folder of images:
-  ``--cfg-option general_dataloader.dataset.rgb_image_dir=D``), else its
-  ``val_dataloader``. Any of the port's readers may stand there
+- ``normal`` and ``benchmark`` read the config's ``test_in_dataloader``,
+  ``consistency`` its ``val_consistency_dataloader``, ``general`` and
+  ``gen`` its ``general_dataloader`` (an ``ImageDataset`` over a folder of
+  images: ``--cfg-option general_dataloader.dataset.rgb_image_dir=D``);
+  each falls back to the config's ``val_dataloader``. Any of the port's readers may stand there
   (UnrealStereo4K, Cityscapes, KITTI, ScanNet++, ETH3D, a folder of
   images, synthetic frames), loaded on the config's ``num_workers``
   threads.
@@ -34,12 +34,22 @@ metrics), or the fine target's tiled depth in ``--cai-mode``.
   ``--work-dir`` (``--gray-scale``: the ``gray_r`` colormap).
 - ``gen`` runs ``Tester.generate_pl`` at the model's own tile geometry:
   the pseudo labels ``{name}_uint16.png`` in ``--work-dir``.
+- ``consistency`` runs ``Tester.run_consistency`` (a consistency-mode
+  dataset: a fixed grid of overlapping crops, each through the model's
+  training forward with BatchNorm on its running statistics) and prints
+  the patch-overlap error; ``--save`` writes each image's mosaic.
+- ``benchmark`` runs ``Tester.benchmark`` on the loader's first image
+  (``image_hr`` defaults to ``image_lr``) in ``--cai-mode`` at the tile
+  geometry above (``--bench-iters`` timed frames after ``--bench-warmup``,
+  ``--bench-repeats`` times; ``benchmark.txt`` in ``--work-dir``), then
+  ``Tester.model_complexity`` at its shapes, and prints ``{"benchmark":
+  {"fps", "fps_variance"}, "complexity": {"flops", "params"}}``: ``params``
+  the network's parameter elements (JAX's count of its ``params``),
+  ``flops`` the port's own count of one frame's products (not XLA's).
 
-``--cfg-option model.config.infer_dtype=bfloat16`` infers in bfloat16. The
-types ``consistency`` and ``benchmark`` are not ported (ROADMAP.md, Queue 1
-item 6) and raise. It runs on the card unless ``--device cpu`` is given,
-and raises when there is none. Float32 matmuls and convolutions run without
-TF32.
+``--cfg-option model.config.infer_dtype=bfloat16`` infers in bfloat16. It
+runs on the card unless ``--device cpu`` is given, and raises when there is
+none. Float32 matmuls and convolutions run without TF32.
 """
 
 from __future__ import annotations
@@ -62,7 +72,9 @@ from patchrefinerv2_torch.utils.checkpoint import (
 from patchrefinerv2_torch.utils.logging import print_log
 
 TEST_TYPES = ("normal", "general", "consistency", "gen", "benchmark")
-LOADERS = {"normal": "test_in_dataloader", "general": "general_dataloader", "gen": "general_dataloader"}
+LOADERS = {"normal": "test_in_dataloader", "general": "general_dataloader",
+           "consistency": "val_consistency_dataloader", "gen": "general_dataloader",
+           "benchmark": "test_in_dataloader"}
 
 
 def load_weights(model, path: str) -> int:
@@ -83,7 +95,9 @@ def load_weights(model, path: str) -> int:
 
 def main(argv=None) -> dict:
     """Runs the test type; returns what it prints: ``{"metrics": ...}``'s
-    metrics, or for ``gen`` ``{"pseudo_labels": [paths written]}``."""
+    metrics (``consistency``: the consistency error), for ``gen``
+    ``{"pseudo_labels": [paths written]}``, for ``benchmark``
+    ``{"benchmark": ..., "complexity": ...}``."""
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("config")
     parser.add_argument("--ckp-path", default=None)
@@ -95,12 +109,12 @@ def main(argv=None) -> dict:
     parser.add_argument("--work-dir", default="./work_dir/test")
     parser.add_argument("--image-raw-shape", nargs=2, type=int, default=None)
     parser.add_argument("--patch-split-num", nargs=2, type=int, default=None)
+    parser.add_argument("--bench-iters", type=int, default=50)
+    parser.add_argument("--bench-warmup", type=int, default=20)
+    parser.add_argument("--bench-repeats", type=int, default=10)
     parser.add_argument("--cfg-option", nargs="+", default=None, help="dotted key=value overrides")
     parser.add_argument("--device", default=None, help="cpu runs the plain versions of the kernels")
     args = parser.parse_args(argv)
-    if args.test_type not in LOADERS:
-        raise NotImplementedError(f"--test-type {args.test_type} is not ported "
-                                  "(ROADMAP.md, Queue 1 item 6)")
 
     cfg = Config.fromfile(args.config)
     cfg.merge_from_options(args.cfg_option)
@@ -131,6 +145,28 @@ def main(argv=None) -> dict:
                   f"{args.cai_mode}, process_num {args.process_num}")
         out = {"pseudo_labels": tester.generate_pl(cai_mode=args.cai_mode,
                                                    process_num=args.process_num)}
+        print(json.dumps(out), flush=True)
+        return out
+    if args.test_type == "consistency":
+        print_log(f"patch consistency of {len(loader.dataset)} images on {model.device}: "
+                  f"process_num {args.process_num}")
+        metrics = tester.run_consistency(process_num=args.process_num)
+        print(json.dumps({"metrics": metrics}), flush=True)
+        return metrics
+    if args.test_type == "benchmark":
+        first = iter(loader)
+        batch = next(first)
+        first.close()
+        lr = torch.as_tensor(batch["image_lr"]).to(model.device)
+        hr = torch.as_tensor(batch.get("image_hr", batch["image_lr"])).to(model.device)
+        tile = {"image_raw_shape": list(raw), "patch_split_num": list(split)}
+        print_log(f"benchmark on {model.device}: {args.cai_mode}, process_num {args.process_num}, "
+                  f"raw {list(raw)}, split {list(split)}")
+        out = {"benchmark": tester.benchmark(lr, hr, args.cai_mode, args.process_num,
+                                             args.bench_iters, args.bench_warmup,
+                                             args.bench_repeats, tile),
+               "complexity": tester.model_complexity(tuple(lr.shape), tuple(hr.shape),
+                                                     args.cai_mode, args.process_num, tile)}
         print(json.dumps(out), flush=True)
         return out
     print_log(f"testing {len(loader.dataset)} images on {model.device}: {args.cai_mode}, "

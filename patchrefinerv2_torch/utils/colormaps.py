@@ -1,5 +1,6 @@
 """The colormaps that the depth images use (the Tester's ``Spectral``,
-``magma_r`` and ``gray_r``, the training panels' ``turbo_r``), as lookup
+``magma_r`` and ``gray_r``, the feature maps' ``magma`` and ``Spectral_r``,
+the training panels' ``turbo_r``), as lookup
 tables: for each name, matplotlib's 256 colors as RGBA bytes, then its under, over and bad
 colors (matplotlib's ``(Colormap._lut * 255).astype(np.uint8)``, zlib and
 base64). ``utils/color.colorize`` indexes them as matplotlib's
@@ -32,6 +33,22 @@ _TABLES = {
         "my/VsunPOjaer+fzsw2sT2hkXXwTn8Q18emZRj471cCG3+rZeKKOTcdq2Xy0hi0xZrYersYtuhLNwQq0UeXofihD"
         "v78Uw94SvCOK8Qkv4pvQQvxCCvAPzicgKI/AwFy2B+QQ5C8I9ssmxNdE+tr//+/n1vIfKVrshQ=="
     ),
+    "Spectral_r": (
+        "eNoVk3lMFXQAx2utrbW21tZaW2trra21tdYySzPNeBePx3tERCgS4phX5jHM0DwKdTTG1Mwjkfvxe9yP+3FLThEv"
+        "RPEgRBJR7hvk3e/3+4Sf7bPP398/vrFhVmLC84iOEKyKtBEVlU9kdAERMYWExxbxTVwxlvgSQteXYtpox7i5DMNP"
+        "5ei2VaDdUUlQQhUrd9WwItHB8j21LNtbx9L99Sz5vYHPDjby6eEmPkluZlFKM4tTm/j8SCNLjzWw7K96lp+s46vT"
+        "tXyd5kCT7kCXWYMhuxqjtQqTqMScX0FYYTnhJWVE2O1ElpcSVVXC6ppi1tQW8UN9IWubClh3Lp/4f2xsuGBj00XB"
+        "llbBtkuCHW2CnZcFv1wR7L4q2HtNcOC6IKldcOiGILlDkHJTkHpLcLRTcPy24ORdwel7grQuQca/gqxuQe59gegR"
+        "5D8QFPUKSv/Lo+xhHhV9VqofWXH051L3OJfGJzk0D+TQMpjD+cFsLg5lc2k4i8sjWVwbzaR9LJOO8Qw6JzK4M5nO"
+        "val0uqfP0jNzlt7ZNPrm0uh/eoYn82cYcj4zjWFnOiOuDEZdWYy5shl35zLhtjLpEUx5bEx7CpjxFjLrLWbOV8JT"
+        "n515XxlOfwUufxXuQDWegANvoBafrMcvGwioJqRqRqmWBc+hZBPK34Dy1aG8DpSnGuWuRDnLUfN21NMS1FwRarYA"
+        "NW1DTeWhJnNRE9mohU1qNB01koYa/hs1dAo1cAL15Djq8TFU/xHUo1TkwxRk7x/InmRk92Fk10Hk3STk7d+Qt/Yj"
+        "O/Yh239FXtuNvJKIbNuFbN2JvJCAPL8D2bId2bwV2bgFWf8jsnYTsmYDsmo9siIeWbaOQGkcgeK1BApi8dti8FvX"
+        "4M+Oxpe5Gt/ZVfjOROE9FYn3xHd4/ozAc/RbPKnhuFPCcCdbcB8y40oKxXXAhGtfCM49wTgTDTh/1jOfoGN+u5b5"
+        "rRrmtmiY3axhZqOW6fVaJuN1TKzTMR6nZyxWz2iMgeFoA0Orghn8PpiBSCOPI4z0h4fwKCyEPrOJhyYTvUYTD4JD"
+        "6dGHcl9rpjvITNdKC/dWWLjzpYXOLyzcXGLmxmIz1xeFcvXjUNo+MtH6oYkLH4Rw/v0QWt4z0vyukcZ3gql7OxjH"
+        "Wwaq3zRQ+Yae8tf12F/TUfyqjsJXtOS/rEW8pMH6ooacF4LIej6I2IX/P+tzC/wPvNfshw=="
+    ),
     "gray_r": (
         "eNotxgks0A0AQHE1ORaSoYwic44kixg6rKiRazma23RYp1aO5YiGUnItd87lDKVVSoVaqUhhznIUipSjSwe99v33"
         "ve23PYC/f/+ysLDA/Pw8f/784ffv3/z69YufP38yNzfHjx8/+P79O9++fePr1698+fKF2dlZZmZmmJ6eZmpqis+f"
@@ -47,6 +64,22 @@ _TABLES = {
         "6zE0NBSsW7cOAwMD1q5di76+Pnp6eujq6qKjoyPQ1tZGS0sLTU1NNDQ0UFdXZ82aNaipqQlUVVVZvXo1q1atQkVF"
         "BWVlZZSUlFi5cqVgxYoVKCoqoqCggLy8PHJycixfvhxZWVnBsmXLkJGRQVpaGikpKZYuXYqkpCQSEhICcXFxxMTE"
         "WLJkCaKioixevJhFixYhIiIi+K//X+QfaEaCKA=="
+    ),
+    "magma": (
+        "eNot0+lTVWUAgPGLbLKee0BERcVQiRAFRVKUXHCXKKJI7XLhArIj+353XFJTM4whTWNIIzOGZBgyhjTHyhbHynKs"
+        "HK2sNMeMNDODe855ej/04TfPX/DodO7odB6CF246b9zcfAQ/Ro0KECTc3WU83IPx8AjB0yMUL8/xeHuGMdprEj7e"
+        "4fh6R+A3ehr+PpEE+EYR6BuN5BeD3j8W2X82QQHxjAlIICRwPmMDFxAqJTFOWswE/VLC9MuZqF/JZP0awuUUpsip"
+        "RMhpTJXTmS5nECmvI0reQLScyQw5i5l6E7H6XOL0+czRFzJXX0SCVMI8qYxEqZyFUgVJUhWLpGqWSDUkS7Usk+pY"
+        "IdWzSmpgtb6RtfomUoRUuZknZTNpQWbSgyw8HWwhI9jKujFW1ofYeE4wjLVhDLWRFWrHNM5OjpA33k7+BAcFQlGY"
+        "g+KJDkqFskkOyic7qRCqwp3UCLVTnNQ/5KRBaIpw0ixYpjqxTXNiF5zTnbQIWyKdbBWef9jJjignO4VdjzjYLbwY"
+        "7eAloXWGg5eFthgH7TF29s+0c0A4OMvOa7NsdMTa6BQOx9k4Emela7aVN4W35lh4O95Cd7yZnrlmjgu9Cc30Cf2P"
+        "NvGu8N68RgaEwfkNnExs4FRiPacX1HFG+HBhLR8n1XI2qYZPH6vm80XVnFtUxfnFlXyxpJKvllZwIbmcb5I3cXHZ"
+        "Ji4tL+PbFaV8v7KEy6uKubK6mKtrivhhbSE/pRRw7fECfk7N59cnNnI9LY8bT+XyW3ouN5/J4VaGid+fNXF7fTZ/"
+        "bMhmyJDFkNHIn1lG7piM3M3J5K+8TO7lC4UG/i4ycL9EKDPwT7lQaeBBlVCTyb91QkMmw02C2ciw1ciIPYsRh9CS"
+        "jWuLCdc2YXsOrp25KLvyUPYIezeitOaj7CtAbStEbS9C3V+M+moJ6qFS1I4y1M5y1NcrUI9UonVVoR2tQTtWi9Zd"
+        "h9ZTj/ZOI1pvE1qfGa3fgnbCijZgRxt0oL3fgnZqM9rprWhntqF9tB3t7A60T15A+2w32rk9qOf3on7ZinphH+rX"
+        "bagX21EvvYL63QHUywdRrxxCvdqB+mMn6rXDKL+8gXK9C+XGUZSbx1BudaPc7kEZOo5ypxflbh/KvX6U+ydwPRjA"
+        "NTyIa+QkLuUD8b37/9Xp/gPfH2Jg"
     ),
     "magma_r": (
         "eNoV04lTVWUAhnGQTdZzD4ioqBgqEaKgSIoSKu4SRRSp3cvlArIj+353XFJTM4whTWNIIzOGZBgyhjTHyhbHynKs"

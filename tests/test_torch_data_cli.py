@@ -12,15 +12,19 @@ tests/test_torch_slice.py put into the repository's Cityscapes configs.
   skipped.
 - ``test.main`` with that checkpoint gives ``Tester.run``'s aggregate on
   the same model and frames, bit for bit; a checkpoint tensor the model
-  cannot take raises; the test types that are not ported (``consistency``,
-  ``benchmark``) raise, and without ``--device cpu`` it needs a card.
+  cannot take raises; without ``--device cpu`` it needs a card;
+  ``--test-type benchmark`` prints the fps and the complexity with JAX's
+  keys (but XLA's ``bytes_accessed``) and writes ``benchmark.txt``.
 - UnrealStereo4K: one stage-3 step of ``v2_eff_u4k.py`` on a 2160x3840
-  frame the fixture writes, and ``test.main``'s m1 evaluation of its
+  frame the test writes, and ``test.main``'s m1 evaluation of its
   checkpoint on the config's test loader (the same frame): finite metrics,
-  the boundary's soft edge error among them.
+  the boundary's soft edge error among them; ``--test-type consistency``
+  on that frame (the config's consistency loader, the 16 crops of its 4x4
+  grid) prints ``Tester.run_consistency``'s error on the same loader.
 """
 
 import json
+import random
 import shutil
 from pathlib import Path
 
@@ -105,6 +109,13 @@ train_cfg = dict(max_epochs=1, val_interval=1, log_interval=1, save_checkpoint_i
     path = tmp_path / f"tiny_{base}"
     path.write_text(text)
     return str(path)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed after the test with what it wrote."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture
@@ -205,20 +216,37 @@ def test_test_cli_raises_for_a_checkpoint_that_does_not_fit(trained, tmp_path):
                            "--cfg-option", "test_in_dataloader=None"])
 
 
-def test_test_cli_raises_for_what_is_not_ported(trained):
-    """The test types the port lacks (``consistency``, ``benchmark``) raise;
-    ``general``, ``gen`` and ``--save`` are ported (tests/test_torch_general_cli.py)."""
+def test_test_cli_needs_a_card_without_device_cpu(trained):
+    """Without ``--device cpu`` the entry point runs on the card, and raises
+    where there is none."""
     config, _ = trained
-    for extra in (["--test-type", "consistency"], ["--test-type", "benchmark"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            evaluate.main([config, "--device", "cpu", *extra])
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device: the default device is the card")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         evaluate.main([config])
 
 
-def test_u4k_train_and_test_cli(tmp_path, wd, monkeypatch):
+def test_test_cli_benchmark(trained, tmp_path, capsys):
+    """``--test-type benchmark`` on the first val frame: ``Tester.benchmark``
+    then ``model_complexity``, one JSON line of both."""
+    config, _ = trained
+    out = evaluate.main([config, "--device", "cpu", "--test-type", "benchmark", "--bench-iters", "2",
+                         "--bench-warmup", "1", "--bench-repeats", "2", "--work-dir", str(tmp_path),
+                         "--cfg-option", "test_in_dataloader=None"])
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed == out and sorted(out) == ["benchmark", "complexity"]
+    assert sorted(out["benchmark"]) == ["fps", "fps_variance"] and out["benchmark"]["fps"] > 0
+    assert sorted(out["complexity"]) == ["flops", "params"] and out["complexity"]["flops"] > 0
+    model = build_model(Config.fromfile(config).model, device="cpu", seed=0)
+    assert out["complexity"]["params"] == sum(p.numel() for p in model.net.parameters())
+    lines = (tmp_path / "benchmark.txt").read_text().splitlines()
+    assert lines[:2] == ["cai_mode: m1", "process_num: 4"]
+    assert lines[2] == f"fps_mean: {out['benchmark']['fps']:.6f}"
+
+
+def write_u4k(tmp_path: Path) -> dict:
+    """One UnrealStereo4K frame (2160x3840) under ``tmp_path/data`` and its
+    split; returns the readers' options (48x64 process size)."""
     rng = np.random.RandomState(1)
     scene = tmp_path / "data" / "00000"
     for d in ("Image0", "Disp0", "Extrinsics0", "Extrinsics1"):
@@ -229,10 +257,16 @@ def test_u4k_train_and_test_cli(tmp_path, wd, monkeypatch):
     for name, tx in (("Extrinsics0", 0.0), ("Extrinsics1", -0.1)):
         (scene / name / "000.txt").write_text(f"1000.0 0.0 960.0\n0.0 1.0 0.0 {tx}\n")
     (tmp_path / "split.txt").write_text("/00000/Image0/000.raw\n")
+    return dict(data_root=str(tmp_path / "data"), split=str(tmp_path / "split.txt"),
+                transform_cfg=dict(network_process_size=[H // 2, W // 2]))
+
+
+def u4k_config(tmp_path: Path, data: dict) -> Path:
+    """``v2_eff_u4k.py`` with the tiny flagship at the 4K tiling and every
+    loader on ``data``."""
     model = slice_config()
     model.update(image_raw_shape=[2160, 3840], patch_raw_shape=[540, 960], patch_split_num=[4, 4])
-    data = dict(data_root=str(tmp_path / "data"), split=str(tmp_path / "split.txt"),
-                transform_cfg=dict(network_process_size=[H // 2, W // 2]))
+    consistency = dict(data, transform_cfg=dict(data["transform_cfg"], image_raw_shape=[2160, 3840]))
     config = tmp_path / "tiny_u4k.py"
     config.write_text(f"""
 _base_ = [{str(U4K)!r}]
@@ -240,8 +274,14 @@ model = {dict(_delete_=True, type="PatchRefinerPlus", config=model)!r}
 train_dataloader = dict(batch_size=1, num_workers=2, dataset={data!r})
 val_dataloader = None
 test_in_dataloader = dict(dataset={data!r})
+val_consistency_dataloader = dict(num_workers=1, dataset={consistency!r})
 train_cfg = dict(max_epochs=1, log_interval=1, save_checkpoint_interval=1, train_log_img_interval=0)
 """)
+    return config
+
+
+def test_u4k_train_and_test_cli(tmp_path, wd, monkeypatch):
+    config = u4k_config(tmp_path, write_u4k(tmp_path))
     train_main([str(config), "--work-dir", str(wd), "--device", "cpu", "--seed", "3"])
     rows = [json.loads(r) for r in (wd / "metrics.jsonl").read_text().splitlines()]
     assert len(rows) == 1 and np.isfinite(rows[0]["total_loss"])
@@ -252,3 +292,20 @@ train_cfg = dict(max_epochs=1, log_interval=1, save_checkpoint_interval=1, train
     # every tensor of the checkpoint taken, none skipped
     assert taken == [len(load_checkpoint(str(wd / "checkpoint_01"))["state_dict"])]
     assert len(got) == 10 and "see" in got and all(np.isfinite(v) for v in got.values())
+
+
+def test_u4k_consistency_cli(tmp_path, capsys):
+    """``--test-type consistency`` on the UnrealStereo4K frame (its
+    augmentations drawn after the entry point's seeds) prints the error that
+    ``Tester.run_consistency`` gives on the same loader and model."""
+    config = u4k_config(tmp_path, write_u4k(tmp_path))
+    got = evaluate.main([str(config), "--device", "cpu", "--test-type", "consistency"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == {"metrics": got}
+    cfg = Config.fromfile(str(config))
+    random.seed(621)
+    np.random.seed(621)
+    model = build_model(cfg.model, device="cpu", seed=0)
+    ds = build_dataset(cfg.val_consistency_dataloader.dataset)
+    assert ds.consistency and ds.overlap == 270 and len(ds) == 1
+    want = PortTester(cfg, model, DataLoader(ds)).run_consistency(process_num=4)
+    assert got == want and np.isfinite(got["consistency"]) and got["consistency"] > 0
